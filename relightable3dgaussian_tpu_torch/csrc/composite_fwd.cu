@@ -10,6 +10,12 @@
 //   w = alpha * T counts only while the INCOMING transmittance T >= 1e-4;
 //   n_contrib counts the pairs with w > 0; all A attribute channels are
 //   blended in one pass; per-gaussian weights are sums of w over pixels.
+// It also writes the walk state the backward kernel K2 (composite_bwd.cu)
+// starts from, per pixel: the transmittance T at which the pixel stopped,
+// and the index into the tile's range one past the last pair it walked (the
+// pair that took its T under 1e-4, or the range length). The JAX package's
+// TPU kernel keeps the same state per tile chunk (composite_pallas_forward,
+// with_walk).
 // expf (not __expf) and no fast-math flags: the alpha >= 1/255 and T >= 1e-4
 // threshold crossings must land where the plain version puts them.
 //
@@ -56,7 +62,9 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
                      int tiles_x, int a_dim,
                      float* __restrict__ image,           // [tiles, 256, A]
                      int* __restrict__ n_contrib,         // [tiles, 256]
-                     float* __restrict__ weights) {       // [P] or null
+                     float* __restrict__ weights,         // [P] or null
+                     float* __restrict__ final_T,         // [tiles, 256]
+                     int* __restrict__ stop) {            // [tiles, 256]
   constexpr int AMAX = A_STATIC > 0 ? A_STATIC : kMaxA;
   const int A = A_STATIC > 0 ? A_STATIC : a_dim;
 
@@ -84,6 +92,7 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
   float T = 1.f;
   int count = 0;
   int done = 0;
+  int walked = end - start;  // one past the last pair walked, in the range
 
   for (int base = start; base < end; base += kBlock) {
     // Barrier for the previous batch's readers, and the block-wide exit vote.
@@ -124,6 +133,7 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
           count += (w > 0.f);
           T *= 1.f - alpha;
           done = T < 1e-4f;
+          if (done) walked = base + j + 1 - start;
         }
       }
       if (weights != nullptr) {
@@ -144,6 +154,8 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
   for (int a = 0; a < AMAX; ++a)
     if (a < A) image[pix * A + a] = acc[a];
   n_contrib[pix] = count;
+  final_T[pix] = T;
+  stop[pix] = walked;
 }
 
 }  // namespace
@@ -153,7 +165,8 @@ extern "C" int r3dg_composite_fwd(const void* tile_start, const void* tile_end,
                                   const void* conic, const void* opacity,
                                   const void* attrs, int num_tiles, int tiles_x,
                                   int a_dim, void* image, void* n_contrib,
-                                  void* weights, void* stream) {
+                                  void* weights, void* final_T, void* stop,
+                                  void* stream) {
   if (num_tiles <= 0) return 0;
   if (a_dim < 1 || a_dim > kMaxA) return static_cast<int>(cudaErrorInvalidValue);
   const auto* ts = static_cast<const int*>(tile_start);
@@ -166,13 +179,15 @@ extern "C" int r3dg_composite_fwd(const void* tile_start, const void* tile_end,
   auto* img = static_cast<float*>(image);
   auto* cnt = static_cast<int*>(n_contrib);
   auto* wts = static_cast<float*>(weights);
+  auto* ft = static_cast<float*>(final_T);
+  auto* st = static_cast<int*>(stop);
   auto s = static_cast<cudaStream_t>(stream);
   if (a_dim == 9) {  // the stage-1 render: rgb 3 + [normal, depth^2] 4 + depth + 1
     composite_fwd_kernel<9><<<num_tiles, kBlock, 0, s>>>(
-        ts, te, ids, m, c, o, at, tiles_x, a_dim, img, cnt, wts);
+        ts, te, ids, m, c, o, at, tiles_x, a_dim, img, cnt, wts, ft, st);
   } else {
     composite_fwd_kernel<0><<<num_tiles, kBlock, 0, s>>>(
-        ts, te, ids, m, c, o, at, tiles_x, a_dim, img, cnt, wts);
+        ts, te, ids, m, c, o, at, tiles_x, a_dim, img, cnt, wts, ft, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

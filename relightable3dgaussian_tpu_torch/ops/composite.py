@@ -7,7 +7,9 @@ a pair is skipped where power > 0 or α < 1/255; the blend weight is w = α·T
 where the INCOMING transmittance T ≥ 1e-4 (else 0); `n_contrib` counts w > 0.
 
 This is the CPU path, the reference that kernel K1 (ops/composite_cuda.py) is
-checked against on the card, and it is differentiable by autograd. Tiles are
+checked against on the card, and it is differentiable by autograd;
+`composite_backward`, its vector-Jacobian product, is the plain version of
+kernel K2. Tiles are
 batched by range length: a batch of G tiles whose longest range is L costs
 G·L·256 elements per intermediate, kept under BATCH_ELEMENTS.
 """
@@ -44,24 +46,20 @@ def _tile_batches(lengths: list[int], max_elements: int) -> list[list[int]]:
     return batches
 
 
-def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
-              opacity: torch.Tensor, attrs: torch.Tensor,
-              cfg: RasterConfig) -> CompositeOut:
-    """Blend depth-sorted gaussians into per-tile pixel buffers.
+class _Blend(NamedTuple):
+    """One batch of tiles blended: what composite and its backward read."""
+    tiles: torch.Tensor       # [G] tile ids
+    image: torch.Tensor       # [G, tile², A]
+    w: torch.Tensor           # [G, L, tile²] blend weights
+    ids: torch.Tensor         # [G, L] gaussian ids (0 where not valid)
+    valid: torch.Tensor       # [G, L] slot lies in the tile's range
 
-    Args:
-      binning: output of bin_gaussians.
-      mean2d: [P, 2]; conic: [P, 3]; opacity: [P] activated opacities.
-      attrs: [P, A] per-gaussian blended attributes (rgb, features, depth, 1).
 
-    Returns:
-      CompositeOut with image [num_tiles, tile², A]; weights are zeros when
-      cfg.compute_weights is False.
-    """
-    P, A = attrs.shape
+def _batches(binning: Binning, cfg: RasterConfig, mean2d, conic, opacity,
+             attrs):
+    """Blend the tiles batch by batch (a generator of _Blend)."""
     dev = attrs.device
     tile = cfg.tile
-    tt = tile * tile
     start = binning.tile_start.to(torch.int64)
     lengths = (binning.tile_end.to(torch.int64) - start)
     ids_all = binning.sorted_ids.to(torch.int64)
@@ -70,8 +68,6 @@ def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     px_local = lx.repeat(tile)                 # pixel p: x = p % tile
     py_local = lx.repeat_interleave(tile)      #          y = p // tile
 
-    tiles_done, images, counts = [], [], []
-    w_ids, w_sums = [], []
     for batch in _tile_batches(lengths.tolist(), BATCH_ELEMENTS):
         tb = torch.tensor(batch, device=dev, dtype=torch.int64)
         L = int(lengths[batch[0]])
@@ -99,13 +95,36 @@ def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
         cum = torch.cumprod(1.0 - alpha, dim=1)
         T_at = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
         w = torch.where(T_at >= 1e-4, alpha * T_at, 0.0)          # [G, L, tt]
+        yield _Blend(tiles=tb, image=torch.einsum("glt,gla->gta", w, attrs[ids]),
+                     w=w, ids=ids, valid=valid)
 
-        images.append(torch.einsum("glt,gla->gta", w, attrs[ids]))
-        counts.append((w > 0).sum(1).to(torch.int32))
-        tiles_done.append(tb)
+
+def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
+              opacity: torch.Tensor, attrs: torch.Tensor,
+              cfg: RasterConfig) -> CompositeOut:
+    """Blend depth-sorted gaussians into per-tile pixel buffers.
+
+    Args:
+      binning: output of bin_gaussians.
+      mean2d: [P, 2]; conic: [P, 3]; opacity: [P] activated opacities.
+      attrs: [P, A] per-gaussian blended attributes (rgb, features, depth, 1).
+
+    Returns:
+      CompositeOut with image [num_tiles, tile², A]; weights are zeros when
+      cfg.compute_weights is False.
+    """
+    P, A = attrs.shape
+    dev = attrs.device
+    tt = cfg.tile * cfg.tile
+    tiles_done, images, counts = [], [], []
+    w_ids, w_sums = [], []
+    for b in _batches(binning, cfg, mean2d, conic, opacity, attrs):
+        images.append(b.image)
+        counts.append((b.w > 0).sum(1).to(torch.int32))
+        tiles_done.append(b.tiles)
         if cfg.compute_weights:
-            w_ids.append(ids[valid])
-            w_sums.append(w.sum(-1)[valid])
+            w_ids.append(b.ids[b.valid])
+            w_sums.append(b.w.sum(-1)[b.valid])
 
     image = torch.zeros((cfg.num_tiles, tt, A), dtype=attrs.dtype, device=dev)
     n_contrib = torch.zeros((cfg.num_tiles, tt), dtype=torch.int32, device=dev)
@@ -117,6 +136,35 @@ def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
         if cfg.compute_weights:
             weights = weights.index_add(0, torch.cat(w_ids), torch.cat(w_sums))
     return CompositeOut(image=image, weights=weights, n_contrib=n_contrib)
+
+
+def composite_backward(binning: Binning, mean2d: torch.Tensor,
+                       conic: torch.Tensor, opacity: torch.Tensor,
+                       attrs: torch.Tensor, g_image: torch.Tensor,
+                       g_weights: torch.Tensor | None, cfg: RasterConfig):
+    """The plain version of kernel K2: the vector-Jacobian product of
+    `composite` for the cotangents g_image [num_tiles, tile², A] and
+    g_weights [P] (None means zeros), by torch.autograd.grad through the
+    plain compositor. Tiles blend independently, so it runs one tile batch
+    at a time and sums: memory stays that of one batch.
+
+    Returns (g_mean2d [P, 2], g_conic [P, 3], g_opacity [P], g_attrs [P, A]).
+    """
+    leaves = [x.detach().requires_grad_() for x in
+              (mean2d, conic, opacity, attrs)]
+    grads = [torch.zeros_like(x) for x in leaves]
+    use_w = g_weights is not None and cfg.compute_weights
+    with torch.enable_grad():
+        for b in _batches(binning, cfg, *leaves):
+            objective = (b.image * g_image[b.tiles]).sum()
+            if use_w:
+                objective = objective + (b.w.sum(-1)[b.valid]
+                                         * g_weights[b.ids[b.valid]]).sum()
+            for g, d in zip(grads, torch.autograd.grad(
+                    objective, leaves, allow_unused=True)):
+                if d is not None:
+                    g += d
+    return tuple(grads)
 
 
 def tiles_to_image(tile_buf: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:

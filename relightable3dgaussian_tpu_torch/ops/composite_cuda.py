@@ -1,20 +1,23 @@
-"""Kernel K1: the forward tile compositor on the card.
+"""Kernels K1 and K2: the tile compositor and its backward on the card.
 
-K1 replaces the TPU kernel
-`relightable3dgaussian_tpu/ops/composite_pallas.py::_kernel`.
+K1 (`csrc/composite_fwd.cu`) replaces the TPU kernel
+`relightable3dgaussian_tpu/ops/composite_pallas.py::_kernel`; K2
+(`csrc/composite_bwd.cu`) replaces
+`relightable3dgaussian_tpu/ops/composite_pallas_bwd.py::_bwd_kernel_single`.
 
 `composite` takes the same inputs as the plain compositor
 (ops/composite.py::composite) and returns the same `CompositeOut`:
-  * CPU tensors → the plain PyTorch version;
-  * CUDA tensors → the hand-written kernel `csrc/composite_fwd.cu`, or an
-    exception. A build or launch error is raised, never answered with the
-    plain version.
-The kernel has no backward yet: CUDA inputs that require grad raise
-NotImplementedError. `LAUNCHES` counts the kernel's launches.
+  * CPU tensors → the plain PyTorch version, differentiable by autograd;
+  * CUDA tensors → `CompositeFunction`, a `torch.autograd.Function` whose
+    forward is K1 and whose backward is K2, or an exception. A build or
+    launch error is raised, never answered with the plain version.
+`image` and `weights` are differentiable; `n_contrib` is not. `LAUNCHES`
+counts K1's launches and `BWD_LAUNCHES` K2's.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,16 +27,25 @@ from .config import RasterConfig
 from .tiles import Binning
 
 KERNEL = "composite_fwd"
-MAX_ATTRS = 32     # csrc/composite_fwd.cu kMaxA
-LAUNCHES = 0       # launches of the kernel since import (or the last reset)
+BWD_KERNEL = "composite_bwd"
+MAX_ATTRS = 32     # csrc/composite_{fwd,bwd}.cu kMaxA
+LAUNCHES = 0       # launches of K1 since import (or the last reset)
+BWD_LAUNCHES = 0   # launches of K2 since import (or the last reset)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(KERNEL)
-    fn = lib.r3dg_composite_fwd
+class WalkState(NamedTuple):
+    """K1's per-pixel walk state, where K2 starts."""
+    final_T: torch.Tensor   # [num_tiles, 256] f32 transmittance at the stop
+    stop: torch.Tensor      # [num_tiles, 256] i32 one past the last pair walked
+
+
+def _library(name: str, symbol: str, n_ptr_in: int, n_int: int,
+             n_ptr_out: int) -> ctypes.CDLL:
+    lib = _build.load_library(name)
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 4)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p] * n_ptr_out)
         fn.restype = ctypes.c_int
     return lib
 
@@ -41,7 +53,8 @@ def _library() -> ctypes.CDLL:
 def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
               opacity: torch.Tensor, attrs: torch.Tensor,
               cfg: RasterConfig) -> CompositeOut:
-    """Tile compositing: the plain version on CPU tensors, K1 on CUDA tensors."""
+    """Tile compositing: the plain version on CPU tensors, K1 (forward) and
+    K2 (backward) on CUDA tensors."""
     tensors = (binning.sorted_ids, binning.tile_start, binning.tile_end,
                mean2d, conic, opacity, attrs)
     devices = {t.device.type for t in tensors}
@@ -50,44 +63,92 @@ def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     if devices != {"cuda"}:
         raise ValueError(f"composite: inputs on {sorted(devices)}; "
                          "expected all on CPU or all on CUDA")
-    return composite_k1(binning, mean2d, conic, opacity, attrs, cfg)
+    image, weights, n_contrib = CompositeFunction.apply(
+        mean2d, conic, opacity, attrs, binning, cfg)
+    return CompositeOut(image=image, weights=weights, n_contrib=n_contrib)
+
+
+class CompositeFunction(torch.autograd.Function):
+    """(mean2d, conic, opacity, attrs) → (image, weights, n_contrib) by K1;
+    the backward is K2, started from K1's walk state."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, attrs, binning: Binning,
+                cfg: RasterConfig):
+        out, walk = composite_k1(binning, mean2d, conic, opacity, attrs, cfg)
+        ctx.binning, ctx.cfg = binning, cfg
+        ctx.save_for_backward(mean2d, conic, opacity, attrs, *walk)
+        ctx.mark_non_differentiable(out.n_contrib)
+        # An output the loss does not read gets a None cotangent, not zeros.
+        ctx.set_materialize_grads(False)
+        return out.image, out.weights, out.n_contrib
+
+    @staticmethod
+    def backward(ctx, g_image, g_weights, _g_n_contrib):
+        mean2d, conic, opacity, attrs, final_T, stop = ctx.saved_tensors
+        cfg = ctx.cfg
+        # Without compute_weights K1 returns zeros that no input reaches.
+        if not cfg.compute_weights:
+            g_weights = None
+        if g_image is None and g_weights is None:
+            return (None,) * 6
+        if g_image is None:
+            g_image = torch.zeros((cfg.num_tiles, cfg.tile * cfg.tile,
+                                   attrs.shape[1]), device=attrs.device)
+        grads = composite_k2(ctx.binning, mean2d, conic, opacity, attrs,
+                             WalkState(final_T, stop), g_image.contiguous(),
+                             g_weights, cfg)
+        return (*grads, None, None)
+
+
+def _check(kernel: str, expect: dict, device: torch.device) -> None:
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{kernel} {name}: got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, expected {dtype} {shape} on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} {name}: not contiguous")
+
+
+def _inputs(kernel: str, binning: Binning, mean2d, conic, opacity, attrs,
+            cfg: RasterConfig) -> dict:
+    """The shapes both kernels take, checked; returns the expectation dict."""
+    if cfg.tile != 16:
+        raise ValueError(f"{kernel} takes 16x16 tiles, got tile={cfg.tile}")
+    P, A = attrs.shape
+    if not 1 <= A <= MAX_ATTRS:
+        raise ValueError(f"{kernel} takes 1..{MAX_ATTRS} attribute channels, "
+                         f"got {A}")
+    return {"mean2d": (mean2d, (P, 2), torch.float32),
+            "conic": (conic, (P, 3), torch.float32),
+            "opacity": (opacity, (P,), torch.float32),
+            "attrs": (attrs, (P, A), torch.float32),
+            "sorted_ids": (binning.sorted_ids, (binning.num_rendered,),
+                           torch.int32),
+            "tile_start": (binning.tile_start, (cfg.num_tiles,), torch.int32),
+            "tile_end": (binning.tile_end, (cfg.num_tiles,), torch.int32)}
 
 
 def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
                  opacity: torch.Tensor, attrs: torch.Tensor,
-                 cfg: RasterConfig) -> CompositeOut:
-    """Launch K1 on CUDA tensors (forward only)."""
+                 cfg: RasterConfig) -> tuple[CompositeOut, WalkState]:
+    """Launch K1 on CUDA tensors: the forward outputs and the walk state."""
     global LAUNCHES
-    if any(t.requires_grad for t in (mean2d, conic, opacity, attrs)):
-        raise NotImplementedError("backward kernel K2: later PR")
-    if cfg.tile != 16:
-        raise ValueError(f"K1 takes 16x16 tiles, got tile={cfg.tile}")
-    P, A = attrs.shape
-    if not 1 <= A <= MAX_ATTRS:
-        raise ValueError(f"K1 takes 1..{MAX_ATTRS} attribute channels, got {A}")
-    expect = {"mean2d": (mean2d, (P, 2), torch.float32),
-              "conic": (conic, (P, 3), torch.float32),
-              "opacity": (opacity, (P,), torch.float32),
-              "attrs": (attrs, (P, A), torch.float32),
-              "sorted_ids": (binning.sorted_ids, (binning.num_rendered,),
-                             torch.int32),
-              "tile_start": (binning.tile_start, (cfg.num_tiles,), torch.int32),
-              "tile_end": (binning.tile_end, (cfg.num_tiles,), torch.int32)}
+    expect = _inputs("K1", binning, mean2d, conic, opacity, attrs, cfg)
     device = attrs.device
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"K1 {name}: got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, expected {dtype} {shape} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"K1 {name}: not contiguous")
-
-    lib = _library()
+    _check("K1", expect, device)
+    P, A = attrs.shape
+    lib = _library(KERNEL, "r3dg_composite_fwd", 7, 3, 6)
     tt = cfg.tile * cfg.tile
     image = torch.empty((cfg.num_tiles, tt, A), dtype=torch.float32,
                         device=device)
     n_contrib = torch.empty((cfg.num_tiles, tt), dtype=torch.int32,
                             device=device)
     weights = torch.zeros((P,), dtype=torch.float32, device=device)
+    final_T = torch.empty((cfg.num_tiles, tt), dtype=torch.float32,
+                          device=device)
+    stop = torch.empty((cfg.num_tiles, tt), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.r3dg_composite_fwd(
@@ -96,8 +157,52 @@ def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
             conic.data_ptr(), opacity.data_ptr(), attrs.data_ptr(),
             cfg.num_tiles, cfg.tiles_x, A, image.data_ptr(),
             n_contrib.data_ptr(),
-            weights.data_ptr() if cfg.compute_weights else None, stream)
+            weights.data_ptr() if cfg.compute_weights else None,
+            final_T.data_ptr(), stop.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
     LAUNCHES += 1
-    return CompositeOut(image=image, weights=weights, n_contrib=n_contrib)
+    return (CompositeOut(image=image, weights=weights, n_contrib=n_contrib),
+            WalkState(final_T=final_T, stop=stop))
+
+
+def composite_k2(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
+                 opacity: torch.Tensor, attrs: torch.Tensor, walk: WalkState,
+                 g_image: torch.Tensor, g_weights: torch.Tensor | None,
+                 cfg: RasterConfig):
+    """Launch K2 on CUDA tensors: (g_mean2d, g_conic, g_opacity, g_attrs)
+    for the cotangents g_image [num_tiles, 256, A] and g_weights [P] (None
+    means zeros), from K1's walk state on the same inputs."""
+    global BWD_LAUNCHES
+    expect = _inputs("K2", binning, mean2d, conic, opacity, attrs, cfg)
+    P, A = attrs.shape
+    tt = cfg.tile * cfg.tile
+    expect.update({
+        "final_T": (walk.final_T, (cfg.num_tiles, tt), torch.float32),
+        "stop": (walk.stop, (cfg.num_tiles, tt), torch.int32),
+        "g_image": (g_image, (cfg.num_tiles, tt, A), torch.float32)})
+    if g_weights is not None:
+        expect["g_weights"] = (g_weights, (P,), torch.float32)
+    device = attrs.device
+    _check("K2", expect, device)
+    lib = _library(BWD_KERNEL, "r3dg_composite_bwd", 10, 3, 5)
+    g_mean2d = torch.zeros((P, 2), dtype=torch.float32, device=device)
+    g_conic = torch.zeros((P, 3), dtype=torch.float32, device=device)
+    g_opacity = torch.zeros((P,), dtype=torch.float32, device=device)
+    g_attrs = torch.zeros((P, A), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.r3dg_composite_bwd(
+            binning.tile_start.data_ptr(), binning.sorted_ids.data_ptr(),
+            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
+            attrs.data_ptr(),
+            walk.final_T.data_ptr(), walk.stop.data_ptr(),
+            g_image.data_ptr(),
+            g_weights.data_ptr() if g_weights is not None else None,
+            cfg.num_tiles, cfg.tiles_x, A, g_mean2d.data_ptr(),
+            g_conic.data_ptr(), g_opacity.data_ptr(), g_attrs.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
+    BWD_LAUNCHES += 1
+    return g_mean2d, g_conic, g_opacity, g_attrs

@@ -4,8 +4,9 @@ Only the fields the port reads. The JAX package's budget fields
 (`buffer_multiple`, `max_tiles_per_gaussian`, `chunk`, `max_chunks_per_tile`,
 `tier_plan`, `use_pallas`) size static TPU buffers; the port sizes its buffers
 per call instead, as the CUDA reference does, and never drops a pair.
-`white_background` and `bg_depth` come with the training and eval entry
-points that read them; the render takes its background colour as an argument.
+`white_background` is read by the training loop (its background colour and
+opacity-reset schedule); the render takes its background colour as an
+argument. `bg_depth` comes with the eval entry points that read it.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ class RasterConfig:
     # Accumulate per-gaussian blend weights (densification stats); a pure
     # render can skip them.
     compute_weights: bool = True
+    white_background: bool = False
 
     @property
     def tiles_x(self) -> int:

@@ -64,11 +64,15 @@ def compute_cov2d(mean3d: torch.Tensor, cov3d: torch.Tensor,
 def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                rotations: torch.Tensor, shs: torch.Tensor, cam: CameraParams,
                cfg: RasterConfig,
+               mean2d_offset: torch.Tensor | None = None,
                opacity: torch.Tensor | None = None) -> Preprocessed:
     """Project all gaussians; culled gaussians get radius 0.
 
-    When `opacity` ([P] activated) is given, the tile rect uses the tighter
-    alpha-aware radius sqrt(2 λmax ln(255 op)); `radius` keeps the 3σ value.
+    `mean2d_offset` ([P, 2], zeros) is added to the pixel-space means: its
+    `.grad` is d(loss)/d(mean2d), the densification statistic (the
+    reference's `screenspace_points`). When `opacity` ([P] activated) is
+    given, the tile rect uses the tighter alpha-aware radius
+    sqrt(2 λmax ln(255 op)); `radius` keeps the 3σ value.
     """
     xyz1 = _homogeneous(means3d)
     p_view = xyz1 @ cam.world_view
@@ -97,6 +101,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     mean2d = torch.stack(
         [((p_proj[:, 0] + 1.0) * cfg.width - 1.0) * 0.5,
          ((p_proj[:, 1] + 1.0) * cfg.height - 1.0) * 0.5], dim=-1)
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
 
     radius = torch.where(in_frustum & det_ok, radius_f, 0.0).to(torch.int32)
 

@@ -39,7 +39,7 @@ class RasterOut(NamedTuple):
 
 
 def prepare(means3d, scales, rotations, opacity, shs, features,
-            cam: CameraParams, cfg: RasterConfig):
+            cam: CameraParams, cfg: RasterConfig, mean2d_offset=None):
     """Everything before the compositor: (Preprocessed, Binning, attrs
     [P, A]) with the attribute layout [rgb, features, depth, 1]."""
     P = means3d.shape[0]
@@ -47,7 +47,7 @@ def prepare(means3d, scales, rotations, opacity, shs, features,
     # cull decisions are integer selections, so detach it there.
     op_cull = opacity[:, 0].detach()
     prep = preprocess(means3d, scales, rotations, shs, cam, cfg,
-                      opacity=op_cull)
+                      mean2d_offset=mean2d_offset, opacity=op_cull)
     binning = bin_gaussians(prep, cfg, op_cull)
     attrs = torch.cat(
         [prep.rgb, features, prep.depth[:, None],
@@ -58,20 +58,21 @@ def prepare(means3d, scales, rotations, opacity, shs, features,
 
 def rasterize(means3d, scales, rotations, opacity, shs, features,
               cam: CameraParams, cfg: RasterConfig,
-              bg_color: torch.Tensor) -> RasterOut:
-    """Rasterize P gaussians.
+              bg_color: torch.Tensor, mean2d_offset=None) -> RasterOut:
+    """Rasterize P gaussians; differentiable on both devices (on CUDA
+    tensors the compositor's backward is kernel K2).
 
     Args:
       means3d: [P, 3]; scales: [P, 3]; rotations: [P, 4] quaternions;
       opacity: [P, 1] activated; shs: [P, K, 3]; features: [P, S] extra
       blended channels. All tensors, the camera's included, on one device.
-      On CUDA tensors the compositor is forward only: run under
-      `torch.no_grad()` (or `torch.inference_mode()`), since inputs that
-      require grad raise NotImplementedError.
+      mean2d_offset: optional [P, 2] zeros whose `.grad` is
+        d(loss)/d(pixel-space mean), for the densification statistics.
     """
     H, W = cfg.height, cfg.width
     prep, binning, attrs = prepare(
-        means3d, scales, rotations, opacity, shs, features, cam, cfg)
+        means3d, scales, rotations, opacity, shs, features, cam, cfg,
+        mean2d_offset)
     out = composite_cuda.composite(
         binning, prep.mean2d.contiguous(), prep.conic.contiguous(),
         opacity[:, 0].contiguous(), attrs.contiguous(), cfg)

@@ -1,0 +1,153 @@
+"""Stage-1 training (port of relightable3dgaussian_tpu/train/stage1.py).
+
+`train_step` is one optimisation step on one view: forward (render and
+`calculate_loss`), backward (kernel K2 on the card), Adam with the per-field
+learning rates, then the densification statistics from `mean2d_offset.grad`,
+`normal.grad`, the forward's blend weights and the radii. `densify_step` and
+`reset_opacity_step` resize or reset the model and re-key the optimizer.
+`run_training_schedule` is the host loop of the JAX package: the same
+numpy-permutation camera order from `seed` and the same densify and
+opacity-reset schedule. The JAX CLI's TPU-only parts (binning re-plans,
+capacity growth, the overflow streak) have no counterpart: the port sizes
+its buffers per call and never drops a pair.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..models import gaussians as G
+from ..models.render import ViewInputs, render
+from ..ops.config import RasterConfig
+from .config import OptimizationConfig
+from .optim import learning_rates, set_learning_rates
+
+
+class StepTimer:
+    """CUDA events at the phase boundaries of each train step ("start",
+    "forward", "backward", "end"); read after a synchronize."""
+
+    def __init__(self):
+        self.steps: list[dict[str, torch.cuda.Event]] = []
+
+    def mark(self, name: str) -> None:
+        if name == "start":
+            self.steps.append({})
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.steps[-1][name] = event
+
+    def split_ms(self) -> list[dict[str, float]]:
+        """Per step: forward, backward, optimizer (Adam and stats), total."""
+        return [{"forward": s["start"].elapsed_time(s["forward"]),
+                 "backward": s["forward"].elapsed_time(s["backward"]),
+                 "optimizer": s["backward"].elapsed_time(s["end"]),
+                 "total": s["start"].elapsed_time(s["end"])}
+                for s in self.steps]
+
+
+def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
+               view: ViewInputs, iteration: int, *, cfg: RasterConfig,
+               opt: OptimizationConfig, spatial_lr_scale: float,
+               timer: StepTimer | None = None) -> dict[str, Any]:
+    """One optimisation step in place; returns the metrics: the loss terms
+    of `tb_dict` and "loss" (tensors), "n_active" and "num_rendered"
+    (the step's binned pairs)."""
+    dev = model.xyz.device
+    if timer is not None:
+        timer.mark("start")
+    bg = (torch.ones(3, device=dev) if cfg.white_background
+          else torch.zeros(3, device=dev))
+    m2d = torch.zeros((model.num_points, 2), device=dev, requires_grad=True)
+    optimizer.zero_grad(set_to_none=True)
+    results = render(view, model, cfg, bg, opt, is_training=True,
+                     iteration=iteration, mean2d_offset=m2d)
+    loss = results["loss"]
+    if timer is not None:
+        timer.mark("forward")
+    loss.backward()
+    if timer is not None:
+        timer.mark("backward")
+
+    set_learning_rates(optimizer,
+                       learning_rates(opt, iteration, spatial_lr_scale))
+    optimizer.step()
+    G.add_densification_stats(model, m2d.grad, model.normal.grad,
+                              results["weights"][:, 0].detach(),
+                              results["radii"], (cfg.width, cfg.height))
+    if timer is not None:
+        timer.mark("end")
+    metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
+    metrics["loss"] = loss.detach()
+    metrics["n_active"] = model.num_points
+    metrics["num_rendered"] = results["num_rendered"]
+    return metrics
+
+
+def densify_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
+                 generator: torch.Generator, grad_normal_threshold: float,
+                 max_screen_size: float, extent: float, *,
+                 opt: OptimizationConfig) -> G.DensifyStats:
+    """densify_and_prune with the training loop's thresholds."""
+    return G.densify_and_prune(
+        model, optimizer, generator,
+        grad_threshold=opt.densify_grad_threshold,
+        grad_normal_threshold=grad_normal_threshold, min_opacity=0.005,
+        extent=extent, max_screen_size=max_screen_size,
+        percent_dense=opt.percent_dense)
+
+
+def reset_opacity_step(model: G.GaussianModel,
+                       optimizer: torch.optim.Optimizer) -> None:
+    G.reset_opacity(model, optimizer)
+
+
+def run_training_schedule(model: G.GaussianModel,
+                          optimizer: torch.optim.Optimizer,
+                          views: Sequence[ViewInputs], *, cfg: RasterConfig,
+                          opt: OptimizationConfig, spatial_lr_scale: float,
+                          extent: float, generator: torch.Generator,
+                          callback: Callable[[int, dict], None] | None = None,
+                          seed: int = 0, timer: StepTimer | None = None
+                          ) -> None:
+    """Train `model` in place for steps 1 to `opt.iterations`.
+
+    Cameras are drawn as the JAX package draws them: a numpy permutation of
+    the views from `seed`, popped from its end, renewed when empty. Densify
+    every `densification_interval` steps after `densify_from_iter` and before
+    `densify_until_iter` (the world-size prune on after the first opacity
+    reset, the normal-gradient threshold after `normal_densify_from_iter`),
+    and reset opacities every `opacity_reset_interval` steps (and at
+    `densify_from_iter` on a white background). There is no SH warm-up: the
+    reference starts at the maximum degree. `generator` draws the split
+    noise; `callback(iteration, metrics)` sees each step's metrics, with
+    "densify" after a densify step.
+    """
+    rng = np.random.default_rng(seed)
+    stack: list[int] = []
+    for iteration in range(1, opt.iterations + 1):
+        if not stack:
+            stack = list(rng.permutation(len(views)))
+        view = views[stack.pop()]
+        metrics = train_step(model, optimizer, view, iteration, cfg=cfg,
+                             opt=opt, spatial_lr_scale=spatial_lr_scale,
+                             timer=timer)
+        if iteration < opt.densify_until_iter:
+            if (iteration > opt.densify_from_iter
+                    and iteration % opt.densification_interval == 0):
+                size_thresh = (20.0 if iteration > opt.opacity_reset_interval
+                               else float("inf"))
+                gn_thresh = (opt.densify_grad_normal_threshold
+                             if iteration > opt.normal_densify_from_iter
+                             else 99999.0)
+                metrics["densify"] = densify_step(
+                    model, optimizer, generator, gn_thresh, size_thresh,
+                    extent, opt=opt)
+            if iteration % opt.opacity_reset_interval == 0 or (
+                    cfg.white_background
+                    and iteration == opt.densify_from_iter):
+                reset_opacity_step(model, optimizer)
+        if callback is not None:
+            callback(iteration, metrics)

@@ -23,6 +23,8 @@ def test_port_imports_without_jax():
         "import sys; sys.modules['jax'] = None\n"
         "import relightable3dgaussian_tpu_torch.models.render\n"
         "import relightable3dgaussian_tpu_torch.train.checkpoint\n"
+        "import relightable3dgaussian_tpu_torch.train.stage1\n"
+        "import relightable3dgaussian_tpu_torch.losses\n"
         "import relightable3dgaussian_tpu_torch.ops.composite_cuda\n"
         "import chip_smoke\n"
         "from relightable3dgaussian_tpu_torch.ops import _build\n"
@@ -52,6 +54,14 @@ def test_kernel_source_exports_the_bound_symbol():
     src = (PORT / "csrc" / "composite_fwd.cu").read_text()
     assert 'extern "C" int r3dg_composite_fwd(' in src
     assert "composite_pallas.py::_kernel" in src      # the TPU kernel it replaces
+    assert "__expf" not in src.replace("(not __expf)", "")
+
+
+def test_backward_kernel_source_exports_the_bound_symbol():
+    src = (PORT / "csrc" / "composite_bwd.cu").read_text()
+    assert 'extern "C" int r3dg_composite_bwd(' in src
+    # the TPU kernel it replaces
+    assert "composite_pallas_bwd.py::_bwd_kernel_single" in src
     assert "__expf" not in src.replace("(not __expf)", "")
 
 
