@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's main paths, the stage-1 render of a checkpoint and stage-1
-training, through the entry points a user calls, and checks every kernel on
-those paths against its plain PyTorch version. Phases (each prints one line,
-the train phase a few; any failure raises, so the exit code is non-zero and
+Drives the port's main paths, the stage-1 render of a checkpoint, stage-1
+training and stage-2 (PBR) training with its eval render, through the entry
+points a user calls, and checks every kernel on those paths against its
+plain PyTorch version. Phases, in the order they run (each prints one line,
+the train phases a few; any failure raises, so the exit code is non-zero and
 no result line is printed):
 
   1. device   needs torch.cuda; prints the card's name and power limit;
-  2. build    compiles kernels K1 (csrc/composite_fwd.cu) and K2
-              (csrc/composite_bwd.cu) with nvcc, both at once;
+  2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
+              (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu) and K4
+              (csrc/shading.cu) with nvcc, all at once;
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
               400x400 scene (opacities in [0.1, 0.99]), with and without
               per-gaussian weights;
@@ -16,29 +18,53 @@ no result line is printed):
               composite_backward) on the same scene, with a seeded image
               cotangent (zero on pixels where K1's and the plain n_contrib
               differ), with and without a weights cotangent;
-  5. slice    builds a seeded 100k-gaussian scene, saves it as a JAX-format
+  5. k3-mid   K3 against the plain tracer (ops/ray_trace.py::
+              trace_transmittance_plain) on every ray of the same scene, 16
+              rays per point as update_visibility lays them out, timed
+              beside it;
+  6. k4-mid   K4 forward and backward against the plain shading (ops/
+              shading_cuda.py::rendering_equation_train_reference, and it in
+              float64) at 20k points, 16 samples, on seeded inputs, one case
+              with all-zero visibility and one with all-zero local-light SH;
+  7. slice    builds a seeded 100k-gaussian scene, saves it as a JAX-format
               checkpoint, loads it with train.checkpoint.load_checkpoint and
               renders 8 orbit views at 800x800 through models.render.render;
               K1 must launch once per view;
-  6. k1-main  K1 against the plain compositor on the first view's inputs
+  8. k1-main  K1 against the plain compositor on the first view's inputs
               (the render's shapes), timed beside it;
-  7. train    stage-1 training at 800x800: ground truth rendered by the port
-              from the 100k-gaussian scene of phase 5 over 8 orbit views, a
+  9. train    stage-1 training at 800x800: ground truth rendered by the port
+              from the 100k-gaussian scene of phase 7 over 8 orbit views, a
               model made by train.create_from_pcd from 100k random points
               as scene/dataset_readers.py makes them, and
               train.stage1.run_training_schedule with STAGE1_NERF_SYNTHETIC,
               compressed to hold densify calls and an opacity reset; K1 and
               K2 must launch once per step, the loss stay finite and the
               PSNR rise;
-  8. k2-main  K2 against the plain backward at the train step's shapes (the
+ 10. k2-main  K2 against the plain backward at the train step's shapes (the
               trained model after its last densify, 800x800), timed beside it;
-  9. profile  three windows of further train steps of the trained model:
+ 11. profile  three windows of further train steps of the trained model:
               without a profiler (ms per step), under torch.profiler with
               device activity only (kernel ms against the window's stream
               ms: the device's busy share), and with host activity too
-              (aten ops and kernel launches per step, the largest kernels).
+              (aten ops and kernel launches per step, the largest kernels);
+ 12. stage2   the trained model through save_checkpoint, load_checkpoint
+              and train.stage2.setup_stage2 (PBR fields, K3 over P x 64
+              rays, a 16x32 env map), then train.stage2.
+              run_training_schedule for 200 steps from the stage-1 count
+              with STAGE2_NERF_SYNTHETIC and no densify, on the train
+              phase's views; K1, K2, K4-fwd and K4-bwd must launch once per
+              step, K3 at least once, the loss stay finite and the PBR
+              PSNR rise;
+ 13. k3-main  K3 against the plain tracer on a seeded subset of the stage's
+              rays, both timed, and K3 timed on all of them;
+ 14. k4-main  K4 against the plain shading at the train step's shapes;
+ 15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
+              the 8 views at 800x800 (32 splatted channels);
+ 16. stage2-profile  two windows of further stage-2 steps: without a
+              profiler, and under the device-only profiler (kernel ms per
+              step, the largest kernels).
 
-The card's render and train step against the CPU path, which
+The card's render and train steps against the CPU path, which
 tests/test_torch_*.py tie to the JAX package, are checked by
 tests/test_torch_cuda.py.
 
@@ -60,9 +86,14 @@ import torch
 
 from relightable3dgaussian_tpu_torch.models.gaussians import (GaussianModel,
                                                               create_from_pcd)
+from relightable3dgaussian_tpu_torch.models.lights import query_light
 from relightable3dgaussian_tpu_torch.models.render import (ViewInputs, render,
                                                            view_features)
-from relightable3dgaussian_tpu_torch.ops import _build, composite_cuda
+from relightable3dgaussian_tpu_torch.models.render_neilf import (
+    EVAL_FEATURE_DIM, render_neilf, visibility_rays)
+from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
+                                                 ray_trace, ray_trace_cuda,
+                                                 shading_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
 from relightable3dgaussian_tpu_torch.ops.composite import composite_backward
@@ -70,12 +101,18 @@ from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
 from relightable3dgaussian_tpu_torch.train.checkpoint import (load_checkpoint,
                                                               save_checkpoint)
-from relightable3dgaussian_tpu_torch.train.config import (STAGE1_NERF_SYNTHETIC,
-                                                          OptimizationConfig)
-from relightable3dgaussian_tpu_torch.train.optim import make_optimizer
+from relightable3dgaussian_tpu_torch.train import stage2
+from relightable3dgaussian_tpu_torch.train.config import (
+    STAGE1_NERF_SYNTHETIC, STAGE2_NERF_SYNTHETIC, ModelConfig,
+    OptimizationConfig, PipelineConfig)
+from relightable3dgaussian_tpu_torch.train.optim import (make_env_optimizer,
+                                                         make_optimizer,
+                                                         start_state)
 from relightable3dgaussian_tpu_torch.train.stage1 import (StepTimer,
                                                           run_training_schedule,
                                                           train_step)
+from relightable3dgaussian_tpu_torch.utils.graphics import \
+    fibonacci_sphere_sampling
 from relightable3dgaussian_tpu_torch.utils.sh import C0, rgb_to_sh
 
 ROOT = Path(__file__).resolve().parent
@@ -114,7 +151,39 @@ W_RTOL, W_ATOL = 1e-4, 1e-6
 # moves a gradient by ~1e-4 of its max on a trained, near-opaque model:
 # the image cotangent is zeroed on those pixels for both.
 K2_TOL = 1e-4
-PROFILE_STEPS = 10   # train steps in each window of the profile phase
+PROFILE_STEPS = 10   # train steps in each window of the profile phases
+K3_SOURCE = "relightable3dgaussian_tpu_torch/csrc/ray_trace.cu"
+K3_REPLACES = "relightable3dgaussian_tpu/ops/ray_trace.py:488"
+K4_SOURCE = "relightable3dgaussian_tpu_torch/csrc/shading.cu"
+K4F_REPLACES = "relightable3dgaussian_tpu/ops/shading_pallas.py:252"
+K4B_REPLACES = "relightable3dgaussian_tpu/ops/shading_pallas.py:261"
+S_MID = 16                                   # samples per point, mid phases
+SAMPLE_NUM = PipelineConfig().sample_num     # 64
+ENV_RES = ModelConfig().env_resolution       # 16: a 16x32 env map
+# Stage 2 continues stage 1's count for STAGE2_STEPS steps; densify ends where
+# it starts, so stage 2 never densifies (the reference protocol: stage 2
+# starts at 30k, past densify_until_iter).
+STAGE2_STEPS = 200
+STAGE2_OPT = OptimizationConfig(**{
+    **STAGE2_NERF_SYNTHETIC, "iterations": TRAIN_OPT.iterations + STAGE2_STEPS,
+    "densify_until_iter": TRAIN_OPT.iterations})
+K3_SUBSET = 65_536   # rays of the stage's trace held against the plain tracer
+# K3 against the plain tracer. Both take the product of the same factors in
+# another order: |dvis| <= VIS_ATOL where both T lie on the same side of 0.9;
+# a last-bit change can move a T across 0.9, so at most SPLIT_SHARE of the
+# rays may lie on different sides, each with its plain T within SPLIT_BAND of
+# 0.9.
+VIS_ATOL, SPLIT_SHARE, SPLIT_BAND = 1e-5, 1e-4, 1e-4
+# K4 against the plain shading. At the GGX peak of a smooth surface
+# nom0 = 1 - NoH^2 (1 - alpha^2) cancels as NoH -> 1, so a last bit of NoH
+# moves the specular term by ~1e-3 of itself and no two float32
+# implementations agree there to the JAX suite's rtol 1e-4 / atol 1e-5
+# (tests/test_shading_fused.py). So K4 and the plain float32 version are both
+# held against the plain version in float64: K4 within that tolerance (the
+# backward: per field within K4_BWD_TOL of the largest entry, sums over
+# samples in another order), or within K4_SLACK times the plain float32
+# version's own error, whichever is larger.
+K4_RTOL, K4_ATOL, K4_BWD_TOL, K4_SLACK = 1e-4, 1e-5, 1e-4, 2.0
 
 
 def say(phase: str, **fields) -> None:
@@ -361,29 +430,23 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
             "extent": extent, "launches": launches}
 
 
-def profile_phase(trained: dict, opt: OptimizationConfig) -> None:
-    """Three windows of PROFILE_STEPS train steps each, continuing the trained
-    model past the schedule's end (no densify): no profiler; torch.profiler
-    with device activity only, whose kernel time and the window's stream
-    time (CUDA events from the first step's start to the last step's end)
-    give the busy share; host and device activity, for aten ops and kernel
-    launches per step and the largest kernels."""
+def profile_phase(label: str, step, points: int, full: bool) -> None:
+    """Windows of PROFILE_STEPS calls of step(timer), each one train step
+    continuing a trained model (no densify): no profiler; torch.profiler with
+    device activity only, whose kernel time and the window's stream time
+    (CUDA events from the first step's start to the last step's end) give
+    the busy share; with `full`, host and device activity, for aten ops and
+    kernel launches per step. Prints the readings and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
-    model, views = trained["model"], trained["views"]
-    it = opt.iterations
 
     def window(prof=None):
-        nonlocal it
         timer = StepTimer()
         torch.cuda.synchronize()
         if prof is not None:
             prof.start()
         t0 = time.perf_counter()
         for _ in range(PROFILE_STEPS):
-            it += 1
-            train_step(model, trained["optimizer"], views[it % len(views)], it,
-                       cfg=trained["cfg"], opt=opt,
-                       spatial_lr_scale=trained["extent"], timer=timer)
+            step(timer)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
         if prof is not None:
@@ -402,27 +465,322 @@ def profile_phase(trained: dict, opt: OptimizationConfig) -> None:
     kernels = device_events(dev_prof)
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILE_STEPS
     if kernel_ms <= 0:
-        raise AssertionError("profile: the profiler recorded no device time")
-    full_prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    full_ms, full_host_ms = window(full_prof)
-    events = full_prof.key_averages()
-    aten_ops = sum(e.count for e in events if e.key.startswith("aten::"))
-    launches = sum(e.count for e in device_events(full_prof))
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    say("profile", points=model.num_points, steps_per_window=PROFILE_STEPS,
+        raise AssertionError(f"{label}: the profiler recorded no device time")
+    readings = dict(
+        points=points, steps_per_window=PROFILE_STEPS,
         ms_per_step_no_profiler=f"{plain_ms:.3f}",
         host_ms_per_step_no_profiler=f"{plain_host_ms:.3f}",
         ms_per_step_device_profiler=f"{dev_ms:.3f}",
         host_ms_per_step_device_profiler=f"{dev_host_ms:.3f}",
         kernel_ms_per_step=f"{kernel_ms:.3f}",
-        busy_share=f"{kernel_ms / dev_ms:.3f}",
-        ms_per_step_full_profiler=f"{full_ms:.3f}",
-        host_ms_per_step_full_profiler=f"{full_host_ms:.3f}",
-        aten_ops_per_step=aten_ops / PROFILE_STEPS,
-        device_ops_per_step=launches / PROFILE_STEPS)
-    say("profile-kernels", ms_per_step=[
+        busy_share=f"{kernel_ms / dev_ms:.3f}")
+    if full:
+        full_prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        full_ms, full_host_ms = window(full_prof)
+        events = full_prof.key_averages()
+        readings.update(
+            ms_per_step_full_profiler=f"{full_ms:.3f}",
+            host_ms_per_step_full_profiler=f"{full_host_ms:.3f}",
+            aten_ops_per_step=sum(e.count for e in events
+                                  if e.key.startswith("aten::")) / PROFILE_STEPS,
+            device_ops_per_step=sum(e.count for e in device_events(full_prof))
+            / PROFILE_STEPS)
+    say(label, **readings)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    say(f"{label}-kernels", ms_per_step=[
         (e.key[:60], round(e.self_device_time_total / 1e3 / PROFILE_STEPS, 4),
          e.count // PROFILE_STEPS) for e in top])
+
+
+def timed_ms(fn):
+    """(fn(), its milliseconds): CUDA events around one run."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
+             seed: int = 0, reps: int = 5) -> dict:
+    """K3 against the plain tracer on rays [R, 3] from their points (a seeded
+    subset of `subset` rays, kept in their order, when given); raises on
+    disagreement. K3 is timed on the checked rays and on all of them."""
+    o = rays_o + ray_trace.RAY_OFFSET * rays_d     # as trace_visibility does
+    o_all, d_all = o, rays_d
+    if subset is not None and subset < o.shape[0]:
+        gen = torch.Generator().manual_seed(seed)
+        idx = torch.randperm(o.shape[0], generator=gen)[:subset].sort().values
+        o, rays_d = o[idx.to(o.device)], rays_d[idx.to(o.device)]
+    T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
+    T_plain, plain_ms = timed_ms(
+        lambda: ray_trace.trace_transmittance_plain(bvh, o, rays_d))
+    side, side_plain = T >= ray_trace.T_MIN, T_plain >= ray_trace.T_MIN
+    same = side == side_plain
+    vis = torch.where(side, T, 0.0)
+    vis_plain = torch.where(side_plain, T_plain, 0.0)
+    err = float((vis - vis_plain)[same].abs().max()) if bool(same.any()) else 0.0
+    split = ~same
+    n_split = int(split.sum())
+    far = int(((T_plain[split] - ray_trace.T_MIN).abs() >= SPLIT_BAND).sum())
+    if err > VIS_ATOL or n_split > SPLIT_SHARE * T.numel() or far:
+        raise AssertionError(f"{label}: K3 against the plain tracer: max "
+                             f"|dvis| {err} (limit {VIS_ATOL}), {n_split} rays "
+                             f"on different sides of 0.9, {far} of them with "
+                             f"|T_plain - 0.9| >= {SPLIT_BAND}")
+    k3_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d), reps)
+    extra = {}
+    if o_all.shape[0] != o.shape[0]:
+        all_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o_all, d_all),
+                         reps)
+        extra = {"rays_all": o_all.shape[0], "k3_ms_all_rays": f"{all_ms:.4f}"}
+    say(label, gaussians=bvh.order.shape[0], rays=T.numel(),
+        mean_vis=f"{float(vis_plain.mean()):.4f}",
+        vis_zero_share=f"{float((~side_plain).float().mean()):.4f}",
+        max_abs_err=f"{err:.3e}", rays_split=n_split, k3_ms=f"{k3_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", **extra)
+    return {"max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms}
+
+
+def shading_case(P: int, S: int, seed: int, device, dark: bool = False,
+                 zero_shs: bool = False):
+    """rendering_equation_train's inputs, seeded: unit normals and view
+    directions, Fibonacci samples, roughness uniform in [0.05, 0.95] with the
+    activation's bounds 0.09 and 0.99 on two points, visibility in [0, 1)
+    (zero everywhere when `dark`), local-light SH 0.3 N(0, 1) (zero, as at
+    the stage-2 start, with `zero_shs`), global light in [0, 2)."""
+    rng = np.random.default_rng(seed)
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    normals = f(unit(P))
+    dirs, areas = fibonacci_sphere_sampling(normals, S)
+    roughness = rng.uniform(0.05, 0.95, (P, 1))
+    roughness[-2:, 0] = (0.09, 0.99)
+    vis = rng.uniform(size=(P, S, 1)) * (not dark)
+    return (f(rng.uniform(size=(P, 3))), f(roughness), normals, f(unit(P)),
+            f(0.3 * rng.normal(size=(P, 16, 3)) * (not zero_shs)),
+            f(2.0 * rng.uniform(size=(P, S, 3))), f(vis), dirs, areas)
+
+
+def train_shading_case(model: GaussianModel, env, vis, view: ViewInputs):
+    """The inputs the stage-2 train step gives rendering_equation_train."""
+    viewdirs = view.cam.campos[None, :] - model.xyz
+    viewdirs = viewdirs / torch.clamp(
+        torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
+    return tuple(t.detach().contiguous() for t in (
+        model.get_base_color, model.get_roughness, model.get_normal, viewdirs,
+        model.get_incidents, query_light(env, vis.incident_dirs),
+        vis.visibility, vis.incident_dirs, vis.incident_areas))
+
+
+def plain_shading_graph(x, cot):
+    """The plain shading's forward under autograd: (leaves base_color,
+    roughness, viewdirs, shs, global_light; Σ cot · outputs)."""
+    leaves = [x[i].detach().clone().requires_grad_() for i in (0, 1, 3, 4, 5)]
+    bc, rough, vdir, shs, gl = leaves
+    outs = shading_cuda.rendering_equation_train_reference(
+        bc, rough, x[2], vdir, shs, gl, *x[6:])
+    return leaves, sum((c * o).sum() for c, o in zip(cot, outs))
+
+
+def check_k4(x, label: str, seed: int, reps: int = 10,
+             plain_reps: int = 3) -> tuple[dict, dict]:
+    """K4-fwd and K4-bwd against the plain shading on the same inputs and a
+    seeded cotangent, each held against the plain shading in float64 beside
+    the plain float32 version's own error (K4_SLACK); raises on
+    disagreement. Returns the numbers for the kernels line, fwd and bwd."""
+    P = x[0].shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    cot = [torch.randn((P, 3), generator=gen).to(x[0].device) for _ in range(3)]
+    x64, cot64 = [t.double() for t in x], [c.double() for c in cot]
+    kin = shading_cuda.kernel_inputs(*x)
+    got = shading_cuda.shade_fwd(*kin)
+    dbc, drough, dvdir, dshs, dgl = shading_cuda.shade_bwd(*kin, *cot)
+    got_g = (dbc, drough[:, None], dvdir, dshs.view(P, -1, 3), dgl)
+    plain = shading_cuda.rendering_equation_train_reference(*x)
+    exact = shading_cuda.rendering_equation_train_reference(*x64)
+    with torch.enable_grad():
+        leaves, loss = plain_shading_graph(x, cot)
+        plain_g = torch.autograd.grad(loss, leaves)
+        leaves64, loss64 = plain_shading_graph(x64, cot64)
+        exact_g = torch.autograd.grad(loss64, leaves64)
+
+    def fwd_err(a, e):
+        return float(((a.double() - e).abs() / (K4_ATOL + K4_RTOL * e.abs())).max())
+
+    def bwd_err(a, e):
+        return float((a.double() - e).abs().max() / e.abs().max().clamp(min=1e-30))
+
+    errs, abs_err = {}, {"fwd": 0.0, "bwd": 0.0}
+    for kind, names, outs, plains, exacts, err, tol in (
+            ("fwd", ("pbr", "diffuse", "specular"), got, plain, exact,
+             fwd_err, 1.0),
+            ("bwd", ("base_color", "roughness", "viewdirs", "shs", "gl"),
+             got_g, plain_g, exact_g, bwd_err, K4_BWD_TOL)):
+        for name, g, p, e in zip(names, outs, plains, exacts):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{label}: K4-{kind} {name} not finite")
+            e_kernel, e_plain = err(g, e), err(p, e)
+            errs[f"{kind}.{name}"] = (f"{e_kernel:.3e}", f"{e_plain:.3e}")
+            if e_kernel > max(tol, K4_SLACK * e_plain):
+                raise AssertionError(
+                    f"{label}: K4-{kind} {name} is {e_kernel} from float64, "
+                    f"the plain float32 version {e_plain} (limit "
+                    f"max({tol}, {K4_SLACK} x that))")
+            abs_err[kind] = max(abs_err[kind], float((g - p).abs().max()))
+    fwd_ms = cuda_ms(lambda: shading_cuda.shade_fwd(*kin), reps)
+    bwd_ms = cuda_ms(lambda: shading_cuda.shade_bwd(*kin, *cot), reps)
+    plain_fwd_ms = cuda_ms(
+        lambda: shading_cuda.rendering_equation_train_reference(*x), plain_reps)
+    with torch.enable_grad():
+        leaves, loss = plain_shading_graph(x, cot)
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            loss, leaves, retain_graph=True), plain_reps)
+    say(label, points=P, samples=x[6].shape[1],
+        visibility_mean=f"{float(x[6].mean()):.4f}",
+        err_kernel_plain_vs_float64=errs,
+        fwd_max_abs_err=f"{abs_err['fwd']:.3e}",
+        bwd_max_abs_err=f"{abs_err['bwd']:.3e}",
+        fwd_ms=f"{fwd_ms:.4f}", plain_fwd_ms=f"{plain_fwd_ms:.4f}",
+        bwd_ms=f"{bwd_ms:.4f}", plain_bwd_ms=f"{plain_bwd_ms:.4f}")
+    return ({"max_abs_err": abs_err["fwd"], "ms": fwd_ms,
+             "plain_ms": plain_fwd_ms},
+            {"max_abs_err": abs_err["bwd"], "ms": bwd_ms,
+             "plain_ms": plain_bwd_ms})
+
+
+def reset_launches() -> None:
+    composite_cuda.LAUNCHES = composite_cuda.BWD_LAUNCHES = 0
+    ray_trace_cuda.LAUNCHES = 0
+    shading_cuda.LAUNCHES = shading_cuda.BWD_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {"K1": composite_cuda.LAUNCHES, "K2": composite_cuda.BWD_LAUNCHES,
+            "K3": ray_trace_cuda.LAUNCHES, "K4-fwd": shading_cuda.LAUNCHES,
+            "K4-bwd": shading_cuda.BWD_LAUNCHES}
+
+
+def stage2_phase(trained: dict, device) -> dict:
+    """Stage 2 from the trained stage-1 model: checkpoint, load, set-up
+    (PBR fields, K3's trace, env map) and STAGE2_STEPS steps through
+    run_training_schedule; returns the stage-2 state and the launches."""
+    first_iter = TRAIN_OPT.iterations
+    views, cfg, extent = trained["views"], trained["cfg"], trained["extent"]
+    WORK.mkdir(parents=True, exist_ok=True)
+    ckpt = WORK / f"chkpnt{first_iter}.npz"
+    save_checkpoint(str(ckpt), first_iter, trained["model"], trained["optimizer"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    it, model = load_checkpoint(str(ckpt), device=device)
+    (vis, env), setup_ms = timed_ms(lambda: stage2.setup_stage2(
+        model, SAMPLE_NUM, ENV_RES, STAGE2_OPT.light_init,
+        torch.Generator(device=device).manual_seed(SEED + 3)))
+    # cli/train.py: Adam restarts with zero moments, the step count carried
+    optimizer = make_optimizer(model, STAGE2_OPT, extent)
+    start_state(optimizer, it)
+    env_optimizer = make_env_optimizer(env, STAGE2_OPT)
+    vis0 = vis.visibility
+    timer, steps = StepTimer(), []
+
+    def callback(i, m):
+        steps.append((float(m["loss"]), float(m["psnr"]), float(m["psnr_pbr"]),
+                      float(m["light_mean"]), m["num_rendered"]))
+
+    t1 = time.perf_counter()
+    vis = stage2.run_training_schedule(
+        model, optimizer, env, env_optimizer, vis, views, cfg=cfg,
+        opt=STAGE2_OPT, spatial_lr_scale=extent, extent=extent,
+        generator=torch.Generator(device=device).manual_seed(SEED),
+        first_iter=it, callback=callback, seed=SEED, timer=timer)
+    torch.cuda.synchronize()
+    train_s, host_s = time.perf_counter() - t1, time.perf_counter() - t0
+    launches = read_launches()
+
+    loss, psnr, psnr_pbr, light, pairs = (np.array(c) for c in zip(*steps))
+    if len(steps) != STAGE2_STEPS or not np.isfinite(loss).all():
+        raise AssertionError(f"stage2: {len(steps)} steps, non-finite loss at "
+                             f"{np.flatnonzero(~np.isfinite(loss))[:5]}")
+    per_step = {k: launches[k] for k in ("K1", "K2", "K4-fwd", "K4-bwd")}
+    if set(per_step.values()) != {STAGE2_STEPS} or launches["K3"] < 1:
+        raise AssertionError(f"stage2: {STAGE2_STEPS} steps launched "
+                             f"{launches}")
+    first, last = psnr_pbr[:8].mean(), psnr_pbr[-8:].mean()
+    if not last > first:
+        raise AssertionError(f"stage2: PBR PSNR did not rise ({first} -> {last})")
+    split = timer.split_ms()[1:]       # step 1 is the warm-up
+    med = {k: float(np.median([s[k] for s in split])) for k in split[0]}
+    P, S = vis0.shape[:2]
+    say("stage2", size=f"{SIZE_MAIN}x{SIZE_MAIN}", views=len(views),
+        points=P, first_iter=it, steps=STAGE2_STEPS, launches=launches,
+        rays=P * S, setup_ms=f"{setup_ms:.3f}",
+        mean_vis=f"{float(vis0.mean()):.4f}",
+        vis_zero_share=f"{float((vis0 == 0).float().mean()):.4f}",
+        env=tuple(env.env.shape), train_s=f"{train_s:.2f}",
+        host_s=f"{host_s:.2f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    say("stage2-time", ms_per_step_median=f"{med['total']:.3f}",
+        forward_ms=f"{med['forward']:.3f}", backward_ms=f"{med['backward']:.3f}",
+        optimizer_and_stats_ms=f"{med['optimizer']:.3f}",
+        host_ms_per_step=f"{train_s * 1e3 / STAGE2_STEPS:.3f}",
+        pairs_median=int(np.median(pairs)))
+    say("stage2-quality", loss_first=f"{loss[0]:.5f}", loss_last=f"{loss[-1]:.5f}",
+        psnr_first=f"{psnr[0]:.3f}", psnr_last=f"{psnr[-1]:.3f}",
+        psnr_pbr_first8_mean=f"{first:.3f}", psnr_pbr_last8_mean=f"{last:.3f}",
+        light_mean_first=f"{light[0]:.4f}", light_mean_last=f"{light[-1]:.4f}")
+    return {"model": model, "optimizer": optimizer, "env": env,
+            "env_optimizer": env_optimizer, "vis": vis, "views": views,
+            "cfg": cfg, "extent": extent, "launches": launches}
+
+
+@torch.no_grad()
+def stage2_eval_phase(s2: dict, device) -> None:
+    """render_neilf(is_training=False) of every view at 800x800: 3 + 27 + 2
+    splatted channels, K1 once per view, every output finite."""
+    views = s2["views"]
+    cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN)
+    bg = torch.zeros(3, device=device)
+    channels = 3 + EVAL_FEATURE_DIM + 2
+    if channels != composite_cuda.MAX_ATTRS:
+        raise AssertionError(f"stage2-eval: {channels} channels")
+    torch.cuda.synchronize()
+    reset_launches()
+    results, view_ms = [], []
+    for v in views:
+        res, ms = timed_ms(lambda: render_neilf(
+            v, s2["model"], cfg, bg, s2["env"], s2["vis"], is_training=False))
+        results.append(res)
+        view_ms.append(ms)
+    launches = read_launches()
+    if launches["K1"] != len(views) or launches["K2"] or launches["K4-fwd"]:
+        raise AssertionError(f"stage2-eval: {len(views)} views launched "
+                             f"{launches}")
+    keys = ("render", "pbr", "pbr_env", "render_env", "env_only", "base_color",
+            "roughness", "normal", "visibility", "diffuse", "specular",
+            "lights", "local_lights", "global_lights", "depth", "opacity")
+    for i, res in enumerate(results):
+        for key in keys:
+            x = res[key]
+            if x.shape[-2:] != (SIZE_MAIN, SIZE_MAIN) or not bool(
+                    torch.isfinite(x).all()):
+                raise AssertionError(f"stage2-eval view {i}: {key} "
+                                     f"{tuple(x.shape)} not finite")
+    say("stage2-eval", views=len(views), size=f"{SIZE_MAIN}x{SIZE_MAIN}",
+        channels=channels, k1_launches=launches["K1"],
+        ms_per_view_median=f"{float(np.median(view_ms[1:])):.3f}",
+        view_ms=[round(ms, 3) for ms in view_ms],
+        pbr_mean=f"{float(torch.stack([r['pbr'].mean() for r in results]).mean()):.4f}",
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
 
 def main(device: str = "cuda:0") -> None:
@@ -439,9 +797,11 @@ def main(device: str = "cuda:0") -> None:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, nvidia_smi=f"'{card}'")
 
-    # 2. build K1 and K2 from the checkout's sources, one nvcc each, together
+    # 2. build K1, K2, K3 and K4 from the checkout's sources, one nvcc each,
+    # all at once
     t0 = time.perf_counter()
-    kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL)
+    kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
+               ray_trace_cuda.KERNEL, shading_cuda.KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_build.load_library, kernels))
     say("build", kernels=list(kernels),
@@ -461,7 +821,18 @@ def main(device: str = "cuda:0") -> None:
         for seed, with_g_weights in enumerate((True, False)):
             check_k2(mid_args, "k2-mid", with_g_weights, seed)
 
-        # 5. the render slice: checkpoint → load_checkpoint → render, 8 views
+        # 5. K3 against the plain tracer, every ray of the mid-size scene
+        mid_dirs, _ = fibonacci_sphere_sampling(mid.get_normal, S_MID)
+        check_k3(*visibility_rays(mid, mid_dirs), "k3-mid")
+
+        # 6. K4 against the plain shading, mid size: all-zero visibility,
+        # and all-zero local-light SH (the stage-2 start)
+        for seed, case in enumerate(((False, False), (True, False),
+                                     (False, True))):
+            check_k4(shading_case(N_MID, S_MID, SEED + 4 + seed, device, *case),
+                     "k4-mid", seed)
+
+        # 7. the render slice: checkpoint → load_checkpoint → render, 8 views
         t0 = time.perf_counter()
         scene = make_scene(N_MAIN, SEED)
         WORK.mkdir(parents=True, exist_ok=True)
@@ -512,26 +883,70 @@ def main(device: str = "cuda:0") -> None:
             host_ms_all_views=f"{host_ms:.1f}",
             peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
-        # 6. K1 against the plain version at the render's shapes
+        # 8. K1 against the plain version at the render's shapes
         main_k1 = check_k1(compositor_args(model, views[0], cfg), "k1-main")
 
-    # 7. the training slice
+    # 9. the training slice
     trained = train_phase(model, SIZE_MAIN, VIEWS, N_INIT, TRAIN_OPT, device)
     launches = trained["launches"]
-    # 8. K2 against the plain backward at the train step's shapes
+    # 10. K2 against the plain backward at the train step's shapes
     with torch.no_grad():
         main_k2 = check_k2(compositor_args(
             trained["model"], orbit_view(0, VIEWS, SIZE_MAIN, device),
             RasterConfig(SIZE_MAIN, SIZE_MAIN)), "k2-main", False, 7)
-    # 9. where a train step's time goes
-    profile_phase(trained, TRAIN_OPT)
+    # 11. where a train step's time goes
+    it = TRAIN_OPT.iterations
 
+    def stage1_step(timer):
+        nonlocal it
+        it += 1
+        train_step(trained["model"], trained["optimizer"],
+                   trained["views"][it % VIEWS], it, cfg=trained["cfg"],
+                   opt=TRAIN_OPT, spatial_lr_scale=trained["extent"],
+                   timer=timer)
+
+    profile_phase("profile", stage1_step, trained["model"].num_points, True)
+
+    # 12. the stage-2 slice, from the trained stage-1 model
+    s2 = stage2_phase(trained, device)
+    with torch.no_grad():
+        # 13. K3 against the plain tracer on the stage's rays
+        model = s2["model"]
+        dirs = s2["vis"].incident_dirs
+        main_k3 = check_k3(*visibility_rays(model, dirs), "k3-main",
+                           subset=K3_SUBSET, seed=SEED + 5)
+        # 14. K4 at the train step's shapes
+        main_k4f, main_k4b = check_k4(train_shading_case(
+            model, s2["env"], s2["vis"], s2["views"][0]), "k4-main", SEED + 6)
+    # 15. the stage-2 eval render
+    stage2_eval_phase(s2, device)
+    # 16. where a stage-2 step's time goes
+    it2 = STAGE2_OPT.iterations
+
+    def stage2_step(timer):
+        nonlocal it2
+        it2 += 1
+        stage2.train_step(model, s2["optimizer"], s2["env"],
+                          s2["env_optimizer"], s2["vis"], s2["views"][it2 % VIEWS],
+                          it2, cfg=s2["cfg"], opt=STAGE2_OPT,
+                          spatial_lr_scale=s2["extent"], timer=timer)
+
+    profile_phase("stage2-profile", stage2_step, model.num_points, False)
+
+    s2_launches = s2["launches"]
     print(json.dumps({"kernels": [
         {"name": "K1 composite_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": launches["K1"], **main_k1},
         {"name": "K2 composite_bwd", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2}]}),
-        flush=True)
+         "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2},
+        {"name": "K3 ray_trace", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": s2_launches["K3"], **main_k3},
+        {"name": "K4 shade_fwd", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4F_REPLACES, "launches": s2_launches["K4-fwd"],
+         **main_k4f},
+        {"name": "K4 shade_bwd", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4B_REPLACES, "launches": s2_launches["K4-bwd"],
+         **main_k4b}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

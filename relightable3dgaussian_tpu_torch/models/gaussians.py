@@ -1,14 +1,16 @@
-"""Gaussian scene state (port of relightable3dgaussian_tpu/models/gaussians.py, stage-1 fields).
+"""Gaussian scene state (port of relightable3dgaussian_tpu/models/gaussians.py).
 
 `GaussianModel` holds the raw parameters of `GaussianParams` (xyz, normal,
-shs_dc, shs_rest, scaling, rotation, opacity) as `nn.Parameter`s, with the
-same activations (`get_scaling`, `get_opacity`, ...), and the five
-densification statistics of `GaussianAux` as buffers. The JAX package pads
-its arrays to a capacity with an `active` mask and moves points between
-slots; the port keeps only the live rows and resizes its tensors instead, as
-the CUDA reference does (`gaussian_model.py:667-750`): densification and the
-opacity reset replace parameters and re-key the optimizer's state. Nothing
-is ever dropped for want of capacity. PBR fields come with stage 2.
+shs_dc, shs_rest, scaling, rotation, opacity and, from stage 2 on, the PBR
+fields base_color, roughness, incidents_dc/rest, visibility_dc/rest) as
+`nn.Parameter`s, with the same activations (`get_scaling`, `get_opacity`,
+`get_base_color`, ...), and the five densification statistics of
+`GaussianAux` as buffers. The JAX package pads its arrays to a capacity with
+an `active` mask and moves points between slots; the port keeps only the
+live rows and resizes its tensors instead, as the CUDA reference does
+(`gaussian_model.py:667-750`): densification and the opacity reset replace
+parameters and re-key the optimizer's state, every present field alike, so
+the PBR rows stay aligned. Nothing is ever dropped for want of capacity.
 """
 from __future__ import annotations
 
@@ -30,19 +32,25 @@ WEIGHTS_PRUNE = 1e-4   # prune where the accumulated blend weight is below
 # Stage-1 raw parameter fields, in GaussianParams order.
 FIELDS = ("xyz", "normal", "shs_dc", "shs_rest", "scaling", "rotation",
           "opacity")
+# Stage-2 (PBR) fields, in GaussianParams order, and their per-point shapes.
+PBR_SHAPES = {"base_color": (3,), "roughness": (1,), "incidents_dc": (1, 3),
+              "incidents_rest": (N_SH - 1, 3), "visibility_dc": (1, 1),
+              "visibility_rest": (15, 1)}
+PBR_FIELDS = tuple(PBR_SHAPES)
 # Densification statistics, in GaussianAux order (without `active`).
 STATS = ("max_radii2d", "xyz_grad_accum", "normal_grad_accum", "denom",
          "weights_accum")
 
 
 class GaussianModel(nn.Module):
-    """Raw (pre-activation) stage-1 parameters of P gaussians, and their
-    densification statistics (buffers of [P], zero at construction)."""
+    """Raw (pre-activation) parameters of P gaussians, the stage-1 fields
+    and, when given (all or none), the PBR fields; and their densification
+    statistics (buffers of [P], zero at construction)."""
 
     def __init__(self, xyz: torch.Tensor, normal: torch.Tensor,
                  shs_dc: torch.Tensor, shs_rest: torch.Tensor,
                  scaling: torch.Tensor, rotation: torch.Tensor,
-                 opacity: torch.Tensor):
+                 opacity: torch.Tensor, **pbr: torch.Tensor):
         super().__init__()
         self.xyz = nn.Parameter(xyz)            # [P, 3]
         self.normal = nn.Parameter(normal)      # [P, 3]
@@ -51,7 +59,21 @@ class GaussianModel(nn.Module):
         self.scaling = nn.Parameter(scaling)    # [P, 3] log-scale
         self.rotation = nn.Parameter(rotation)  # [P, 4] unnormalized quaternion
         self.opacity = nn.Parameter(opacity)    # [P, 1] logit
+        if pbr and set(pbr) != set(PBR_FIELDS):
+            raise ValueError(f"GaussianModel: PBR fields {sorted(pbr)}, "
+                             f"expected all of {PBR_FIELDS} or none")
+        for k in PBR_FIELDS if pbr else ():
+            setattr(self, k, nn.Parameter(pbr[k]))   # logits / SH, see PBR_SHAPES
         self.reset_stats()
+
+    @property
+    def has_pbr(self) -> bool:
+        return hasattr(self, "base_color")
+
+    @property
+    def fields(self) -> tuple[str, ...]:
+        """The parameter fields present, in GaussianParams order."""
+        return FIELDS + (PBR_FIELDS if self.has_pbr else ())
 
     def reset_stats(self) -> None:
         """Zero the densification statistics at the current size."""
@@ -65,14 +87,20 @@ class GaussianModel(nn.Module):
                    active: np.ndarray | None = None,
                    device: torch.device | str = "cpu") -> "GaussianModel":
         """Build from the JAX `GaussianParams` fields as numpy arrays, keeping
-        only the rows where `active` is set (all rows when None). The
-        parameters are copies: training never writes into `d`."""
+        only the rows where `active` is set (all rows when None). The PBR
+        fields are read when `d` holds them with a row per point (a stage-1
+        state's zero-width PBR leaves are not). The parameters are copies:
+        training never writes into `d`."""
         keep = slice(None) if active is None else np.asarray(active, bool)
+        rows = np.asarray(d["xyz"]).shape[0]
+        fields = FIELDS + (PBR_FIELDS if all(
+            k in d and np.asarray(d[k]).shape[:1] == (rows,)
+            for k in PBR_FIELDS) else ())
         return cls(**{k: torch.tensor(np.asarray(d[k], np.float32)[keep],
-                                      device=device) for k in FIELDS})
+                                      device=device) for k in fields})
 
     def to_numpy(self) -> dict[str, np.ndarray]:
-        return {k: getattr(self, k).detach().cpu().numpy() for k in FIELDS}
+        return {k: getattr(self, k).detach().cpu().numpy() for k in self.fields}
 
     @property
     def num_points(self) -> int:
@@ -102,6 +130,30 @@ class GaussianModel(nn.Module):
     def get_shs(self) -> torch.Tensor:
         """[P, N_SH, 3] concatenated SH coefficients."""
         return torch.cat([self.shs_dc, self.shs_rest], dim=1)
+
+    @property
+    def get_base_color(self) -> torch.Tensor:
+        return torch.sigmoid(self.base_color) * 0.77 + 0.03
+
+    @property
+    def get_roughness(self) -> torch.Tensor:
+        return torch.sigmoid(self.roughness) * 0.9 + 0.09
+
+    @property
+    def get_incidents(self) -> torch.Tensor:
+        """[P, N_SH, 3] local incident-light SH coefficients."""
+        return torch.cat([self.incidents_dc, self.incidents_rest], dim=1)
+
+
+def add_pbr_params(model: GaussianModel) -> GaussianModel:
+    """Give a stage-1 model zero PBR parameters, in place (the stage-2
+    bootstrap, gaussian_model.py:389-405); a model that has them is kept."""
+    if not model.has_pbr:
+        P, dev = model.num_points, model.xyz.device
+        for k, shape in PBR_SHAPES.items():
+            setattr(model, k, nn.Parameter(torch.zeros((P,) + shape,
+                                                       device=dev)))
+    return model
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +324,7 @@ def densify_and_prune_with_noise(model: GaussianModel,
     child = {"xyz": lambda j: child_xyz[j], "scaling": lambda j: child_scaling}
 
     values = {}
-    for name in FIELDS:
+    for name in model.fields:
         base = getattr(model, name).detach()
         split_b = split.view(-1, *([1] * (base.dim() - 1)))
         survivors = (torch.where(split_b, child[name](0), base)

@@ -3,7 +3,8 @@
 `CameraParams` holds small float tensors on one device; image height/width
 live in `RasterConfig`. `world_view` and `full_proj` are stored TRANSPOSED,
 as in the JAX package, so points transform as row vectors:
-`p_view = [x y z 1] @ world_view`.
+`p_view = [x y z 1] @ world_view`. `pixel_directions` gives the per-pixel
+world-space ray directions the stage-2 eval samples the environment with.
 """
 from __future__ import annotations
 
@@ -22,6 +23,11 @@ class CameraParams(NamedTuple):
     focal: torch.Tensor        # [2] (fx, fy) in pixels
     center: torch.Tensor       # [2] (cx, cy) principal point in pixels
     tan_fov: torch.Tensor      # [2] (tan(fovx/2), tan(fovy/2))
+
+    @property
+    def c2w_rot(self) -> torch.Tensor:
+        """[3, 3] camera→world rotation (world_view[:3, :3] is R_w2c^T)."""
+        return self.world_view[:3, :3]
 
 
 def make_camera_params(R: np.ndarray, T: np.ndarray, width: int, height: int,
@@ -60,3 +66,16 @@ def make_camera_params(R: np.ndarray, T: np.ndarray, width: int, height: int,
         center=t([cx, cy]),
         tan_fov=t([np.tan(fovx * 0.5), np.tan(fovy * 0.5)]),
     )
+
+
+def pixel_directions(cam: CameraParams, height: int, width: int) -> torch.Tensor:
+    """[H, W, 3] per-pixel unit ray directions in world space."""
+    dev = cam.focal.device
+    u = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
+    v = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
+    x = (u - cam.center[0]) / cam.focal[0]
+    y = (v - cam.center[1]) / cam.focal[1]
+    d = torch.stack([x.expand(height, width), y.expand(height, width),
+                     torch.ones((height, width), device=dev)], dim=-1)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return torch.einsum("ij,hwj->hwi", cam.c2w_rot, d)

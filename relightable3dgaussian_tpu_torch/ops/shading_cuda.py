@@ -1,0 +1,177 @@
+"""Kernel K4: the fused stage-2 train shading on the card.
+
+Port of relightable3dgaussian_tpu/ops/shading_pallas.py. K4's forward and
+backward (`csrc/shading.cu`) replace the TPU kernels `_fwd_kernel` and
+`_bwd_kernel`.
+
+`rendering_equation_train` takes `ops/shading.py::rendering_equation`'s
+inputs with the env query already applied (`global_light` [P, S, 3]) and
+returns (pbr, diffuse_light, specular), each [P, 3]:
+  * CPU tensors → `rendering_equation_train_reference`, the plain version,
+    differentiated by autograd;
+  * CUDA tensors → `ShadeFunction`, whose forward is K4-fwd and whose
+    backward is K4-bwd, or an exception. Nothing falls back.
+As in the train step, normals, visibility, directions and areas are
+constants: K4 gives them no gradient. `LAUNCHES` counts K4-fwd's launches
+and `BWD_LAUNCHES` K4-bwd's.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+from .shading import rendering_equation
+
+KERNEL = "shading"
+N_SH = 16          # csrc/shading.cu kSH: degree-3 local-light SH
+LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
+BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
+
+
+def rendering_equation_train_reference(base_color, roughness, normals,
+                                       viewdirs, incidents_shs, global_light,
+                                       visibility, incident_dirs,
+                                       incident_areas):
+    """The plain version: `rendering_equation` with a precomputed light."""
+    pbr, ex = rendering_equation(base_color, roughness, normals, viewdirs,
+                                 incidents_shs, lambda d: global_light,
+                                 visibility, incident_dirs, incident_areas)
+    return pbr, ex["diffuse_light"], ex["specular"]
+
+
+def rendering_equation_train(base_color, roughness, normals, viewdirs,
+                             incidents_shs, global_light, visibility,
+                             incident_dirs, incident_areas):
+    """The train-step shading: the plain version on CPU tensors, K4 on CUDA
+    tensors. Returns (pbr, diffuse_light, specular), each [P, 3]."""
+    args = (base_color, roughness, normals, viewdirs, incidents_shs,
+            global_light, visibility, incident_dirs, incident_areas)
+    devices = {a.device.type for a in args}
+    if devices == {"cpu"}:
+        return rendering_equation_train_reference(*args)
+    if devices != {"cuda"}:
+        raise ValueError(f"rendering_equation_train: inputs on "
+                         f"{sorted(devices)}; expected all on CPU or all on CUDA")
+    return ShadeFunction.apply(*args)
+
+
+class ShadeFunction(torch.autograd.Function):
+    """(base_color, roughness, viewdirs, incidents_shs, global_light) →
+    (pbr, diffuse_light, specular) by K4-fwd; the backward is K4-bwd."""
+
+    @staticmethod
+    def forward(ctx, base_color, roughness, normals, viewdirs, incidents_shs,
+                global_light, visibility, incident_dirs, incident_areas):
+        inputs = kernel_inputs(base_color, roughness, normals, viewdirs,
+                                incidents_shs, global_light, visibility,
+                                incident_dirs, incident_areas)
+        ctx.save_for_backward(*inputs)
+        ctx.shs_shape = incidents_shs.shape
+        return shade_fwd(*inputs)
+
+    @staticmethod
+    def backward(ctx, g_pbr, g_dif, g_spec):
+        grads = shade_bwd(*ctx.saved_tensors, g_pbr.contiguous(),
+                          g_dif.contiguous(), g_spec.contiguous())
+        dbc, drough, dvdir, dshs, dgl = grads
+        d_incidents = torch.zeros(ctx.shs_shape, dtype=dshs.dtype,
+                                  device=dshs.device)
+        d_incidents[:, :N_SH] = dshs.view(-1, N_SH, 3)
+        return (dbc, drough[:, None], None, dvdir, d_incidents, dgl, None,
+                None, None)
+
+
+def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,
+                   global_light, visibility, incident_dirs, incident_areas):
+    """The kernel's layout: [P, S, 3] dirs and light, [P, S] visibility and
+    area, [P] roughness, [P, 48] SH (the first 16 coefficients)."""
+    P, S = visibility.shape[:2]
+    if incidents_shs.shape[1] < N_SH:
+        raise ValueError(f"K4 takes {N_SH} SH coefficients, got "
+                         f"{incidents_shs.shape[1]}")
+    f = lambda x: x.detach().float().contiguous()  # noqa: E731
+    return (f(incident_dirs), f(visibility.reshape(P, S)),
+            f(incident_areas.expand(P, S, 1).reshape(P, S)), f(global_light),
+            f(base_color), f(roughness.reshape(P)), f(normals), f(viewdirs),
+            f(incidents_shs[:, :N_SH].reshape(P, 3 * N_SH)))
+
+
+def _check(kernel: str, tensors: dict, device: torch.device) -> None:
+    for name, (t, shape) in tensors.items():
+        if (t.device != device or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{kernel} {name}: got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, expected float32 {shape} on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} {name}: not contiguous")
+
+
+def _expect(dirs, vis, area, gl, bc, rough, nrm, vdir, shs) -> dict:
+    P, S = vis.shape
+    return {"incident_dirs": (dirs, (P, S, 3)), "visibility": (vis, (P, S)),
+            "incident_areas": (area, (P, S)), "global_light": (gl, (P, S, 3)),
+            "base_color": (bc, (P, 3)), "roughness": (rough, (P,)),
+            "normals": (nrm, (P, 3)), "viewdirs": (vdir, (P, 3)),
+            "incidents_shs": (shs, (P, 3 * N_SH))}
+
+
+def _library(symbol: str, n_ptr_in: int, n_ptr_out: int) -> ctypes.CDLL:
+    lib = _build.load_library(KERNEL)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * (n_ptr_out + 1))
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def shade_fwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs):
+    """Launch K4-fwd on CUDA tensors in the kernel's layout
+    (`kernel_inputs`): (pbr, diffuse_light, specular), each [P, 3]."""
+    global LAUNCHES
+    inputs = (dirs, vis, area, gl, bc, rough, nrm, vdir, shs)
+    device = vis.device
+    _check("K4-fwd", _expect(*inputs), device)
+    P, S = vis.shape
+    lib = _library("r3dg_shade_fwd", 9, 3)
+    outs = [torch.empty((P, 3), dtype=torch.float32, device=device)
+            for _ in range(3)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.r3dg_shade_fwd(*(t.data_ptr() for t in inputs), P, S,
+                                *(t.data_ptr() for t in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"K4-fwd launch failed: cudaError_t {rc}")
+    LAUNCHES += 1
+    return tuple(outs)
+
+
+def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
+              g_spec):
+    """Launch K4-bwd on CUDA tensors: (d base_color [P, 3], d roughness [P],
+    d viewdirs [P, 3], d shs [P, 48], d global_light [P, S, 3]) for the
+    cotangents of (pbr, diffuse_light, specular)."""
+    global BWD_LAUNCHES
+    inputs = (dirs, vis, area, gl, bc, rough, nrm, vdir, shs)
+    device = vis.device
+    P, S = vis.shape
+    expect = _expect(*inputs)
+    expect.update({"g_pbr": (g_pbr, (P, 3)), "g_diffuse": (g_dif, (P, 3)),
+                   "g_specular": (g_spec, (P, 3))})
+    _check("K4-bwd", expect, device)
+    lib = _library("r3dg_shade_bwd", 12, 5)
+    shapes = ((P, 3), (P,), (P, 3), (P, 3 * N_SH), (P, S, 3))
+    outs = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.r3dg_shade_bwd(*(t.data_ptr() for t in inputs),
+                                g_pbr.data_ptr(), g_dif.data_ptr(),
+                                g_spec.data_ptr(), P, S,
+                                *(t.data_ptr() for t in outs), stream)
+    if rc != 0:
+        raise RuntimeError(f"K4-bwd launch failed: cudaError_t {rc}")
+    BWD_LAUNCHES += 1
+    return tuple(outs)

@@ -6,11 +6,15 @@ A file holds `__iteration__`, one `params.<field>` array per `GaussianParams`
 leaf and one `aux.<field>` array per `GaussianAux` leaf, padded to a capacity
 with `aux.active` marking the live rows, and, for a training state, the Adam
 state as `opt_state.mu.<field>`, `opt_state.nu.<field>` and
-`opt_state.count`. The port reads the stage-1 fields, the densification
-statistics and the Adam moments of the active rows (a stage-1 file's
-zero-width PBR leaves are ignored), and writes a file the JAX package's
-`load_checkpoint` restores with every row active, so a model or a training
-state can go both ways.
+`opt_state.count`. The port reads the parameter fields (the PBR fields when
+they have a row per point; a stage-1 file's zero-width PBR leaves are
+ignored), the densification statistics and the Adam moments of the active
+rows, and writes a file the JAX package's `load_checkpoint` restores with
+every row active, so a model or a training state can go both ways.
+
+The stage-2 env light lives beside it in `env_light_<checkpoint name>`
+(`env_checkpoint_path`), as the JAX CLI writes it: `env.env` (the raw map)
+and its Adam state `env_state.mu`, `env_state.nu`, `env_state.count`.
 """
 from __future__ import annotations
 
@@ -19,14 +23,10 @@ import os
 import numpy as np
 import torch
 
-from ..models.gaussians import FIELDS, N_SH, STATS, GaussianModel
+from ..models.gaussians import PBR_SHAPES, STATS, GaussianModel
+from ..models.lights import DirectLightMap
 from .config import OptimizationConfig
-from .optim import make_optimizer
-
-# Zero-width stage-2 leaves of a stage-1 GaussianParams (gaussians.py:180-189).
-_PBR_SHAPES = {"base_color": (0, 3), "roughness": (0, 1),
-               "incidents_dc": (0, 1, 3), "incidents_rest": (0, N_SH - 1, 3),
-               "visibility_dc": (0, 1, 1), "visibility_rest": (0, 15, 1)}
+from .optim import make_env_optimizer, make_optimizer
 
 
 def _npz_path(path: str) -> str:
@@ -40,7 +40,8 @@ def load_checkpoint(path: str, device="cpu") -> tuple[int, GaussianModel]:
     densification statistics of the active rows (zeros where absent)."""
     with np.load(_npz_path(path), allow_pickle=False) as data:
         iteration = int(data["__iteration__"])
-        fields = {k: data[f"params.{k}"] for k in FIELDS}
+        fields = {k[len("params."):]: data[k] for k in data.files
+                  if k.startswith("params.")}
         active = data["aux.active"] if "aux.active" in data else None
         stats = {k: data[f"aux.{k}"] for k in STATS if f"aux.{k}" in data}
     model = GaussianModel.from_numpy(fields, active, device=device)
@@ -77,19 +78,23 @@ def load_train_state(path: str, opt: OptimizationConfig,
 
 def save_checkpoint(path: str, iteration: int, model: GaussianModel,
                     optimizer: torch.optim.Optimizer | None = None) -> None:
-    """Write `model` (with its densification statistics) as a stage-1
-    JAX-format checkpoint, every row active; with `optimizer`, also its Adam
-    state (moments of a field with no state yet are zeros)."""
+    """Write `model` (with its densification statistics) as a JAX-format
+    checkpoint, every row active, its PBR leaves zero-width when it has no
+    PBR fields; with `optimizer`, also its Adam state (moments of a field
+    with no state yet are zeros)."""
     P = model.num_points
     out: dict[str, np.ndarray] = {"__iteration__": np.asarray(iteration)}
+    empty = {k: np.zeros((0,) + shape, np.float32)
+             for k, shape in PBR_SHAPES.items()}
+    out.update({f"params.{k}": v for k, v in empty.items()})
     for k, v in model.to_numpy().items():
         out[f"params.{k}"] = v
-    for k, shape in _PBR_SHAPES.items():
-        out[f"params.{k}"] = np.zeros(shape, np.float32)
     out["aux.active"] = np.ones((P,), bool)
     for k in STATS:
         out[f"aux.{k}"] = getattr(model, k).detach().cpu().numpy()
     if optimizer is not None:
+        for m in ("mu", "nu"):
+            out.update({f"opt_state.{m}.{k}": v for k, v in empty.items()})
         count = 0
         for group in optimizer.param_groups:
             name = group["name"]
@@ -101,9 +106,47 @@ def save_checkpoint(path: str, iteration: int, model: GaussianModel,
                     else np.zeros(tuple(param.shape), np.float32))
             if "step" in state:
                 count = int(state["step"])
-        for k, shape in _PBR_SHAPES.items():
-            out[f"opt_state.mu.{k}"] = np.zeros(shape, np.float32)
-            out[f"opt_state.nu.{k}"] = np.zeros(shape, np.float32)
         out["opt_state.count"] = np.asarray(count, np.int32)
+    _savez(path, out)
+
+
+def _savez(path: str, out: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     np.savez(path if path.endswith(".npz") else path + ".npz", **out)
+
+
+def env_checkpoint_path(checkpoint: str) -> str:
+    """The env-light file beside a checkpoint: env_light_<its name>."""
+    return os.path.join(os.path.dirname(checkpoint),
+                        "env_light_" + os.path.basename(checkpoint))
+
+
+def save_env_checkpoint(path: str, iteration: int, env: DirectLightMap,
+                        env_optimizer: torch.optim.Optimizer) -> None:
+    """Write the env light and its Adam state as the JAX CLI does."""
+    raw = env.env.detach().cpu().numpy()
+    state = env_optimizer.state.get(env.env, {})
+    out = {"__iteration__": np.asarray(iteration), "env.env": raw,
+           "env_state.count": np.asarray(int(state.get("step", 0)), np.int32)}
+    for key, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+        out[f"env_state.{m}"] = (state[key].detach().cpu().numpy()
+                                 if key in state else np.zeros_like(raw))
+    _savez(path, out)
+
+
+def load_env_checkpoint(path: str, opt: OptimizationConfig, device="cpu"
+                        ) -> tuple[int, DirectLightMap, torch.optim.Adam]:
+    """Read an env-light file → (iteration, env light, its Adam optimizer
+    with the file's moments and step count)."""
+    with np.load(_npz_path(path), allow_pickle=False) as data:
+        iteration = int(data["__iteration__"])
+        env = DirectLightMap.from_raw(torch.as_tensor(
+            np.asarray(data["env.env"], np.float32), device=device))
+        optimizer = make_env_optimizer(env, opt)
+        optimizer.state[env.env] = {
+            "step": torch.tensor(float(data["env_state.count"]),
+                                 dtype=torch.float32),
+            **{key: torch.as_tensor(np.asarray(data[f"env_state.{m}"],
+                                               np.float32), device=device)
+               for key, m in (("exp_avg", "mu"), ("exp_avg_sq", "nu"))}}
+    return iteration, env, optimizer

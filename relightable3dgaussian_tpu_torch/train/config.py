@@ -3,11 +3,23 @@
 The port keeps its own copy of `OptimizationConfig`: the JAX package's
 `train/__init__.py` imports jax, so its config module cannot be imported
 without it. Field names, order and defaults are the JAX package's
-(tests/test_torch_train.py checks them).
+(tests/test_torch_train.py checks them). Of `ModelConfig` and
+`PipelineConfig` the port has the fields stage 2 reads, with the JAX
+package's defaults (tests/test_torch_stage2.py checks them).
 """
 from __future__ import annotations
 
 import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    env_resolution: int = 16     # rows of the learnable env map [H, 2H, 3]
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    sample_num: int = 64         # incident samples per point in stage 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,4 +94,21 @@ STAGE1_NERF_SYNTHETIC = dict(
     lambda_normal_smooth=0.01,
     lambda_mask_entropy=0.1,
     lambda_depth_var=1e-2,
+)
+
+# The NeRF-synthetic stage-2 recipe of the reference run scripts.
+STAGE2_NERF_SYNTHETIC = dict(
+    position_lr_init=0.000016,
+    position_lr_final=0.00000016,
+    normal_lr=0.001,
+    sh_lr=0.00025,
+    opacity_lr=0.005,
+    scaling_lr=0.0005,
+    rotation_lr=0.0001,
+    iterations=40_000,
+    lambda_base_color_smooth=0.0,
+    lambda_roughness_smooth=0.0,
+    lambda_light_smooth=0.0,
+    lambda_light=0.01,
+    lambda_env_smooth=0.01,
 )

@@ -1,15 +1,21 @@
-"""Camera matrices (port of the numpy helpers of relightable3dgaussian_tpu/utils/graphics.py).
+"""Graphics helpers (port of relightable3dgaussian_tpu/utils/graphics.py).
 
-`world_to_view`, `projection_matrix`, `projection_matrix_center_shift`,
-`fov2focal` and `focal2fov`, copied as numpy because the JAX module imports
-jax. Matrices are returned NOT transposed; `ops/camera.py` stores the
-transposes ("row vector" convention, points transform as `p_row @ M`).
+Camera matrices: `world_to_view`, `projection_matrix`,
+`projection_matrix_center_shift`, `fov2focal` and `focal2fov`, copied as
+numpy because the JAX module imports jax. Matrices are returned NOT
+transposed; `ops/camera.py` stores the transposes ("row vector" convention,
+points transform as `p_row @ M`). Stage 2: `fibonacci_sphere_sampling` (the
+deterministic form `update_visibility` uses) and the sRGB transfer
+functions, in torch.
 """
 from __future__ import annotations
 
 import math
 
 import numpy as np
+import torch
+
+from .sh import rotation_between_z
 
 
 def world_to_view(R: np.ndarray, t: np.ndarray,
@@ -64,3 +70,41 @@ def fov2focal(fov: float, pixels: float) -> float:
 
 def focal2fov(focal: float, pixels: float) -> float:
     return 2 * math.atan(pixels / (2 * focal))
+
+
+def fibonacci_sphere_sampling(normals: torch.Tensor, sample_num: int
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fibonacci-spiral directions on the hemisphere around each unit normal
+    [N, 3], with z clamped to sin(10°) and no random azimuth. Returns
+    (incident_dirs [N, S, 3], incident_areas [N, S, 1], constant 2π)."""
+    delta = math.pi * (3.0 - math.sqrt(5.0))
+    idx = torch.arange(sample_num, dtype=torch.float32,
+                       device=normals.device)[None]                 # [1, S]
+    z = torch.clamp(1 - 2 * idx / (2 * sample_num - 1),
+                    min=math.sin(10 / 180 * math.pi))
+    rad = torch.sqrt(1 - z ** 2)
+    theta = delta * idx
+    z_samples = torch.stack([torch.sin(theta) * rad, torch.cos(theta) * rad,
+                             z], dim=-2)                             # [1, 3, S]
+    dirs = rotation_between_z(normals) @ z_samples                   # [N, 3, S]
+    dirs = dirs / torch.linalg.norm(dirs, dim=-2, keepdim=True)
+    dirs = dirs.transpose(-1, -2).contiguous()                       # [N, S, 3]
+    areas = torch.full(dirs.shape[:-1] + (1,), 2 * math.pi,
+                       dtype=dirs.dtype, device=dirs.device)
+    return dirs, areas
+
+
+def rgb_to_srgb(img: torch.Tensor, clip: bool = True) -> torch.Tensor:
+    """Linear HDR → sRGB, elementwise."""
+    img = torch.where(
+        img > 0.0031308,
+        torch.pow(torch.clamp(img, min=0.0031308), 1.0 / 2.4) * 1.055 - 0.055,
+        12.92 * img)
+    return torch.clamp(img, 0.0, 1.0) if clip else img
+
+
+def srgb_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """sRGB LDR → linear."""
+    return torch.where(
+        img <= 0.04045, img / 12.92,
+        torch.pow((torch.clamp(img, min=0.04045) + 0.055) / 1.055, 2.4))

@@ -1,7 +1,8 @@
 """Real spherical harmonics (port of relightable3dgaussian_tpu/utils/sh.py).
 
-`eval_sh_basis`, `eval_sh` and `rgb_to_sh`, with the same basis
-order and 3DGS sign convention (band-1 terms are [-y, z, -x] scaled by C1).
+`eval_sh_basis`, `eval_sh`, `rgb_to_sh` and `rotation_between_z`, with the
+same basis order and 3DGS sign convention (band-1 terms are [-y, z, -x]
+scaled by C1).
 """
 from __future__ import annotations
 
@@ -92,4 +93,20 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """Invert the DC-band shift: color 0.5 maps to coefficient 0."""
     return (rgb - 0.5) / C0
+
+
+def rotation_between_z(vec: torch.Tensor) -> torch.Tensor:
+    """[..., 3] unit vectors → [..., 3, 3] rotations R with R @ +z == vec
+    (Rodrigues' special case), -I where vec is -z."""
+    v1, v2 = -vec[..., 1], vec[..., 0]
+    cos_p_1 = torch.clamp(vec[..., 2] + 1.0, min=1e-7)
+    v11, v22, v12 = v1 * v1, v2 * v2, v1 * v2
+    rows = torch.stack([
+        torch.stack([1 - v22 / cos_p_1, v12 / cos_p_1, v2], dim=-1),
+        torch.stack([v12 / cos_p_1, 1 - v11 / cos_p_1, -v1], dim=-1),
+        torch.stack([-v2, v1, 1 + (-v22 - v11) / cos_p_1], dim=-1),
+    ], dim=-2)
+    antipodal = (vec[..., 2] + 1.0) <= 0.0
+    neg_eye = -torch.eye(3, dtype=rows.dtype, device=rows.device)
+    return torch.where(antipodal[..., None, None], neg_eye, rows)
 

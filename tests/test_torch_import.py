@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,6 +27,11 @@ def test_port_imports_without_jax():
         "import relightable3dgaussian_tpu_torch.train.stage1\n"
         "import relightable3dgaussian_tpu_torch.losses\n"
         "import relightable3dgaussian_tpu_torch.ops.composite_cuda\n"
+        "import relightable3dgaussian_tpu_torch.models.lights\n"
+        "import relightable3dgaussian_tpu_torch.models.render_neilf\n"
+        "import relightable3dgaussian_tpu_torch.ops.ray_trace_cuda\n"
+        "import relightable3dgaussian_tpu_torch.ops.shading_cuda\n"
+        "import relightable3dgaussian_tpu_torch.train.stage2\n"
         "import chip_smoke\n"
         "from relightable3dgaussian_tpu_torch.ops import _build\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
@@ -63,6 +69,20 @@ def test_backward_kernel_source_exports_the_bound_symbol():
     # the TPU kernel it replaces
     assert "composite_pallas_bwd.py::_bwd_kernel_single" in src
     assert "__expf" not in src.replace("(not __expf)", "")
+
+
+@pytest.mark.parametrize("source,symbols,replaces", [
+    ("ray_trace.cu", ["r3dg_trace"], "ray_trace.py::_trace_eval_kernel"),
+    ("shading.cu", ["r3dg_shade_fwd", "r3dg_shade_bwd"],
+     "shading_pallas.py::_fwd_kernel and ::_bwd_kernel"),
+])
+def test_stage2_kernel_sources_export_the_bound_symbols(source, symbols,
+                                                        replaces):
+    src = (PORT / "csrc" / source).read_text()
+    for symbol in symbols:
+        assert f'extern "C" int {symbol}(' in src
+    assert replaces in src.replace("\n// ", "")      # the TPU kernel replaced
+    assert "__expf" not in src and "use_fast_math" not in src
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -1,0 +1,187 @@
+"""The port's shading against the JAX package's, on the CPU: the rendering
+equation (the eval path and the plain version of kernel K4) against
+`ops/shading.py::rendering_equation` and against the TPU kernels
+themselves (`ops/shading_pallas.py::rendering_equation_train`, run in
+Pallas interpret mode as tests/test_shading_fused.py runs it), outputs and
+gradients, from the same seeded numpy inputs."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from relightable3dgaussian_tpu.models import lights as jax_lights
+from relightable3dgaussian_tpu.ops import shading as jax_shading
+from relightable3dgaussian_tpu.ops import shading_pallas as jax_shading_pallas
+from relightable3dgaussian_tpu.utils import graphics as jax_graphics
+from relightable3dgaussian_tpu_torch.models import lights
+from relightable3dgaussian_tpu_torch.ops import shading, shading_cuda
+from test_torch_ops import t
+
+NAMES = ("pbr", "diffuse", "specular")
+GRAD_NAMES = ("base_color", "roughness", "viewdirs", "shs", "env")
+
+
+def make_inputs(P: int, S: int, seed: int, rough=(0.05, 0.95)) -> dict:
+    """Seeded numpy inputs on the pattern of test_shading_fused.make_inputs:
+    unit normals and view directions, Fibonacci samples, visibility in
+    [0, 1) (all zero on the first 5 points), roughness uniform in `rough`
+    with the activation's extremes 0.09 and 0.99 on two points, local SH
+    0.3·N(0, 1), an 8x16 raw env map, cotangents N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(f32)
+
+    normals, viewdirs = unit(P), unit(P)
+    dirs, areas = jax_graphics.fibonacci_sphere_sampling(normals, S)
+    vis = rng.uniform(size=(P, S, 1)).astype(f32)
+    vis[:5] = 0.0
+    roughness = rng.uniform(*rough, (P, 1)).astype(f32)
+    roughness[-2:, 0] = (0.09, 0.99)
+    return {"base_color": rng.uniform(size=(P, 3)).astype(f32),
+            "roughness": roughness, "normals": normals, "viewdirs": viewdirs,
+            "shs": (0.3 * rng.normal(size=(P, 16, 3))).astype(f32),
+            "env": (2.0 * rng.uniform(size=(8, 16, 3))).astype(f32),
+            "vis": vis, "dirs": np.asarray(dirs), "areas": np.asarray(areas),
+            "cot": rng.normal(size=(3, P, 3)).astype(f32)}
+
+
+def jax_train_shading(x: dict, fn):
+    """Outputs and gradients (bc, roughness, viewdirs, shs, raw env) of
+    Σ cot · (pbr, diffuse, specular) through `fn` with the env query in
+    front, normals stop-gradient, as the JAX train step shades."""
+    def f(bc, rough, vdir, shs, env):
+        gl = jax_lights.direct_light(jax_lights.DirectLightParams(env=env),
+                                     x["dirs"])
+        outs = fn(bc, rough, jax.lax.stop_gradient(x["normals"]), vdir, shs,
+                  gl, x["vis"], x["dirs"], x["areas"])
+        return sum((c * o).sum() for c, o in zip(x["cot"], outs)), outs
+
+    args = [jnp.asarray(x[k]) for k in ("base_color", "roughness", "viewdirs",
+                                         "shs", "env")]
+    (_, outs), grads = jax.jit(jax.value_and_grad(
+        f, argnums=tuple(range(5)), has_aux=True))(*args)
+    return [np.asarray(o) for o in outs], [np.asarray(g) for g in grads]
+
+
+def port_train_shading(x: dict):
+    leaves = {k: t(x[k]).requires_grad_() for k in
+              ("base_color", "roughness", "viewdirs", "shs")}
+    env = lights.DirectLightMap.from_raw(t(x["env"]))
+    gl = env.direct_light(t(x["dirs"]))
+    outs = shading_cuda.rendering_equation_train(
+        leaves["base_color"], leaves["roughness"], t(x["normals"]),
+        leaves["viewdirs"], leaves["shs"], gl, t(x["vis"]), t(x["dirs"]),
+        t(x["areas"]))
+    sum((t(c) * o).sum() for c, o in zip(x["cot"], outs)).backward()
+    grads = [leaves[k].grad.numpy() for k in
+             ("base_color", "roughness", "viewdirs", "shs")] + [env.env.grad.numpy()]
+    return [o.detach().numpy() for o in outs], grads
+
+
+def assert_grads_close(got, want):
+    """rtol 5e-5 and atol 5e-6 of each gradient's largest entry, the JAX
+    suite's tolerance for the fused kernel (test_shading_fused.py)."""
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        scale = max(np.abs(w).max(), 1e-6)
+        np.testing.assert_allclose(g, w, rtol=5e-5, atol=5e-6 * scale,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("P,S,seed", [(37, 8, 0), (260, 16, 1), (64, 4, 2)])
+def test_rendering_equation_matches_jax(P, S, seed):
+    """The eval shading, extras included: rtol 1e-4, atol 1e-5."""
+    x = make_inputs(P, S, seed)
+    env_j = jax_lights.DirectLightParams(env=jnp.asarray(x["env"]))
+    env_t = lights.DirectLightMap.from_raw(t(x["env"]))
+    args = ("base_color", "roughness", "normals", "viewdirs", "shs")
+    want, want_ex = jax_shading.rendering_equation(
+        *(x[k] for k in args), lambda d: jax_lights.direct_light(env_j, d),
+        x["vis"], x["dirs"], x["areas"])
+    with torch.no_grad():
+        got, got_ex = shading.rendering_equation(
+            *(t(x[k]) for k in args), env_t.direct_light, t(x["vis"]),
+            t(x["dirs"]), t(x["areas"]))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    for k, v in got_ex.items():
+        np.testing.assert_allclose(v.numpy(), want_ex[k], rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    assert float(got.abs().max()) > 0.1
+
+
+def assert_outputs_close(got, want):
+    for name, g, w in zip(NAMES, got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("P,S,seed", [(37, 8, 0), (260, 16, 1), (64, 4, 2)])
+def test_train_shading_matches_jax(P, S, seed):
+    """The plain version of K4 (the CPU path of rendering_equation_train)
+    against the JAX rendering equation with the same precomputed light:
+    forward rtol 1e-4, atol 1e-5; gradients (env map included) rtol 5e-5,
+    atol 5e-6 of their largest entry."""
+    x = make_inputs(P, S, seed)
+    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    got, got_g = port_train_shading(x)
+    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == before
+    want, want_g = jax_train_shading(
+        x, jax_shading_pallas.rendering_equation_train_reference)
+    assert_outputs_close(got, want)
+    assert_grads_close(got_g, want_g)
+
+
+def test_train_shading_matches_the_pallas_kernels():
+    """Against the TPU kernels K4-fwd and K4-bwd themselves, in interpret
+    mode, with the same tolerances."""
+    x = make_inputs(37, 8, 5)
+    got, got_g = port_train_shading(x)
+    want, want_g = jax_train_shading(
+        x, jax_shading_pallas.rendering_equation_train)
+    assert_outputs_close(got, want)
+    assert_grads_close(got_g, want_g)
+
+
+@pytest.mark.parametrize("rough", [0.09, 0.99])
+def test_train_shading_rough_extremes_and_dark_points(rough):
+    """Roughness at the activation's bounds on every point and visibility
+    zero everywhere, as test_shading_fused.py's extreme case: forward rtol
+    1e-4, atol 1e-5, and finite gradients."""
+    x = make_inputs(29, 8, 7)
+    x["roughness"][:] = rough
+    x["vis"][:] = 0.0
+    got, got_g = port_train_shading(x)
+    want, _ = jax_train_shading(
+        x, jax_shading_pallas.rendering_equation_train_reference)
+    assert_outputs_close(got, want)
+    for name, g in zip(GRAD_NAMES, got_g):
+        assert np.isfinite(g).all(), name
+    assert np.abs(got_g[-1]).max() == 0.0      # the env is never seen
+
+
+def test_train_shading_from_zero_local_light():
+    """The stage-2 start: the local-light SH are all zero, so max(SH, 0)
+    sits at its tie on every sample. The jnp chain (the JAX package's
+    default train shading) passes half the gradient there, and so does the
+    port: the SH gradient is not zero, and the SH can train. Same
+    tolerances as above."""
+    x = make_inputs(37, 8, 6)
+    x["shs"][:] = 0.0
+    got, got_g = port_train_shading(x)
+    want, want_g = jax_train_shading(
+        x, jax_shading_pallas.rendering_equation_train_reference)
+    assert_outputs_close(got, want)
+    assert_grads_close(got_g, want_g)
+    assert np.abs(got_g[3]).max() > 0.01
+
+
+def test_train_wrapper_rejects_mixed_devices():
+    x = make_inputs(8, 4, 4)
+    args = [t(x[k]) for k in ("base_color", "roughness", "normals",
+                              "viewdirs", "shs")]
+    with pytest.raises(ValueError, match="expected all on CPU or all on CUDA"):
+        shading_cuda.rendering_equation_train(
+            *args, t(x["dirs"]).to("meta"), t(x["vis"]), t(x["dirs"]),
+            t(x["areas"]))
