@@ -9,8 +9,9 @@ no result line is printed):
 
   1. device   needs torch.cuda; prints the card's name and power limit;
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
-              (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu) and K4
-              (csrc/shading.cu) with nvcc, all at once;
+              (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
+              (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu)
+              with nvcc, all at once;
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
               400x400 scene (opacities in [0.1, 0.99]), with and without
               per-gaussian weights;
@@ -18,6 +19,9 @@ no result line is printed):
               composite_backward) on the same scene, with a seeded image
               cotangent (zero on pixels where K1's and the plain n_contrib
               differ), with and without a weights cotangent;
+     k5-mid   K5, the two-walk backward, against the plain backward under
+              K2's gate on the same inputs, timed beside K2 and the plain
+              backward; its count of blended pairs against K1's n_contrib;
   5. k3-mid   K3 against the plain tracer (ops/ray_trace.py::
               trace_transmittance_plain) on every ray of the same scene, 16
               rays per point as update_visibility lays them out, timed
@@ -42,6 +46,7 @@ no result line is printed):
               PSNR rise;
  10. k2-main  K2 against the plain backward at the train step's shapes (the
               trained model after its last densify, 800x800), timed beside it;
+     k5-main  K5 as in k5-mid, on k2-main's inputs;
  11. profile  three windows of further train steps of the trained model:
               without a profiler (ms per step), under torch.profiler with
               device activity only (kernel ms against the window's stream
@@ -62,7 +67,22 @@ no result line is printed):
               the 8 views at 800x800 (32 splatted channels);
  16. stage2-profile  two windows of further stage-2 steps: without a
               profiler, and under the device-only profiler (kernel ms per
-              step, the largest kernels).
+              step, the largest kernels);
+ 17. cli      the README's commands through the CLIs' main functions: a
+              NeRF-synthetic-layout scene (24 train and 8 test views at
+              800x800, RGBA PNGs written by the port's own PNG writer from
+              its render of phase 7's scene), cli.train stage 1 from the 100k
+              random init for 300 steps on the train phase's schedule with
+              R3DG_BWD_TWO_WALK=1 (K5 once per step, K2 never), cli.train
+              -t neilf from its checkpoint for 200 steps (a visibility
+              refresh, an env-map upsample), and cli.eval_nvs -t neilf on
+              the test views; every artifact, the launch counts and rising
+              test PSNRs are checked.
+
+Every kernel's entry in the kernels line carries its bound: the larger of
+the bytes it must move (each input read once, each output written once) over
+the H100's 3.35 TB/s and the FP32 operations it does on this run's inputs
+over 67 TFLOP/s (the H100 SXM's published peak rates).
 
 The card's render and train steps against the CPU path, which
 tests/test_torch_*.py tie to the JAX package, are checked by
@@ -73,8 +93,11 @@ The line before the last holds the kernels' numbers; the last line is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -84,6 +107,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from relightable3dgaussian_tpu_torch.cli import eval_nvs
+from relightable3dgaussian_tpu_torch.cli import train as train_cli
 from relightable3dgaussian_tpu_torch.models.gaussians import (GaussianModel,
                                                               create_from_pcd)
 from relightable3dgaussian_tpu_torch.models.lights import query_light
@@ -99,6 +124,7 @@ from relightable3dgaussian_tpu_torch.ops.composite import composite as composite
 from relightable3dgaussian_tpu_torch.ops.composite import composite_backward
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
+from relightable3dgaussian_tpu_torch.scene.image_io import write_png
 from relightable3dgaussian_tpu_torch.train.checkpoint import (load_checkpoint,
                                                               save_checkpoint)
 from relightable3dgaussian_tpu_torch.train import stage2
@@ -157,6 +183,31 @@ K3_REPLACES = "relightable3dgaussian_tpu/ops/ray_trace.py:488"
 K4_SOURCE = "relightable3dgaussian_tpu_torch/csrc/shading.cu"
 K4F_REPLACES = "relightable3dgaussian_tpu/ops/shading_pallas.py:252"
 K4B_REPLACES = "relightable3dgaussian_tpu/ops/shading_pallas.py:261"
+K5_SOURCE = "relightable3dgaussian_tpu_torch/csrc/composite_bwd_two_walk.cu"
+K5_REPLACES = "relightable3dgaussian_tpu/ops/composite_pallas_bwd.py:45"
+# A kernel's bound: the larger of the bytes it must move over the HBM rate and
+# its FP32 operations over the rate outside the tensor cores (the H100 SXM's
+# published peak rates, both at the 700 W power limit).
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
+# FP32 operations per (pixel, pair), counted from the compositor sources.
+# Walking a pair is the alpha step (dx, dy, the power, expf, alpha, the two
+# tests): 15. A blended pair adds, in K1, w, the T update and A FMAs (3 + 2A);
+# in K2 the T division, w, d (2A), g_alpha, the suffix, the chain into the 6
+# geometry gradients and g_attr (27 + 3A). K5 computes K2's function and is
+# bound by K2's count (its second walk is its design's cost, not the
+# function's). The pairs walked per pixel are K1's stop indices.
+WALK_OPS = 15
+# FP32 operations per tested (ray, gaussian) pair of K3 (g - o, the two
+# 3x3 products, t, the residual, the power, expf, alpha, the tests, the
+# product): 72, counted from csrc/ray_trace.cu. Counted only on the rays that
+# end visible: every implementation must test all their pairs, where an
+# occluded ray may stop early.
+K3_PAIR_OPS = 72
+# FP32 operations per (point, sample) of K4, counted from the plain shading's
+# formula (SH incident light 126, the env mix, half vector and dots 38, GGX
+# and Fresnel 40, Lambert and the sums 16): 220 forward; the backward
+# recomputes the forward and chains through it, about 3x.
+K4_FWD_OPS, K4_BWD_OPS = 220, 660
 S_MID = 16                                   # samples per point, mid phases
 SAMPLE_NUM = PipelineConfig().sample_num     # 64
 ENV_RES = ModelConfig().env_resolution       # 16: a 16x32 env map
@@ -259,10 +310,34 @@ def cuda_ms(fn, reps: int) -> float:
     return total / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, ops: float) -> dict:
+    """The least time the H100 could take for work moving `n_bytes` and
+    doing `ops` FP32 operations, and which of the two bounds it."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def compositor_inputs_bytes(args) -> int:
+    binning, mean2d, conic, opacity, attrs, _ = args
+    return nbytes(binning.sorted_ids, binning.tile_start, binning.tile_end,
+                  mean2d, conic, opacity, attrs)
+
+
+def pairs_walked(out, walk) -> tuple[int, int]:
+    """(pixel-pair evaluations up to each pixel's stop, blended pairs)."""
+    return int(walk.stop.sum()), int(out.n_contrib.sum())
+
+
 def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     """K1 against the plain compositor on the same card inputs; raises on
     disagreement. Returns the numbers for the kernels line."""
-    got, _ = composite_cuda.composite_k1(*args)
+    got, walk = composite_cuda.composite_k1(*args)
     torch.cuda.synchronize()
     want = composite_plain(*args)
     torch.cuda.synchronize()
@@ -280,20 +355,28 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
 
     k1_ms = cuda_ms(lambda: composite_cuda.composite_k1(*args), k1_reps)
     plain_ms = cuda_ms(lambda: composite_plain(*args), plain_reps)
-    binning = args[0]
+    binning, A = args[0], args[4].shape[1]
+    walked, blended = pairs_walked(got, walk)
+    bnd = bound(compositor_inputs_bytes(args) + nbytes(
+        got.image, got.n_contrib, got.weights if args[-1].compute_weights
+        else None, *walk), walked * WALK_OPS + blended * (3 + 2 * A))
     say(label, pairs=binning.num_rendered, tiles=args[-1].num_tiles,
-        attrs=args[4].shape[1], weights=args[-1].compute_weights,
+        attrs=A, weights=args[-1].compute_weights,
         n_contrib_equal=f"{agree_frac:.6f}", image_max_abs_err=img_err,
         weights_max_abs_err=w_err, k1_ms=f"{k1_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
-    return {"max_abs_err": img_err, "ms": k1_ms, "plain_ms": plain_ms}
+        plain_ms=f"{plain_ms:.4f}", pixel_pairs_walked=walked,
+        pixel_pairs_blended=blended, bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"])
+    return {"max_abs_err": img_err, "ms": k1_ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
 
 
-def check_k2(args, label: str, with_g_weights: bool, seed: int,
-             k2_reps: int = 10, plain_reps: int = 3) -> dict:
-    """K2 (from K1's walk state) against the plain backward on the same card
-    inputs and a seeded cotangent; raises on disagreement."""
-    binning, mean2d, conic, opacity, attrs, cfg = args
+def backward_case(args, label: str, with_g_weights: bool, seed: int):
+    """K1's forward and walk state on `args`, and a seeded cotangent whose
+    image part is zero on the pixels where K1's and the plain n_contrib
+    differ (held to COUNT_AGREE). Returns (out, walk, agree, g_image,
+    g_weights)."""
+    attrs = args[4]
     out, walk = composite_cuda.composite_k1(*args)
     agree = out.n_contrib == composite_plain(*args).n_contrib
     agree_frac = float(agree.float().mean())
@@ -305,6 +388,29 @@ def check_k2(args, label: str, with_g_weights: bool, seed: int,
                           device=attrs.device) * agree[..., None]
     g_weights = (torch.randn((attrs.shape[0],), generator=gen,
                              device=attrs.device) if with_g_weights else None)
+    return out, walk, agree, g_image, g_weights
+
+
+def grad_errors(label: str, kernel: str, got, want) -> tuple[dict, float]:
+    """Per gradient field max |got - want| / max |want|, and the largest
+    absolute difference; raises where a field is not finite."""
+    rel, abs_err = {}, 0.0
+    for name, g, w in zip(("mean2d", "conic", "opacity", "attrs"), got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: {kernel} d{name} not finite")
+        diff = float((g - w).abs().max())
+        rel[name] = diff / max(float(w.abs().max()), 1e-30)
+        abs_err = max(abs_err, diff)
+    return rel, abs_err
+
+
+def check_k2(args, label: str, with_g_weights: bool, seed: int,
+             k2_reps: int = 10, plain_reps: int = 3) -> dict:
+    """K2 (from K1's walk state) against the plain backward on the same card
+    inputs and a seeded cotangent; raises on disagreement."""
+    binning, mean2d, conic, opacity, attrs, cfg = args
+    out, walk, agree, g_image, g_weights = backward_case(
+        args, label, with_g_weights, seed)
     k2_args = (binning, mean2d, conic, opacity, attrs, walk, g_image,
                g_weights, cfg)
     got = composite_cuda.composite_k2(*k2_args)
@@ -313,26 +419,82 @@ def check_k2(args, label: str, with_g_weights: bool, seed: int,
                   cfg)
     want = composite_backward(*plain_args)
     torch.cuda.synchronize()
-    rel, abs_err = {}, 0.0
-    for name, g, w in zip(("mean2d", "conic", "opacity", "attrs"), got, want):
-        if not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"{label}: K2 d{name} not finite")
-        diff = float((g - w).abs().max())
-        rel[name] = diff / max(float(w.abs().max()), 1e-30)
-        abs_err = max(abs_err, diff)
+    rel, abs_err = grad_errors(label, "K2", got, want)
     if max(rel.values()) > K2_TOL:
         raise AssertionError(f"{label}: K2 against the plain backward, max "
                              f"relative error {rel} > {K2_TOL}")
     k2_ms = cuda_ms(lambda: composite_cuda.composite_k2(*k2_args), k2_reps)
     plain_ms = cuda_ms(lambda: composite_backward(*plain_args), plain_reps)
+    A = attrs.shape[1]
+    walked, blended = pairs_walked(out, walk)
+    bnd = bound(compositor_inputs_bytes(args) + nbytes(*walk, g_image,
+                                                       g_weights, *got),
+                walked * WALK_OPS + blended * (27 + 3 * A))
     say(label, pairs=binning.num_rendered, gaussians=attrs.shape[0],
-        attrs=attrs.shape[1], g_weights=with_g_weights,
-        n_contrib_equal=f"{agree_frac:.6f}",
+        attrs=A, g_weights=with_g_weights,
+        n_contrib_equal=f"{float(agree.float().mean()):.6f}",
         pixels_masked=int((~agree).sum()),
         max_rel_err={k: f"{v:.3e}" for k, v in rel.items()},
         max_abs_err=f"{abs_err:.3e}", k2_ms=f"{k2_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}")
-    return {"max_abs_err": abs_err, "ms": k2_ms, "plain_ms": plain_ms}
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"])
+    return {"max_abs_err": abs_err, "ms": k2_ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
+
+
+def check_k5(args, label: str, with_g_weights: bool, seed: int,
+             reps: int = 10, plain_reps: int = 3) -> dict:
+    """K5, the two-walk backward, against the plain backward on the same
+    card inputs and cotangent as check_k2 (K2's gate), with K2's error
+    beside it; its count of blended pairs against K1's n_contrib (held to
+    COUNT_AGREE, the share printed); K5, K2 and the plain backward timed in
+    turns. Raises on disagreement."""
+    binning, mean2d, conic, opacity, attrs, cfg = args
+    out, walk, agree, g_image, g_weights = backward_case(
+        args, label, with_g_weights, seed)
+    count = torch.full_like(out.n_contrib, -1)
+    k5_args = (binning, mean2d, conic, opacity, attrs, g_image, g_weights,
+               cfg)
+    got = composite_cuda.composite_k5(*k5_args, n_blended=count)
+    k2_args = (binning, mean2d, conic, opacity, attrs, walk, g_image,
+               g_weights, cfg)
+    k2 = composite_cuda.composite_k2(*k2_args)
+    torch.cuda.synchronize()
+    want = composite_backward(*k5_args)
+    torch.cuda.synchronize()
+    count_equal = float((count == out.n_contrib).float().mean())
+    if count_equal < COUNT_AGREE:
+        raise AssertionError(f"{label}: K5's blended count equals K1's "
+                             f"n_contrib on {count_equal:.6f} of pixels < "
+                             f"{COUNT_AGREE}")
+    rel, abs_err = grad_errors(label, "K5", got, want)
+    rel_k2, _ = grad_errors(label, "K2", k2, want)
+    if max(rel.values()) > K2_TOL:
+        raise AssertionError(f"{label}: K5 against the plain backward, max "
+                             f"relative error {rel} > {K2_TOL}")
+    k5_ms = cuda_ms(lambda: composite_cuda.composite_k5(*k5_args), reps)
+    k2_ms = cuda_ms(lambda: composite_cuda.composite_k2(*k2_args), reps)
+    plain_ms = cuda_ms(lambda: composite_backward(*k5_args), plain_reps)
+    k5_ms_again = cuda_ms(lambda: composite_cuda.composite_k5(*k5_args), reps)
+    A = attrs.shape[1]
+    walked, blended = pairs_walked(out, walk)
+    # The work the VJP needs, K2's count: K5's second walk and its phase-A
+    # sums are its design's, not the function's.
+    bnd = bound(compositor_inputs_bytes(args) + nbytes(g_image, g_weights,
+                                                       *got),
+                walked * WALK_OPS + blended * (27 + 3 * A))
+    say(label, pairs=binning.num_rendered, gaussians=attrs.shape[0],
+        attrs=A, g_weights=with_g_weights,
+        blended_count_equal_to_k1=f"{count_equal:.6f}",
+        pixels_masked=int((~agree).sum()),
+        k5_max_rel_err={k: f"{v:.3e}" for k, v in rel.items()},
+        k2_max_rel_err={k: f"{v:.3e}" for k, v in rel_k2.items()},
+        max_abs_err=f"{abs_err:.3e}", k5_ms=f"{k5_ms:.4f}",
+        k5_ms_again=f"{k5_ms_again:.4f}", k2_ms=f"{k2_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd['bound_ms']:.4f}",
+        bound_by=bnd["bound_by"])
+    return {"max_abs_err": abs_err, "ms": k5_ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
 
 
 def random_pcd(n: int, seed: int, device):
@@ -377,7 +539,7 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    composite_cuda.LAUNCHES = composite_cuda.BWD_LAUNCHES = 0
+    reset_launches()
     generator = torch.Generator(device=device).manual_seed(SEED)
     t0 = time.perf_counter()
     run_training_schedule(model, optimizer, views, cfg=cfg, opt=opt,
@@ -533,6 +695,16 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
                              f"on different sides of 0.9, {far} of them with "
                              f"|T_plain - 0.9| >= {SPLIT_BAND}")
     k3_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d), reps)
+    # the pairs the rays that end visible test: every gaussian of each hit
+    # cluster (ops/ray_trace.py's rule)
+    inv_d, visible_pairs = ray_trace.safe_inverse(rays_d), 0
+    for i in range(0, o.shape[0], 4096):
+        hit = ray_trace.slab_hit(bvh.cluster_lo, bvh.cluster_hi,
+                                 o[i:i + 4096], inv_d[i:i + 4096])
+        visible_pairs += int(hit[side[i:i + 4096]].sum()) * ray_trace.CLUSTER_SIZE
+    bnd = bound(nbytes(o, rays_d, T, bvh.records, bvh.cluster_lo,
+                       bvh.cluster_hi, bvh.super_lo, bvh.super_hi),
+                visible_pairs * K3_PAIR_OPS)
     extra = {}
     if o_all.shape[0] != o.shape[0]:
         all_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o_all, d_all),
@@ -542,8 +714,10 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
         mean_vis=f"{float(vis_plain.mean()):.4f}",
         vis_zero_share=f"{float((~side_plain).float().mean()):.4f}",
         max_abs_err=f"{err:.3e}", rays_split=n_split, k3_ms=f"{k3_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", **extra)
-    return {"max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms}
+        plain_ms=f"{plain_ms:.4f}", visible_ray_pairs=visible_pairs,
+        bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"], **extra)
+    return {"max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
 
 
 def shading_case(P: int, S: int, seed: int, device, dark: bool = False,
@@ -644,21 +818,30 @@ def check_k4(x, label: str, seed: int, reps: int = 10,
         leaves, loss = plain_shading_graph(x, cot)
         plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
             loss, leaves, retain_graph=True), plain_reps)
-    say(label, points=P, samples=x[6].shape[1],
+    S = x[6].shape[1]
+    fwd_bound = bound(nbytes(*kin, *got), P * S * K4_FWD_OPS)
+    bwd_bound = bound(nbytes(*kin, *cot, dbc, drough, dvdir, dshs, dgl),
+                      P * S * K4_BWD_OPS)
+    say(label, points=P, samples=S,
         visibility_mean=f"{float(x[6].mean()):.4f}",
         err_kernel_plain_vs_float64=errs,
         fwd_max_abs_err=f"{abs_err['fwd']:.3e}",
         bwd_max_abs_err=f"{abs_err['bwd']:.3e}",
         fwd_ms=f"{fwd_ms:.4f}", plain_fwd_ms=f"{plain_fwd_ms:.4f}",
-        bwd_ms=f"{bwd_ms:.4f}", plain_bwd_ms=f"{plain_bwd_ms:.4f}")
+        bwd_ms=f"{bwd_ms:.4f}", plain_bwd_ms=f"{plain_bwd_ms:.4f}",
+        fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}",
+        fwd_bound_by=fwd_bound["bound_by"],
+        bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}",
+        bwd_bound_by=bwd_bound["bound_by"])
     return ({"max_abs_err": abs_err["fwd"], "ms": fwd_ms,
-             "plain_ms": plain_fwd_ms},
+             "plain_ms": plain_fwd_ms, **fwd_bound, "library_ms": None},
             {"max_abs_err": abs_err["bwd"], "ms": bwd_ms,
-             "plain_ms": plain_bwd_ms})
+             "plain_ms": plain_bwd_ms, **bwd_bound, "library_ms": None})
 
 
 def reset_launches() -> None:
     composite_cuda.LAUNCHES = composite_cuda.BWD_LAUNCHES = 0
+    composite_cuda.TWO_WALK_LAUNCHES = 0
     ray_trace_cuda.LAUNCHES = 0
     shading_cuda.LAUNCHES = shading_cuda.BWD_LAUNCHES = 0
 
@@ -666,7 +849,8 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {"K1": composite_cuda.LAUNCHES, "K2": composite_cuda.BWD_LAUNCHES,
             "K3": ray_trace_cuda.LAUNCHES, "K4-fwd": shading_cuda.LAUNCHES,
-            "K4-bwd": shading_cuda.BWD_LAUNCHES}
+            "K4-bwd": shading_cuda.BWD_LAUNCHES,
+            "K5": composite_cuda.TWO_WALK_LAUNCHES}
 
 
 def stage2_phase(trained: dict, device) -> dict:
@@ -783,6 +967,199 @@ def stage2_eval_phase(s2: dict, device) -> None:
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
 
 
+# The cli phase: a NeRF-synthetic-layout scene of the render cell's views;
+# stage 1 on TRAIN_OPT, stage 2 for CLI_STAGE2_STEPS more steps with a
+# visibility re-trace every CLI_VIS_REFRESH steps (once, at step 401) and the
+# env map upsampled CLI_ENV_UPSAMPLE steps in; test PSNRs every
+# CLI_TEST_INTERVAL steps.
+CLI_TRAIN_VIEWS, CLI_TEST_VIEWS = 24, 8
+CLI_STAGE2_STEPS, CLI_VIS_REFRESH, CLI_ENV_UPSAMPLE = 200, 100, 150
+CLI_TEST_INTERVAL = 50
+
+
+def opt_flags(opt: OptimizationConfig) -> list[str]:
+    """The command-line flags that give `opt` (its fields that differ from
+    the defaults)."""
+    flags = []
+    for f in dataclasses.fields(OptimizationConfig):
+        value = getattr(opt, f.name)
+        if value != f.default:
+            flags += [f"--{f.name}"] if value is True else [
+                f"--{f.name}", str(value)]
+    return flags
+
+
+def write_nerf_synthetic(root: Path, gt_model: GaussianModel, device) -> None:
+    """transforms_{train,test}.json (camera_angle_x = FOV) and RGBA PNGs of
+    the port's render of `gt_model` on the orbit of radius CAM_RADIUS, the
+    test views between the train views; straight alpha (rgb = render /
+    opacity, alpha = opacity), as Blender writes them, by the port's PNG
+    writer."""
+    cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN, compute_weights=False)
+    for split, n, offset in (("train", CLI_TRAIN_VIEWS, 0.0),
+                             ("test", CLI_TEST_VIEWS, 0.5)):
+        frames = []
+        for i in range(n):
+            a = 2 * math.pi * (i + offset) / n
+            R = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                          [-math.sin(a), 0, math.cos(a)]])
+            T = np.array([0.0, 0.0, CAM_RADIUS])
+            w2c = np.eye(4)
+            w2c[:3, :3], w2c[:3, 3] = R.T, T
+            c2w = np.linalg.inv(w2c)
+            c2w[:3, 1:3] *= -1                 # COLMAP → OpenGL axes
+            cam = make_camera_params(R, T, SIZE_MAIN, SIZE_MAIN, fovx=FOV,
+                                     fovy=FOV, device=device)
+            zeros = torch.zeros((3, SIZE_MAIN, SIZE_MAIN), device=device)
+            with torch.no_grad():
+                res = render(ViewInputs(cam, zeros, zeros[:1] + 1, zeros[:1],
+                                        zeros), gt_model, cfg,
+                             torch.zeros(3, device=device))
+            alpha = res["opacity"]
+            rgb = res["render"] / torch.clamp(alpha, min=1e-6)
+            rgba = torch.cat([rgb, alpha]).clamp(0, 1).permute(1, 2, 0)
+            write_png(str(root / split / f"r_{i}.png"),
+                      (rgba * 255 + 0.5).to(torch.uint8).cpu().numpy())
+            frames.append({"file_path": f"{split}/r_{i}",
+                           "transform_matrix": c2w.tolist()})
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": FOV, "frames": frames}, f)
+
+
+def test_psnrs(model_path: Path) -> list[tuple[int, float]]:
+    """The periodic test PSNRs cli.train logged to metrics.jsonl."""
+    with open(model_path / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    return [(r["step"], r["test_psnr"]) for r in recs if "test_psnr" in r]
+
+
+def run_cli(fn) -> tuple[dict, float, float]:
+    """fn() with every launch count set to 0 just before and read just
+    after: (launches, wall seconds, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return read_launches(), wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def cli_phase(gt_model: GaussianModel, device) -> dict:
+    """The README's three commands through cli.train.main and
+    cli.eval_nvs.main on a scene of the render cell; raises on a missing
+    artifact, a wrong launch count or test PSNRs that do not rise. Returns
+    the launches of stage 1."""
+    root = WORK / "cli"
+    data, out1, out2 = root / "nerf_synthetic", root / "stage1", root / "stage2"
+    for d in (data, out1, out2):
+        if d.exists():
+            shutil.rmtree(d)
+    t0 = time.perf_counter()
+    write_nerf_synthetic(data, gt_model, device)
+    write_s = time.perf_counter() - t0
+    common = ["-s", str(data), "--eval", "--test_interval",
+              str(CLI_TEST_INTERVAL), "--log_interval", "100"]
+    n1 = TRAIN_OPT.iterations
+    n2 = n1 + CLI_STAGE2_STEPS
+
+    # 1. stage 1, its backward on K5
+    os.environ["R3DG_BWD_TWO_WALK"] = "1"
+    try:
+        l1, wall1, peak1 = run_cli(lambda: train_cli.main(
+            common + ["-m", str(out1), "--save_interval", str(n1),
+                      "--checkpoint_interval", str(n1)]
+            + opt_flags(TRAIN_OPT), device=device))
+    finally:
+        del os.environ["R3DG_BWD_TWO_WALK"]
+    # 2. stage 2 from its checkpoint
+    stage2_opt = OptimizationConfig(**{**STAGE2_NERF_SYNTHETIC,
+                                       "iterations": n2})
+    l2, wall2, peak2 = run_cli(lambda: train_cli.main(
+        common + ["-m", str(out2), "-t", "neilf",
+                  "-c", str(out1 / f"chkpnt{n1}.npz"),
+                  "--sample_num", str(SAMPLE_NUM),
+                  "--vis_refresh_interval", str(CLI_VIS_REFRESH),
+                  "--env_upsample_iters", str(n1 + CLI_ENV_UPSAMPLE),
+                  "--save_interval", str(n2),
+                  "--checkpoint_interval", str(n2)]
+        + opt_flags(stage2_opt), device=device))
+    with open(out2 / "metric_test.txt") as f:
+        stage2_metrics = f.read()
+    # 3. eval_nvs on the test views
+    evaluated = {}
+    l3, wall3, peak3 = run_cli(lambda: evaluated.update(eval_nvs.main(
+        ["-s", str(data), "-m", str(out2), "-t", "neilf",
+         "-c", str(out2 / f"chkpnt{n2}.npz"), "--skip_train",
+         "--sample_num", str(SAMPLE_NUM)], device=device)))
+
+    missing = [str(p) for p in (
+        out1 / f"chkpnt{n1}.npz", out1 / "point_cloud" / f"iteration_{n1}"
+        / "point_cloud.ply", out1 / "cfg_args.json", out1 / "metric_test.txt",
+        out1 / "best_chkpnt.npz", out1 / "best.json", out1 / "input.ply",
+        out1 / "cameras.json", out2 / f"chkpnt{n2}.npz",
+        out2 / f"env_light_chkpnt{n2}.npz", out2 / "point_cloud"
+        / f"iteration_{n2}" / "point_cloud.ply", out2 / "cfg_args.json",
+        out2 / "env_light_best_chkpnt.npz", out2 / "metric_test.txt",
+        out2 / "test" / "renders" / "00000.png") if not p.exists()]
+    if missing:
+        raise AssertionError(f"cli: missing artifacts {missing}")
+    with np.load(out2 / f"env_light_chkpnt{n2}.npz") as env_file:
+        env_shape = env_file["env.env"].shape
+        if env_shape != (2 * ENV_RES, 4 * ENV_RES, 3) or (
+                env_file["env_state.mu"].shape != env_shape):
+            raise AssertionError(f"cli: env map {env_shape} after the "
+                                 "upsample")
+    want = {"stage 1": (l1, {"K5": n1, "K2": 0}),
+            "stage 2": (l2, {"K2": CLI_STAGE2_STEPS, "K5": 0,
+                             "K4-fwd": CLI_STAGE2_STEPS,
+                             "K4-bwd": CLI_STAGE2_STEPS, "K3": 2}),
+            "eval": (l3, {"K3": 1, "K2": 0, "K5": 0, "K4-fwd": 0})}
+    for label, (got, expect) in want.items():
+        if any(got[k] != v for k, v in expect.items()):
+            raise AssertionError(f"cli {label}: launches {got}, expected "
+                                 f"{expect}")
+    psnr1, psnr2 = test_psnrs(out1), test_psnrs(out2)
+    for label, series in (("stage 1 test PSNR", psnr1),
+                          ("stage 2 test PBR PSNR", psnr2)):
+        values = np.array([v for _, v in series])
+        if len(values) < 2 or not np.isfinite(values).all() or not (
+                values[-1] > values[0]):
+            raise AssertionError(f"cli: {label} {series} not finite and "
+                                 "rising")
+    test = evaluated["test"]
+    if not (np.isfinite(test["psnr"]) and np.isfinite(test["ssim"])):
+        raise AssertionError(f"cli eval: {test}")
+
+    def step_medians(model_path):
+        """Medians over the steps cli.train logged to metrics.jsonl (the
+        first one, the warm-up, left out) of its step times and pairs."""
+        with open(model_path / "metrics.jsonl") as f:
+            recs = sorted((r for r in map(json.loads, f) if "step_ms" in r),
+                          key=lambda r: r["step"])[1:]
+        return {k: float(np.median([r[k] for r in recs])) for k in (
+            "step_ms", "forward_ms", "backward_ms", "optimizer_ms",
+            "num_rendered")}
+
+    med1, med2 = step_medians(out1), step_medians(out2)
+    say("cli", size=f"{SIZE_MAIN}x{SIZE_MAIN}",
+        views=f"{CLI_TRAIN_VIEWS}+{CLI_TEST_VIEWS}",
+        dataset_write_s=f"{write_s:.2f}", stage1_wall_s=f"{wall1:.2f}",
+        stage2_wall_s=f"{wall2:.2f}", eval_wall_s=f"{wall3:.2f}",
+        **{f"stage{i}_{k}": (int(v) if k == "num_rendered" else f"{v:.3f}")
+           for i, med in ((1, med1), (2, med2)) for k, v in med.items()},
+        eval_ms_per_view_median=f"{float(np.median(test['view_ms'][1:])):.3f}",
+        peak_mem_gib=f"{peak1:.2f}/{peak2:.2f}/{peak3:.2f}")
+    say("cli-launches", stage1=l1, stage2=l2, eval=l3)
+    say("cli-quality", stage1_test_psnr=[(i, round(v, 3)) for i, v in psnr1],
+        stage2_test_pbr_psnr=[(i, round(v, 3)) for i, v in psnr2],
+        stage2_metric_test=stage2_metrics.strip().replace("\n", "; "),
+        eval_nvs_test={k: round(v, 4) for k, v in test.items()
+                       if k != "view_ms"})
+    return l1
+
+
 def main(device: str = "cuda:0") -> None:
     # 1. device
     if not torch.cuda.is_available():
@@ -797,11 +1174,15 @@ def main(device: str = "cuda:0") -> None:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, nvidia_smi=f"'{card}'")
 
-    # 2. build K1, K2, K3 and K4 from the checkout's sources, one nvcc each,
-    # all at once
+    # The phases before cli check K2 on the default backward.
+    os.environ.pop("R3DG_BWD_TWO_WALK", None)
+
+    # 2. build K1 to K5 from the checkout's sources, one nvcc each, all at
+    # once
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
-               ray_trace_cuda.KERNEL, shading_cuda.KERNEL)
+               ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
+               composite_cuda.TWO_WALK_KERNEL)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(_build.load_library, kernels))
     say("build", kernels=list(kernels),
@@ -820,6 +1201,9 @@ def main(device: str = "cuda:0") -> None:
         mid_args = compositor_args(mid, view, RasterConfig(SIZE_MID, SIZE_MID))
         for seed, with_g_weights in enumerate((True, False)):
             check_k2(mid_args, "k2-mid", with_g_weights, seed)
+        # K5 against the plain backward and K2, mid-size scene
+        for seed, with_g_weights in enumerate((True, False)):
+            check_k5(mid_args, "k5-mid", with_g_weights, seed)
 
         # 5. K3 against the plain tracer, every ray of the mid-size scene
         mid_dirs, _ = fibonacci_sphere_sampling(mid.get_normal, S_MID)
@@ -837,7 +1221,8 @@ def main(device: str = "cuda:0") -> None:
         scene = make_scene(N_MAIN, SEED)
         WORK.mkdir(parents=True, exist_ok=True)
         ckpt = WORK / f"scene_{N_MAIN}.npz"
-        save_checkpoint(str(ckpt), 0, GaussianModel.from_numpy(scene))
+        save_checkpoint(str(ckpt), 0, GaussianModel.from_numpy(scene,
+                                                            device="cpu"))
         _, model = load_checkpoint(str(ckpt), device=device)
         setup_s = time.perf_counter() - t0
         cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN, compute_pseudo_normal=True)
@@ -845,7 +1230,7 @@ def main(device: str = "cuda:0") -> None:
         views = [orbit_view(i, VIEWS, SIZE_MAIN, device) for i in range(VIEWS)]
         torch.cuda.synchronize()
 
-        composite_cuda.LAUNCHES = composite_cuda.BWD_LAUNCHES = 0
+        reset_launches()
         results, events = [], []
         t0 = time.perf_counter()
         for v in views:                 # view 0 is the warm-up
@@ -887,13 +1272,17 @@ def main(device: str = "cuda:0") -> None:
         main_k1 = check_k1(compositor_args(model, views[0], cfg), "k1-main")
 
     # 9. the training slice
+    scene_model = model
     trained = train_phase(model, SIZE_MAIN, VIEWS, N_INIT, TRAIN_OPT, device)
     launches = trained["launches"]
     # 10. K2 against the plain backward at the train step's shapes
     with torch.no_grad():
-        main_k2 = check_k2(compositor_args(
+        main_args = compositor_args(
             trained["model"], orbit_view(0, VIEWS, SIZE_MAIN, device),
-            RasterConfig(SIZE_MAIN, SIZE_MAIN)), "k2-main", False, 7)
+            RasterConfig(SIZE_MAIN, SIZE_MAIN))
+        main_k2 = check_k2(main_args, "k2-main", False, 7)
+        # K5 on the same inputs
+        main_k5 = check_k5(main_args, "k5-main", False, 7)
     # 11. where a train step's time goes
     it = TRAIN_OPT.iterations
 
@@ -933,6 +1322,9 @@ def main(device: str = "cuda:0") -> None:
 
     profile_phase("stage2-profile", stage2_step, model.num_points, False)
 
+    # 17. the README's commands through the CLIs
+    cli_launches = cli_phase(scene_model, device)
+
     s2_launches = s2["launches"]
     print(json.dumps({"kernels": [
         {"name": "K1 composite_fwd", "route": "cuda", "source": K1_SOURCE,
@@ -946,7 +1338,10 @@ def main(device: str = "cuda:0") -> None:
          **main_k4f},
         {"name": "K4 shade_bwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4B_REPLACES, "launches": s2_launches["K4-bwd"],
-         **main_k4b}]}), flush=True)
+         **main_k4b},
+        {"name": "K5 composite_bwd_two_walk", "route": "cuda",
+         "source": K5_SOURCE, "replaces": K5_REPLACES,
+         "launches": cli_launches["K5"], **main_k5}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -22,7 +22,7 @@
 //     alpha op * e^power is below the 0.99 cap; it chains into the opacity
 //     (g_raw e^power), the power (g_raw raw) and from there into the conic
 //     and the mean; g_attr = w_i g_img.
-// expf (not __expf) and no fast-math flags, as in K1.
+// The alpha step is composite_step.cuh's, as in K1: expf (not __expf).
 //
 // Design: one block per 16x16 tile, one thread per pixel. The block walks
 // its range in reverse, in batches of 256 pairs, starting from the largest
@@ -31,7 +31,8 @@
 // the 6 + A gradient terms are summed across each warp with shuffles (a
 // warp with no blended pixel skips the pair), across warps with
 // shared-memory atomics, and added to device memory once per
-// (tile, gaussian) with atomicAdd.
+// (tile, gaussian) with atomicAdd: composite_grad.cuh's reduction, shared
+// with K5.
 //
 // What bounds it on the H100: the per-(pixel, pair) arithmetic is one expf,
 // one division and ~30 FP32 operations, but each (warp, pair) with a
@@ -46,19 +47,16 @@
 
 #include <cuda_runtime.h>
 
+#include "composite_grad.cuh"
+#include "composite_step.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
 constexpr int kBlock = kTile * kTile;  // one thread per pixel; pairs per batch
 constexpr int kMaxA = 32;              // widest attribute vector taken
-constexpr int kGeom = 6;               // d mean x, y; d conic a, b, c; d opacity
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
+constexpr int kGeom = r3dg::kGeom;
+static_assert(kBlock == r3dg::kPixels, "one slot per pixel");
 
 // Shared memory, in floats of kBlock each: id, mean x, mean y, conic a, b, c,
 // opacity, g_w (8 rows), then A attribute rows, then 6 + A gradient rows.
@@ -152,11 +150,11 @@ composite_bwd_kernel(const int* __restrict__ tile_start,
         const float dx = s_mx[j] - px;
         const float dy = s_my[j] - py;
         const float ca = s_ca[j], cb = s_cb[j], cc = s_cc[j];
-        const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-        const float e = expf(fminf(power, 0.f));
-        const float raw = s_op[j] * e;
-        const float alpha = fminf(0.99f, raw);
-        if (power <= 0.f && alpha >= 1.f / 255.f) {
+        const float power = r3dg::pair_power(dx, dy, ca, cb, cc);
+        const float e = r3dg::pair_exp(power);
+        const float raw = __fmul_rn(s_op[j], e);
+        const float alpha = fminf(r3dg::kAlphaMax, raw);
+        if (r3dg::pair_blends(power, alpha)) {
           blended = true;
           const float one_minus = 1.f - alpha;
           T = T / one_minus;  // incoming transmittance of this pair
@@ -177,36 +175,12 @@ composite_bwd_kernel(const int* __restrict__ tile_start,
           gm[5] = g_raw * e;
         }
       }
-      if (__any_sync(kFullMask, blended)) {
-#pragma unroll
-        for (int f = 0; f < kGeom; ++f) {
-          const float v = warp_sum(gm[f]);
-          if (lane == 0 && v != 0.f) atomicAdd(&s_acc[f * kBlock + j], v);
-        }
-#pragma unroll
-        for (int a = 0; a < AMAX; ++a) {
-          if (a < A) {
-            const float v = warp_sum(w * gi[a]);
-            if (lane == 0 && v != 0.f)
-              atomicAdd(&s_acc[(kGeom + a) * kBlock + j], v);
-          }
-        }
-      }
+      r3dg::reduce_pair(s_acc, j, blended, gm, w, gi, A, lane);
     }
     __syncthreads();
-    if (tid < n) {
-      const int g = s_id[tid];
-      float v;
-      if ((v = s_acc[0 * kBlock + tid]) != 0.f) atomicAdd(&g_mean2d[2 * g], v);
-      if ((v = s_acc[1 * kBlock + tid]) != 0.f) atomicAdd(&g_mean2d[2 * g + 1], v);
-      if ((v = s_acc[2 * kBlock + tid]) != 0.f) atomicAdd(&g_conic[3 * g], v);
-      if ((v = s_acc[3 * kBlock + tid]) != 0.f) atomicAdd(&g_conic[3 * g + 1], v);
-      if ((v = s_acc[4 * kBlock + tid]) != 0.f) atomicAdd(&g_conic[3 * g + 2], v);
-      if ((v = s_acc[5 * kBlock + tid]) != 0.f) atomicAdd(&g_opacity[g], v);
-      float* ga = g_attrs + static_cast<size_t>(g) * A;
-      for (int a = 0; a < A; ++a)
-        if ((v = s_acc[(kGeom + a) * kBlock + tid]) != 0.f) atomicAdd(&ga[a], v);
-    }
+    if (tid < n)
+      r3dg::flush_slot(s_acc, tid, s_id[tid], A, g_mean2d, g_conic, g_opacity,
+                       g_attrs);
   }
 }
 

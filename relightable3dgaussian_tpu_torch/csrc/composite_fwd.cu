@@ -16,8 +16,11 @@
 // pair that took its T under 1e-4, or the range length). The JAX package's
 // TPU kernel keeps the same state per tile chunk (composite_pallas_forward,
 // with_walk).
-// expf (not __expf) and no fast-math flags: the alpha >= 1/255 and T >= 1e-4
-// threshold crossings must land where the plain version puts them.
+// The alpha step (power, alpha, the blend test, the T update) is
+// composite_step.cuh's, shared with K2 and K5: expf (not __expf) and no
+// fast-math flags, so the alpha >= 1/255 and T >= 1e-4 threshold crossings
+// land where the plain version puts them, and K5 rebuilds K1's decisions
+// exactly.
 //
 // Design: one block per 16x16 tile, one thread per pixel. The block walks its
 // [start, end) range of depth-sorted gaussian ids in batches of 256; each
@@ -41,6 +44,8 @@
 // r3dg_composite_fwd returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
+
+#include "composite_step.cuh"
 
 namespace {
 
@@ -122,17 +127,17 @@ composite_fwd_kernel(const int* __restrict__ tile_start,
       if (!done) {
         const float dx = s_mx[j] - px;
         const float dy = s_my[j] - py;
-        const float power =
-            -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy;
-        const float alpha = fminf(0.99f, s_op[j] * expf(fminf(power, 0.f)));
-        if (power <= 0.f && alpha >= 1.f / 255.f) {
+        const float power = r3dg::pair_power(dx, dy, s_ca[j], s_cb[j], s_cc[j]);
+        const float alpha =
+            fminf(r3dg::kAlphaMax, __fmul_rn(s_op[j], r3dg::pair_exp(power)));
+        if (r3dg::pair_blends(power, alpha)) {
           w = alpha * T;  // incoming T >= 1e-4 here (else done)
 #pragma unroll
           for (int a = 0; a < AMAX; ++a)
             if (a < A) acc[a] += w * s_attr[a * kBlock + j];
           count += (w > 0.f);
-          T *= 1.f - alpha;
-          done = T < 1e-4f;
+          T = r3dg::transmit(T, alpha);
+          done = T < r3dg::kTMin;
           if (done) walked = base + j + 1 - start;
         }
       }

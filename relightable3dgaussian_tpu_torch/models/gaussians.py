@@ -85,9 +85,10 @@ class GaussianModel(nn.Module):
     @classmethod
     def from_numpy(cls, d: Mapping[str, np.ndarray],
                    active: np.ndarray | None = None,
-                   device: torch.device | str = "cpu") -> "GaussianModel":
+                   device: torch.device | str = "cuda") -> "GaussianModel":
         """Build from the JAX `GaussianParams` fields as numpy arrays, keeping
-        only the rows where `active` is set (all rows when None). The PBR
+        only the rows where `active` is set (all rows when None), on
+        `device` (the card unless the caller asks for the CPU). The PBR
         fields are read when `d` holds them with a row per point (a stage-1
         state's zero-width PBR leaves are not). The parameters are copies:
         training never writes into `d`."""

@@ -55,11 +55,12 @@ def bilinear_resize_2x(img: torch.Tensor) -> torch.Tensor:
 
 class DirectLightMap(nn.Module):
     """Learnable environment light: raw map `env` [H, 2H, 3], radiance
-    softplus(env), initialised to light_init · U[0, 1) from `generator`."""
+    softplus(env), initialised to light_init · U[0, 1) from `generator`
+    on `device` (the card unless the caller asks for the CPU)."""
 
     def __init__(self, H: int = 16, light_init: float = 0.5,
                  generator: torch.Generator | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.env = nn.Parameter(light_init * torch.rand(
             (H, 2 * H, 3), generator=generator, device=device))

@@ -5,8 +5,9 @@ interface. At first use it is compiled by `nvcc` for `sm_90a` into a shared
 library under `build/torch_kernels/` next to the package directory, and
 loaded with ctypes. The port is meant to run from a checkout (or an editable
 install), where that is the checkout's git-ignored `build/`. The library name
-carries a hash of the source, so an edited source is rebuilt and a stale
-library is never loaded. A failed build raises; nothing here falls back.
+carries a hash of the source and of the headers beside it (`csrc/*.cuh`), so
+an edited source or header is rebuilt and a stale library is never loaded.
+A failed build raises; nothing here falls back.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     if not lib_path.exists():

@@ -1,22 +1,29 @@
-"""Kernels K1 and K2: the tile compositor and its backward on the card.
+"""Kernels K1, K2 and K5: the tile compositor and its backward on the card.
 
 K1 (`csrc/composite_fwd.cu`) replaces the TPU kernel
 `relightable3dgaussian_tpu/ops/composite_pallas.py::_kernel`; K2
 (`csrc/composite_bwd.cu`) replaces
-`relightable3dgaussian_tpu/ops/composite_pallas_bwd.py::_bwd_kernel_single`.
+`relightable3dgaussian_tpu/ops/composite_pallas_bwd.py::_bwd_kernel_single`;
+K5 (`csrc/composite_bwd_two_walk.cu`) replaces its `_bwd_kernel`, the
+two-walk backward the JAX package runs under `R3DG_BWD_TWO_WALK=1`.
 
 `composite` takes the same inputs as the plain compositor
 (ops/composite.py::composite) and returns the same `CompositeOut`:
   * CPU tensors → the plain PyTorch version, differentiable by autograd;
   * CUDA tensors → `CompositeFunction`, a `torch.autograd.Function` whose
-    forward is K1 and whose backward is K2, or an exception. A build or
-    launch error is raised, never answered with the plain version.
+    forward is K1 and whose backward is K2, or K5 where the environment sets
+    `R3DG_BWD_TWO_WALK=1` (read at each backward, as the JAX package reads
+    it), or an exception. A build or launch error is raised, never answered
+    with the plain version.
 `image` and `weights` are differentiable; `n_contrib` is not. `LAUNCHES`
-counts K1's launches and `BWD_LAUNCHES` K2's.
+counts K1's launches, `BWD_LAUNCHES` K2's and `TWO_WALK_LAUNCHES` K5's. The
+plain version of both backward kernels is `ops/composite.py::
+composite_backward`: they compute the same function.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import torch
@@ -28,9 +35,11 @@ from .tiles import Binning
 
 KERNEL = "composite_fwd"
 BWD_KERNEL = "composite_bwd"
-MAX_ATTRS = 32     # csrc/composite_{fwd,bwd}.cu kMaxA
+TWO_WALK_KERNEL = "composite_bwd_two_walk"
+MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
 LAUNCHES = 0       # launches of K1 since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K2 since import (or the last reset)
+TWO_WALK_LAUNCHES = 0   # launches of K5 since import (or the last reset)
 
 
 class WalkState(NamedTuple):
@@ -68,9 +77,15 @@ def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     return CompositeOut(image=image, weights=weights, n_contrib=n_contrib)
 
 
+def two_walk_selected() -> bool:
+    """The JAX package's switch (ops/composite_pallas_bwd.py:491-492)."""
+    return os.environ.get("R3DG_BWD_TWO_WALK") == "1"
+
+
 class CompositeFunction(torch.autograd.Function):
     """(mean2d, conic, opacity, attrs) → (image, weights, n_contrib) by K1;
-    the backward is K2, started from K1's walk state."""
+    the backward is K2, started from K1's walk state, or K5 under
+    `R3DG_BWD_TWO_WALK=1`."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opacity, attrs, binning: Binning,
@@ -95,9 +110,13 @@ class CompositeFunction(torch.autograd.Function):
         if g_image is None:
             g_image = torch.zeros((cfg.num_tiles, cfg.tile * cfg.tile,
                                    attrs.shape[1]), device=attrs.device)
-        grads = composite_k2(ctx.binning, mean2d, conic, opacity, attrs,
-                             WalkState(final_T, stop), g_image.contiguous(),
-                             g_weights, cfg)
+        if two_walk_selected():
+            grads = composite_k5(ctx.binning, mean2d, conic, opacity, attrs,
+                                 g_image.contiguous(), g_weights, cfg)
+        else:
+            grads = composite_k2(ctx.binning, mean2d, conic, opacity, attrs,
+                                 WalkState(final_T, stop),
+                                 g_image.contiguous(), g_weights, cfg)
         return (*grads, None, None)
 
 
@@ -205,4 +224,47 @@ def composite_k2(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
     BWD_LAUNCHES += 1
+    return g_mean2d, g_conic, g_opacity, g_attrs
+
+
+def composite_k5(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
+                 opacity: torch.Tensor, attrs: torch.Tensor,
+                 g_image: torch.Tensor, g_weights: torch.Tensor | None,
+                 cfg: RasterConfig, n_blended: torch.Tensor | None = None):
+    """Launch K5 on CUDA tensors: (g_mean2d, g_conic, g_opacity, g_attrs)
+    for the cotangents g_image [num_tiles, 256, A] and g_weights [P] (None
+    means zeros), by two front-to-back walks and no walk state. With
+    `n_blended` ([num_tiles, 256] int32), K5 also writes each pixel's count
+    of blended pairs, which is K1's n_contrib when it rebuilds K1's
+    decisions."""
+    global TWO_WALK_LAUNCHES
+    expect = _inputs("K5", binning, mean2d, conic, opacity, attrs, cfg)
+    P, A = attrs.shape
+    tt = cfg.tile * cfg.tile
+    expect["g_image"] = (g_image, (cfg.num_tiles, tt, A), torch.float32)
+    if g_weights is not None:
+        expect["g_weights"] = (g_weights, (P,), torch.float32)
+    if n_blended is not None:
+        expect["n_blended"] = (n_blended, (cfg.num_tiles, tt), torch.int32)
+    device = attrs.device
+    _check("K5", expect, device)
+    lib = _library(TWO_WALK_KERNEL, "r3dg_composite_bwd_two_walk", 9, 3, 6)
+    g_mean2d = torch.zeros((P, 2), dtype=torch.float32, device=device)
+    g_conic = torch.zeros((P, 3), dtype=torch.float32, device=device)
+    g_opacity = torch.zeros((P,), dtype=torch.float32, device=device)
+    g_attrs = torch.zeros((P, A), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.r3dg_composite_bwd_two_walk(
+            binning.tile_start.data_ptr(), binning.tile_end.data_ptr(),
+            binning.sorted_ids.data_ptr(), mean2d.data_ptr(),
+            conic.data_ptr(), opacity.data_ptr(), attrs.data_ptr(),
+            g_image.data_ptr(),
+            g_weights.data_ptr() if g_weights is not None else None,
+            cfg.num_tiles, cfg.tiles_x, A, g_mean2d.data_ptr(),
+            g_conic.data_ptr(), g_opacity.data_ptr(), g_attrs.data_ptr(),
+            n_blended.data_ptr() if n_blended is not None else None, stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
+    TWO_WALK_LAUNCHES += 1
     return g_mean2d, g_conic, g_opacity, g_attrs

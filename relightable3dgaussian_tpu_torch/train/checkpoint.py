@@ -35,9 +35,12 @@ def _npz_path(path: str) -> str:
     return path
 
 
-def load_checkpoint(path: str, device="cpu") -> tuple[int, GaussianModel]:
-    """Read a JAX-format checkpoint → (iteration, GaussianModel) with the
-    densification statistics of the active rows (zeros where absent)."""
+def load_checkpoint(path: str, device: torch.device | str = "cuda"
+                    ) -> tuple[int, GaussianModel]:
+    """Read a JAX-format checkpoint → (iteration, GaussianModel) on `device`
+    (the card unless the caller asks for the CPU; without a card it raises)
+    with the densification statistics of the active rows (zeros where
+    absent)."""
     with np.load(_npz_path(path), allow_pickle=False) as data:
         iteration = int(data["__iteration__"])
         fields = {k[len("params."):]: data[k] for k in data.files
@@ -52,7 +55,8 @@ def load_checkpoint(path: str, device="cpu") -> tuple[int, GaussianModel]:
 
 
 def load_train_state(path: str, opt: OptimizationConfig,
-                     spatial_lr_scale: float, device="cpu"
+                     spatial_lr_scale: float,
+                     device: torch.device | str = "cuda"
                      ) -> tuple[int, GaussianModel, torch.optim.Adam]:
     """Read a JAX-format training state → (iteration, model, optimizer):
     the model as `load_checkpoint` reads it and an Adam optimizer
@@ -134,10 +138,11 @@ def save_env_checkpoint(path: str, iteration: int, env: DirectLightMap,
     _savez(path, out)
 
 
-def load_env_checkpoint(path: str, opt: OptimizationConfig, device="cpu"
+def load_env_checkpoint(path: str, opt: OptimizationConfig,
+                        device: torch.device | str = "cuda"
                         ) -> tuple[int, DirectLightMap, torch.optim.Adam]:
     """Read an env-light file → (iteration, env light, its Adam optimizer
-    with the file's moments and step count)."""
+    with the file's moments and step count) on `device`."""
     with np.load(_npz_path(path), allow_pickle=False) as data:
         iteration = int(data["__iteration__"])
         env = DirectLightMap.from_raw(torch.as_tensor(

@@ -1,11 +1,12 @@
 """Training configuration (port of relightable3dgaussian_tpu/train/config.py).
 
-The port keeps its own copy of `OptimizationConfig`: the JAX package's
-`train/__init__.py` imports jax, so its config module cannot be imported
-without it. Field names, order and defaults are the JAX package's
-(tests/test_torch_train.py checks them). Of `ModelConfig` and
-`PipelineConfig` the port has the fields stage 2 reads, with the JAX
-package's defaults (tests/test_torch_stage2.py checks them).
+The port keeps its own copy of the three flag groups the CLIs are built from
+(`cli/arguments.py`): the port imports nothing of the JAX package. Field
+names, order and defaults are the JAX package's (tests/test_torch_train.py
+and tests/test_torch_cli.py check them). `PipelineConfig`'s
+`compute_SHs_python`, `compute_cov3D_python` and `tracing` are flags of the
+reference's CUDA rasterizer that the JAX package accepts and never reads;
+the port accepts them likewise.
 """
 from __future__ import annotations
 
@@ -14,12 +15,26 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    sh_degree: int = 3
+    source_path: str = ""
+    model_path: str = ""
+    images: str = "images"
+    resolution: int = -1
+    white_background: bool = False
+    eval: bool = False
+    global_shs_degree: int = 3
     env_resolution: int = 16     # rows of the learnable env map [H, 2H, 3]
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
+    compute_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    tracing: bool = False
     sample_num: int = 64         # incident samples per point in stage 2
+    debug: bool = False
+    save_training_vis: bool = False
+    save_training_vis_iteration: int = 1000
 
 
 @dataclasses.dataclass(frozen=True)

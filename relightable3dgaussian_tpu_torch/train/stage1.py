@@ -48,6 +48,20 @@ class StepTimer:
                 for s in self.steps]
 
 
+def backward_or_zero_grads(loss: torch.Tensor, model: G.GaussianModel,
+                           mean2d_offset: torch.Tensor) -> None:
+    """loss.backward(), then a zero gradient for every field (and for the
+    mean2d offset) the loss did not reach, as the JAX package's gradient of
+    a step is zero there: every field steps, and Adam's moments decay.
+    A view in which nothing is rendered reaches no field at all; on the CPU
+    its loss then has no graph, and no backward runs."""
+    if loss.requires_grad:
+        loss.backward()
+    for p in [getattr(model, k) for k in model.fields] + [mean2d_offset]:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
                view: ViewInputs, iteration: int, *, cfg: RasterConfig,
                opt: OptimizationConfig, spatial_lr_scale: float,
@@ -67,7 +81,7 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
     loss = results["loss"]
     if timer is not None:
         timer.mark("forward")
-    loss.backward()
+    backward_or_zero_grads(loss, model, m2d)
     if timer is not None:
         timer.mark("backward")
 

@@ -27,7 +27,8 @@ from ..models.render_neilf import (VisibilityCache, render_neilf,
 from ..ops.config import RasterConfig
 from .config import OptimizationConfig
 from .optim import learning_rates, set_learning_rates
-from .stage1 import StepTimer, densify_step, reset_opacity_step
+from .stage1 import (StepTimer, backward_or_zero_grads, densify_step,
+                     reset_opacity_step)
 
 
 def setup_stage2(model: G.GaussianModel, sample_num: int,
@@ -67,14 +68,12 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
     loss = results["loss"]
     if timer is not None:
         timer.mark("forward")
-    loss.backward()
+    backward_or_zero_grads(loss, model, m2d)
+    if env.env.grad is None:
+        env.env.grad = torch.zeros_like(env.env)
     if timer is not None:
         timer.mark("backward")
 
-    for k in model.fields:
-        p = getattr(model, k)
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
     set_learning_rates(optimizer,
                        learning_rates(opt, iteration, spatial_lr_scale))
     optimizer.step()

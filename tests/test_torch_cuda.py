@@ -120,8 +120,8 @@ def test_render_on_cuda_launches_k1_and_matches_cpu(cuda, h, w):
                  cfg, torch.zeros(3, device=cuda))
     assert composite_cuda.LAUNCHES == before + 1
     assert gpu["render"].shape == (3, h, w)
-    cpu = render(view("cpu", h, w), GaussianModel.from_numpy(d), cfg,
-                 torch.zeros(3))
+    cpu = render(view("cpu", h, w), GaussianModel.from_numpy(d, device="cpu"),
+                 cfg, torch.zeros(3))
     assert composite_cuda.LAUNCHES == before + 1
     agree = gpu["num_contrib"].cpu() == cpu["num_contrib"]
     assert float(agree.float().mean()) >= 0.999
@@ -167,6 +167,90 @@ def test_k2_matches_plain(cuda, n_features, with_g_weights):
         assert max_rel_err(g, w) <= 1e-4, (name, max_rel_err(g, w))
 
 
+def k5_case(cuda, n_features: int, with_g_weights: bool):
+    """K1's inputs and walk state, K1's and the plain n_contrib, and seeded
+    cotangents: the image cotangent zero on pixels where the two counts
+    differ (a last-bit change moved a T >= 1e-4 crossing there, which moves
+    a gradient of the plain version and not of K1's or K5's decisions)."""
+    args = k1_args(cuda, n_features)
+    out, walk = composite_cuda.composite_k1(*args)
+    agree = out.n_contrib == composite_plain(*args).n_contrib
+    assert float(agree.float().mean()) >= 0.9999
+    gen = torch.Generator().manual_seed(n_features + 17)
+    g_image = torch.randn(out.image.shape, generator=gen).to(cuda) * agree[..., None]
+    g_weights = (torch.randn((args[4].shape[0],), generator=gen).to(cuda)
+                 if with_g_weights else None)
+    return args, out, walk, g_image, g_weights
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("n_features", [4, 1, 27])      # A = 9, 6, 32
+@pytest.mark.parametrize("with_g_weights", [True, False])
+def test_k5_matches_plain_and_k2(cuda, n_features, with_g_weights):
+    """K5, the two-walk backward, against the plain backward and against K2
+    on the same inputs (opacities up to 0.99): per field within 1e-4 of the
+    largest entry, the sums over pixels taken in another order."""
+    args, out, walk, g_image, g_weights = k5_case(cuda, n_features,
+                                                  with_g_weights)
+    binning, mean2d, conic, opacity, attrs, cfg = args
+    before = (composite_cuda.BWD_LAUNCHES, composite_cuda.TWO_WALK_LAUNCHES)
+    got = composite_cuda.composite_k5(binning, mean2d, conic, opacity, attrs,
+                                      g_image, g_weights, cfg)
+    torch.cuda.synchronize()
+    assert (composite_cuda.BWD_LAUNCHES,
+            composite_cuda.TWO_WALK_LAUNCHES) == (before[0], before[1] + 1)
+    want = composite_backward(binning, mean2d, conic, opacity, attrs,
+                              g_image, g_weights, cfg)
+    k2 = composite_cuda.composite_k2(binning, mean2d, conic, opacity, attrs,
+                                     walk, g_image, g_weights, cfg)
+    errs = {}
+    for name, g, w, g2 in zip(("mean2d", "conic", "opacity", "attrs"), got,
+                              want, k2):
+        assert bool(torch.isfinite(g).all()), name
+        errs[name] = (max_rel_err(g, w), max_rel_err(g2, w), max_rel_err(g, g2))
+    print("K5 vs plain, K2 vs plain, K5 vs K2", errs)
+    for name, (k5_plain, _, k5_k2) in errs.items():
+        assert k5_plain <= 1e-4 and k5_k2 <= 1e-4, (name, errs[name])
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("n_features", [4, 27])
+def test_k5_blended_count_is_k1_n_contrib(cuda, n_features):
+    """K5 rebuilds K1's blend decisions and per-pixel stop from the shared
+    alpha step (csrc/composite_step.cuh) without reading them: its count of
+    blended pairs equals K1's n_contrib on every pixel."""
+    args, out, _, g_image, _ = k5_case(cuda, n_features, False)
+    count = torch.full_like(out.n_contrib, -1)
+    composite_cuda.composite_k5(*args[:5], g_image, None, args[5],
+                                n_blended=count)
+    torch.cuda.synchronize()
+    assert int(out.n_contrib.max()) > 10
+    assert torch.equal(count, out.n_contrib)
+
+
+def test_composite_function_takes_k5_under_the_switch(cuda, monkeypatch):
+    """With R3DG_BWD_TWO_WALK=1 the autograd Function's backward launches K5
+    and not K2, and gives autograd's gradients through the plain
+    compositor."""
+    monkeypatch.setenv("R3DG_BWD_TWO_WALK", "1")
+    grads = []
+    for device in (cuda, torch.device("cpu")):
+        binning, *inputs, cfg = k1_args(device, 4)
+        leaves = [x.detach().clone().requires_grad_() for x in inputs]
+        out = composite_cuda.composite(binning, *leaves, cfg)
+        w = torch.linspace(-1.0, 1.0, out.weights.numel(), device=device)
+        before = (composite_cuda.BWD_LAUNCHES, composite_cuda.TWO_WALK_LAUNCHES)
+        (out.image.square().sum() + (w * out.weights).sum()).backward()
+        on_card = int(device.type == "cuda")
+        assert (composite_cuda.BWD_LAUNCHES,
+                composite_cuda.TWO_WALK_LAUNCHES) == (before[0],
+                                                      before[1] + on_card)
+        grads.append([x.grad.cpu() for x in leaves])
+    for name, got, want in zip(("mean2d", "conic", "opacity", "attrs"),
+                               *grads):
+        assert max_rel_err(got, want) <= 1e-4, (name, max_rel_err(got, want))
+
+
 @pytest.mark.parametrize("reads", ["image", "weights", "both"])
 def test_composite_function_backward_matches_autograd(cuda, reads):
     """The autograd Function (K1, then K2) against autograd through the plain
@@ -198,7 +282,7 @@ def test_render_of_loaded_checkpoint_backpropagates_through_k2(cuda, tmp_path):
     """A loaded model's parameters require grad; render() on the card runs
     K1 and its .backward() runs K2, giving the CPU path's gradients."""
     path = str(tmp_path / "chkpnt1.npz")
-    save_checkpoint(path, 1, GaussianModel.from_numpy(scene(3)))
+    save_checkpoint(path, 1, GaussianModel.from_numpy(scene(3), device="cpu"))
     grads = {}
     for device in (cuda, torch.device("cpu")):
         _, model = load_checkpoint(path, device=device)
@@ -234,11 +318,11 @@ def train_state(tmp_path) -> tuple[str, ViewInputs]:
     with torch.no_grad():
         gt = render(view("cpu"), GaussianModel.from_numpy(
             dict(d, xyz=d["xyz"] + jitter.astype(np.float32),
-                 shs_dc=d["shs_dc"][:, :, ::-1].copy())), cfg,
+                 shs_dc=d["shs_dc"][:, :, ::-1].copy()), device="cpu"), cfg,
             torch.zeros(3))
     gt_view = view("cpu")._replace(image=gt["render"],
                                    image_mask=(gt["opacity"] > 0.5).float())
-    model = GaussianModel.from_numpy(d)
+    model = GaussianModel.from_numpy(d, device="cpu")
     optimizer = make_optimizer(model, TRAIN_OPT, 1.0)
     train_step(model, optimizer, gt_view, 1, cfg=cfg, opt=TRAIN_OPT,
                spatial_lr_scale=1.0)
@@ -618,9 +702,10 @@ def stage2_state(tmp_path):
     # holds K4 there
     d["roughness"] = rng.uniform(-1.0, 3.0, (P, 1)).astype(np.float32)
     assert set(shapes) == set(PBR_FIELDS)
-    model = GaussianModel.from_numpy(d)
+    model = GaussianModel.from_numpy(d, device="cpu")
     vis = render_neilf.update_visibility(model, 8)
-    env = DirectLightMap(8, 3.0, torch.Generator().manual_seed(11))
+    env = DirectLightMap(8, 3.0, torch.Generator().manual_seed(11),
+                         device="cpu")
     # a smooth colour ramp: the L1 residuals are nowhere exactly 0
     yy, xx = torch.meshgrid(torch.linspace(0, 1, SIZE), torch.linspace(0, 1, SIZE),
                             indexing="ij")
@@ -689,3 +774,88 @@ def test_stage2_train_step_on_cuda_matches_cpu(cuda, tmp_path):
                                atol=0.01 * STAGE2_OPT.env_lr, rtol=0)
     for k in ("denom", "max_radii2d", "normal_grad_accum"):
         assert torch.equal(getattr(m_gpu, k).cpu(), getattr(m_cpu, k)), k
+
+
+# ---------------------------------------------------------------------------
+# the CLIs on the card
+# ---------------------------------------------------------------------------
+
+def write_scene(root, n_frames: int = 6, size: int = 64):
+    """A Blender-layout scene with train and test splits: cameras on a circle
+    of radius 2 looking down -z, seeded RGBA PNGs by the port's writer."""
+    import json
+    from relightable3dgaussian_tpu_torch.scene.image_io import write_png
+    rng = np.random.default_rng(0)
+    frames = []
+    for i in range(n_frames):
+        a = 2 * np.pi * i / n_frames
+        c2w = np.eye(4)
+        c2w[:3, 3] = [2 * np.sin(a), 0, 2 * np.cos(a)]
+        frames.append({"file_path": f"train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+        write_png(str(root / "train" / f"r_{i}.png"),
+                  rng.integers(0, 256, (size, size, 4)).astype(np.uint8))
+    for split in ("train", "test"):
+        with open(root / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": 0.8, "frames": frames}, f)
+
+
+def test_cli_stages_and_eval_on_the_card(cuda, tmp_path, monkeypatch):
+    """cli.train stage 1 (its backward on K5 under R3DG_BWD_TWO_WALK=1),
+    stage 2 from its checkpoint (a visibility re-trace, an env upsample) and
+    cli.eval_nvs at 64x64 on the card: the artifacts and the launches."""
+    import json
+    from relightable3dgaussian_tpu_torch.cli import eval_nvs
+    from relightable3dgaussian_tpu_torch.cli import train as train_cli
+    data, out1, out2 = tmp_path / "data", tmp_path / "s1", tmp_path / "s2"
+    write_scene(data)
+
+    def launches():
+        return {"K1": composite_cuda.LAUNCHES,
+                "K2": composite_cuda.BWD_LAUNCHES,
+                "K5": composite_cuda.TWO_WALK_LAUNCHES,
+                "K3": ray_trace_cuda.LAUNCHES,
+                "K4-fwd": shading_cuda.LAUNCHES,
+                "K4-bwd": shading_cuda.BWD_LAUNCHES}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in launches().items()}
+
+    monkeypatch.setenv("R3DG_BWD_TWO_WALK", "1")
+    before = launches()
+    train_cli.main(["-s", str(data), "-m", str(out1), "--iterations", "10",
+                    "--max_init_points", "2000", "--densify_from_iter", "3",
+                    "--densification_interval", "6", "--save_interval", "10",
+                    "--checkpoint_interval", "10", "--eval",
+                    "--test_interval", "5"], device=cuda)
+    d1 = delta(before)
+    assert (d1["K5"], d1["K2"]) == (10, 0), d1
+    monkeypatch.delenv("R3DG_BWD_TWO_WALK")
+    before = launches()
+    train_cli.main(["-s", str(data), "-m", str(out2), "-t", "neilf",
+                    "-c", str(out1 / "chkpnt10.npz"), "--iterations", "16",
+                    "--sample_num", "8", "--vis_refresh_interval", "3",
+                    "--env_upsample_iters", "14", "--save_interval", "16",
+                    "--checkpoint_interval", "16", "--eval"], device=cuda)
+    d2 = delta(before)
+    # re-traces at steps 13 and 16; K3 once more at the set-up
+    assert d2["K2"] == d2["K4-fwd"] == d2["K4-bwd"] == 6 and d2["K5"] == 0, d2
+    assert d2["K3"] == 3, d2
+    before = launches()
+    out = eval_nvs.main(["-s", str(data), "-m", str(out2), "-t", "neilf",
+                         "-c", str(out2 / "chkpnt16.npz"), "--skip_train",
+                         "--sample_num", "8"], device=cuda)
+    assert delta(before)["K3"] == 1
+    assert np.isfinite(out["test"]["psnr"])
+    for path in (out1 / "chkpnt10.npz", out1 / "metric_test.txt",
+                 out1 / "point_cloud" / "iteration_10" / "point_cloud.ply",
+                 out2 / "env_light_chkpnt16.npz", out2 / "metric_test.txt",
+                 out2 / "test" / "renders" / "00000.png"):
+        assert path.exists(), path
+    with np.load(out2 / "env_light_chkpnt16.npz") as f:
+        assert f["env.env"].shape == (32, 64, 3)
+    # the report runs at a logging boundary (the JAX CLI's rule): step 10
+    with open(out1 / "metrics.jsonl") as f:
+        psnr = [(r["step"], r["test_psnr"]) for r in map(json.loads, f)
+                if "test_psnr" in r]
+    assert [i for i, _ in psnr] == [10] and np.isfinite(psnr[0][1])

@@ -127,7 +127,8 @@ def port_state(tmp_path, params, aux, opt_state):
     path = str(tmp_path / "state.npz")
     jax_checkpoint.save_checkpoint(path, 37, params=params, aux=aux,
                                    opt_state=opt_state)
-    _, model, optimizer = load_train_state(path, OptimizationConfig(), 1.0)
+    _, model, optimizer = load_train_state(path, OptimizationConfig(), 1.0,
+                                           device="cpu")
     return model, optimizer
 
 

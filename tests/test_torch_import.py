@@ -20,26 +20,39 @@ def run_python(args, cwd, env=None):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, scene/ and cli/ included, and chip_smoke.py
+    import with jax and the JAX package blocked, and build nothing."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import relightable3dgaussian_tpu_torch.models.render\n"
-        "import relightable3dgaussian_tpu_torch.train.checkpoint\n"
-        "import relightable3dgaussian_tpu_torch.train.stage1\n"
-        "import relightable3dgaussian_tpu_torch.losses\n"
-        "import relightable3dgaussian_tpu_torch.ops.composite_cuda\n"
-        "import relightable3dgaussian_tpu_torch.models.lights\n"
-        "import relightable3dgaussian_tpu_torch.models.render_neilf\n"
-        "import relightable3dgaussian_tpu_torch.ops.ray_trace_cuda\n"
-        "import relightable3dgaussian_tpu_torch.ops.shading_cuda\n"
-        "import relightable3dgaussian_tpu_torch.train.stage2\n"
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['relightable3dgaussian_tpu'] = None\n"
+        "import relightable3dgaussian_tpu_torch as port\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__,\n"
+        "                                               port.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke\n"
         "from relightable3dgaussian_tpu_torch.ops import _build\n"
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'jaxlib', 'flax', 'relightable3dgaussian_tpu'))\n"
+        "print('modules', len(names), 'cli' in str(names), 'scene' in str(names))\n"
         "print('loaded', loaded, 'built', len(_build._LOADED))\n")
     proc = run_python(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr
-    assert "loaded ['jax'] built 0" in proc.stdout, proc.stdout
+    assert "modules" in proc.stdout and "True True" in proc.stdout, proc.stdout
+    n_modules = int(proc.stdout.split("modules ")[1].split()[0])
+    assert n_modules >= 45, proc.stdout
+    assert ("loaded ['jax', 'relightable3dgaussian_tpu'] built 0"
+            in proc.stdout), proc.stdout
+
+
+def test_sources_never_import_the_jax_package():
+    pattern = re.compile(r"^\s*(import relightable3dgaussian_tpu\b(?!_torch)"
+                         r"|from relightable3dgaussian_tpu\b(?!_torch))",
+                         re.MULTILINE)
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
 
 
 def test_sources_never_import_jax():
@@ -69,6 +82,27 @@ def test_backward_kernel_source_exports_the_bound_symbol():
     # the TPU kernel it replaces
     assert "composite_pallas_bwd.py::_bwd_kernel_single" in src
     assert "__expf" not in src.replace("(not __expf)", "")
+
+
+def test_two_walk_kernel_source_exports_the_bound_symbol():
+    src = (PORT / "csrc" / "composite_bwd_two_walk.cu").read_text()
+    assert 'extern "C" int r3dg_composite_bwd_two_walk(' in src
+    # the TPU kernel it replaces
+    assert "composite_pallas_bwd.py::_bwd_kernel\n" in src
+    assert "__expf" not in src.replace("(not __expf)", "")
+    # K1, K2 and K5 take the alpha step from one header
+    for source in ("composite_fwd.cu", "composite_bwd.cu",
+                   "composite_bwd_two_walk.cu"):
+        assert '#include "composite_step.cuh"' in (PORT / "csrc" /
+                                                   source).read_text()
+    header = (PORT / "csrc" / "composite_step.cuh").read_text()
+    assert "expf(" in header and "__expf(" not in header
+    # K2 and K5 take the gradient reduction from one header
+    for source in ("composite_bwd.cu", "composite_bwd_two_walk.cu"):
+        src = (PORT / "csrc" / source).read_text()
+        assert '#include "composite_grad.cuh"' in src
+        assert "r3dg::reduce_pair(" in src and "r3dg::flush_slot(" in src
+        assert "__shfl_xor_sync" not in src
 
 
 @pytest.mark.parametrize("source,symbols,replaces", [

@@ -91,8 +91,10 @@ def test_direct_light_map_activation_and_init():
         jax_lights.get_env(jax_lights.DirectLightParams(env=jnp.asarray(env))),
         rtol=1e-6, atol=1e-7)
     assert torch.equal(lights.light_image(light), light.get_env())
-    made = lights.DirectLightMap(16, 3.0, torch.Generator().manual_seed(1))
-    again = lights.DirectLightMap(16, 3.0, torch.Generator().manual_seed(1))
+    made = lights.DirectLightMap(16, 3.0, torch.Generator().manual_seed(1),
+                                 device="cpu")
+    again = lights.DirectLightMap(16, 3.0, torch.Generator().manual_seed(1),
+                                  device="cpu")
     assert made.env.shape == (16, 32, 3) and made.env.requires_grad
     assert torch.equal(made.env, again.env)
     assert 0.0 <= float(made.env.detach().min())

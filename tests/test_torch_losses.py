@@ -155,7 +155,8 @@ def test_calculate_loss_every_term_matches_jax():
         jax_fn, has_aux=True))(params)
 
     model = GaussianModel.from_numpy(
-        {k: np.asarray(getattr(params, k)) for k in FIELDS}, active)
+        {k: np.asarray(getattr(params, k)) for k in FIELDS}, active,
+        device="cpu")
     view_t = port_render.ViewInputs(cam_t, t(gt), t(mask), t(zeros[:1]),
                                     t(zeros))
     res = port_render.render(view_t, model, RasterConfig(SIZE, SIZE), t(BG),

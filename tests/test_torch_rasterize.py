@@ -188,7 +188,7 @@ def render_pair(tmp_path_factory):
     params, aux, active = jax_model()
     path = str(tmp_path_factory.mktemp("ckpt") / "chkpnt7.npz")
     jax_checkpoint.save_checkpoint(path, 7, params=params, aux=aux)
-    iteration, model = checkpoint.load_checkpoint(path)
+    iteration, model = checkpoint.load_checkpoint(path, device="cpu")
     view_j, view_t = view_pair()
     cfg_j = jax_config(3)
     want = jax.jit(lambda p, a: jax_render(
@@ -262,7 +262,7 @@ def test_render_from_numpy_matches_checkpoint_path(render_pair):
     fields = {k: np.asarray(getattr(params, k)) for k in
               ("xyz", "normal", "shs_dc", "shs_rest", "scaling", "rotation",
                "opacity")}
-    model = GaussianModel.from_numpy(fields, active)
+    model = GaussianModel.from_numpy(fields, active, device="cpu")
     _, view_t = view_pair()
     with torch.no_grad():
         again = port_render.render(view_t, model, RasterConfig(SIZE, SIZE),
@@ -289,7 +289,7 @@ def test_port_checkpoint_loads_in_jax(render_pair, tmp_path):
         np.testing.assert_array_equal(
             np.asarray(getattr(restored["params"], name)), value, err_msg=name)
     # and back into the port unchanged
-    it2, model2 = checkpoint.load_checkpoint(path)
+    it2, model2 = checkpoint.load_checkpoint(path, device="cpu")
     assert it2 == 9
     for name, value in model.to_numpy().items():
         np.testing.assert_array_equal(model2.to_numpy()[name], value)

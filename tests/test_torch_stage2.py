@@ -165,9 +165,9 @@ def jax_state(tmp_path_factory):
 def port_step(jax_state):
     """The port's third step from the files the JAX state was saved to."""
     it, model, optimizer = checkpoint.load_train_state(
-        jax_state["path"], OPT, SPATIAL_LR_SCALE)
+        jax_state["path"], OPT, SPATIAL_LR_SCALE, device="cpu")
     it_env, env, env_optimizer = checkpoint.load_env_checkpoint(
-        jax_state["env_path"], OPT)
+        jax_state["env_path"], OPT, device="cpu")
     assert it == it_env == FIRST_ITER + 2
     before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
     metrics = stage2.train_step(
@@ -184,7 +184,7 @@ def test_update_visibility_matches_jax():
     params = jax_params()
     want = jax_neilf.update_visibility(params, jnp.ones(N, bool), S)
     model = G.GaussianModel.from_numpy(
-        {k: np.asarray(v) for k, v in vars(params).items()})
+        {k: np.asarray(v) for k, v in vars(params).items()}, device="cpu")
     before = ray_trace_cuda.LAUNCHES
     got = render_neilf.update_visibility(model, S)
     assert ray_trace_cuda.LAUNCHES == before
@@ -200,8 +200,9 @@ def test_update_visibility_matches_jax():
 def render_pair(jax_state, is_training: bool):
     """JAX's and the port's render_neilf of the saved state, the same
     visibility cache in both."""
-    _, model = checkpoint.load_checkpoint(jax_state["path"])
-    _, env, _ = checkpoint.load_env_checkpoint(jax_state["env_path"], OPT)
+    _, model = checkpoint.load_checkpoint(jax_state["path"], device="cpu")
+    _, env, _ = checkpoint.load_env_checkpoint(jax_state["env_path"], OPT,
+                                               device="cpu")
     fd = 3 if is_training else jax_neilf.EVAL_FEATURE_DIM
     want = jax.jit(jax_neilf.render_neilf, static_argnums=(3, 7),
                    static_argnames=("is_training",))(
@@ -331,7 +332,7 @@ def test_stage2_adam_start(tmp_path):
     rng = np.random.default_rng(30)
     d = {k: np.asarray(v) for k, v in vars(jax_params()).items()
          if k in G.FIELDS}
-    model = G.GaussianModel.from_numpy(d)
+    model = G.GaussianModel.from_numpy(d, device="cpu")
     assert not model.has_pbr
     o1 = optim.make_optimizer(model, OPT, 1.0)
     for g in o1.param_groups:
@@ -341,7 +342,8 @@ def test_stage2_adam_start(tmp_path):
                        "exp_avg_sq": torch.ones_like(p)}
     path = str(tmp_path / "chkpnt1234.npz")
     checkpoint.save_checkpoint(path, 1234, model, o1)
-    it, model, o1 = checkpoint.load_train_state(path, OPT, 1.0)
+    it, model, o1 = checkpoint.load_train_state(path, OPT, 1.0,
+                                                device="cpu")
     G.add_pbr_params(model)
     assert model.has_pbr and model.fields == G.FIELDS + G.PBR_FIELDS
     o2 = optim.make_optimizer(model, OPT, 1.0)
@@ -371,7 +373,7 @@ def test_pbr_checkpoint_round_trip_jax_port_jax(jax_state, tmp_path):
     and the port's file restores in JAX's load_checkpoint; the env file
     too, both ways."""
     it, model, optimizer = checkpoint.load_train_state(
-        jax_state["path"], OPT, SPATIAL_LR_SCALE)
+        jax_state["path"], OPT, SPATIAL_LR_SCALE, device="cpu")
     assert model.has_pbr
     out = str(tmp_path / "chkpnt30002.npz")
     checkpoint.save_checkpoint(out, it, model, optimizer)
@@ -397,7 +399,7 @@ def test_pbr_checkpoint_round_trip_jax_port_jax(jax_state, tmp_path):
     assert files == {"__iteration__", "env.env", "env_state.mu",
                      "env_state.nu", "env_state.count"}
     it3, env, env_opt = checkpoint.load_env_checkpoint(jax_state["env_path"],
-                                                       OPT)
+                                                       OPT, device="cpu")
     env_out = checkpoint.env_checkpoint_path(out)
     assert env_out == str(tmp_path / "env_light_chkpnt30002.npz")
     checkpoint.save_env_checkpoint(env_out, it3, env, env_opt)
@@ -418,10 +420,11 @@ def test_stage1_file_loads_without_pbr(tmp_path):
     d = {k: np.asarray(v) for k, v in vars(jax_params()).items()
          if k in G.FIELDS}
     path = str(tmp_path / "chkpnt1.npz")
-    checkpoint.save_checkpoint(path, 1, G.GaussianModel.from_numpy(d))
+    checkpoint.save_checkpoint(path, 1,
+                               G.GaussianModel.from_numpy(d, device="cpu"))
     with np.load(path) as f:
         assert f["params.base_color"].shape == (0, 3)
-    _, model = checkpoint.load_checkpoint(path)
+    _, model = checkpoint.load_checkpoint(path, device="cpu")
     assert not model.has_pbr and model.fields == G.FIELDS
 
 
@@ -430,7 +433,7 @@ def test_densify_keeps_pbr_rows_aligned():
     drop theirs, new rows get zero moments."""
     params = jax_params()
     d = {k: np.asarray(v) for k, v in vars(params).items()}
-    model = G.GaussianModel.from_numpy(d)
+    model = G.GaussianModel.from_numpy(d, device="cpu")
     opt = optim.make_optimizer(model, OPT, 1.0)
     optim.start_state(opt, 5)
     tag = torch.arange(N, dtype=torch.float32)

@@ -16,6 +16,7 @@ from relightable3dgaussian_tpu.models import gaussians as jax_gaussians
 from relightable3dgaussian_tpu.models.render import ViewInputs as JaxViewInputs
 from relightable3dgaussian_tpu.models.render import render as jax_render
 from relightable3dgaussian_tpu.ops import composite as jax_composite
+from relightable3dgaussian_tpu.ops import tiles as jax_tiles
 from relightable3dgaussian_tpu.ops.composite_pallas import \
     composite_pallas_forward
 from relightable3dgaussian_tpu.ops.composite_pallas_bwd import \
@@ -27,7 +28,7 @@ from relightable3dgaussian_tpu.train import stage1 as jax_stage1
 from relightable3dgaussian_tpu.utils import lr_schedule as jax_lr
 from relightable3dgaussian_tpu_torch.models import gaussians as G
 from relightable3dgaussian_tpu_torch.models import render as port_render
-from relightable3dgaussian_tpu_torch.ops import composite
+from relightable3dgaussian_tpu_torch.ops import composite, composite_cuda, tiles
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.train import checkpoint, optim, stage1
@@ -36,7 +37,8 @@ from relightable3dgaussian_tpu_torch.train.config import (STAGE1_NERF_SYNTHETIC,
 from relightable3dgaussian_tpu_torch.utils import lr_schedule
 from relightable3dgaussian_tpu_torch.utils.sh import rgb_to_sh
 import test_torch_cuda as card_tests
-from test_torch_ops import SIZE, cameras, composite_inputs, jax_config, t
+from test_torch_ops import (SIZE, cameras, composite_inputs, jax_config, t,
+                            to_torch_prep)
 from test_torch_rasterize import jax_model
 
 
@@ -144,6 +146,56 @@ def test_composite_backward_matches_the_pallas_backward():
     assert_grads_close([g.numpy() for g in got], want, 2e-4)
 
 
+@pytest.mark.parametrize("opaque", [False, True])
+def test_composite_backward_matches_the_two_walk_pallas_backward(opaque):
+    """The plain backward is the plain version of K5 as of K2: against K5's
+    TPU kernel (_bwd_kernel, two front-to-back walks, suffix = total −
+    prefix) in interpret mode, without walk state, as
+    tests/test_composite_pallas_bwd.py runs it; on the scene of the tests
+    above and on it with opacities in [0.5, 0.99], where the suffix cancels
+    most. 2e-4 of each field's largest entry, as that suite holds the TPU
+    kernel against jax.vjp: its chunked sums take another order."""
+    prep, op, attrs, cfg_j, binning_j, binning_t = composite_inputs()
+    if opaque:
+        op = np.random.default_rng(11).uniform(0.5, 0.99, op.shape).astype(
+            np.float32)
+        binning_j = jax.jit(lambda: jax_tiles.bin_gaussians(prep, cfg_j,
+                                                            op))()
+        binning_t = tiles.bin_gaussians(to_torch_prep(prep),
+                                        RasterConfig(SIZE, SIZE), t(op))
+    g_img, g_w = cotangents(cfg_j, *attrs.shape, seed=13)
+    want = composite_pallas_backward(
+        binning_j, prep.mean2d, prep.conic, jnp.asarray(op),
+        jnp.asarray(attrs), jnp.asarray(g_img), jnp.asarray(g_w), cfg_j,
+        interpret=True, walk_state=None)
+    got = composite.composite_backward(
+        binning_t, t(prep.mean2d), t(prep.conic), t(op), t(attrs), t(g_img),
+        t(g_w), RasterConfig(SIZE, SIZE))
+    assert_grads_close([g.numpy() for g in got], want, 2e-4)
+
+
+def test_two_walk_switch_takes_the_plain_backward_on_the_cpu(monkeypatch):
+    """R3DG_BWD_TWO_WALK=1 picks K5 on CUDA tensors only: on CPU tensors the
+    compositor's gradients are the plain backward's, bit for bit, and no
+    kernel is launched."""
+    prep, op, attrs, _, _, binning_t = composite_inputs()
+    cfg = RasterConfig(SIZE, SIZE)
+    grads = []
+    for two_walk in ("0", "1"):
+        monkeypatch.setenv("R3DG_BWD_TWO_WALK", two_walk)
+        leaves = [t(x).requires_grad_() for x in
+                  (prep.mean2d, prep.conic, op, attrs)]
+        before = (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES,
+                  composite_cuda.TWO_WALK_LAUNCHES)
+        out = composite_cuda.composite(binning_t, *leaves, cfg)
+        (out.image.square().sum() + out.weights.sum()).backward()
+        assert (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES,
+                composite_cuda.TWO_WALK_LAUNCHES) == before
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # Adam, the checkpoint format, and one whole train step
 # ---------------------------------------------------------------------------
@@ -206,7 +258,7 @@ def port_step(jax_state):
     """The port's 4th step from the JAX state the checkpoint carries."""
     path, _, view_t, *_ = jax_state
     it, model, optimizer = checkpoint.load_train_state(
-        path, OptimizationConfig(**OPT), SPATIAL_LR_SCALE)
+        path, OptimizationConfig(**OPT), SPATIAL_LR_SCALE, device="cpu")
     assert it == 3
     metrics = stage1.train_step(
         model, optimizer, view_t, 4, cfg=RasterConfig(SIZE, SIZE),
@@ -282,7 +334,8 @@ def test_adam_step_matches_jax(jax_state):
     path, active, _, (params, _, opt_state), grads, _ = jax_state
     opt = OptimizationConfig(**OPT)
     _, model, optimizer = checkpoint.load_train_state(path, opt,
-                                                      SPATIAL_LR_SCALE)
+                                                      SPATIAL_LR_SCALE,
+                                                      device="cpu")
     lrs = jax_optim.learning_rates(jax_config_mod.OptimizationConfig(**OPT),
                                    50, SPATIAL_LR_SCALE)
     want, want_state = jax_optim.adam_step(params, grads, opt_state, lrs)
@@ -309,7 +362,7 @@ def test_checkpoint_round_trip_jax_port_jax(jax_state, tmp_path):
     in the port and the port's file restores in JAX's load_checkpoint."""
     path, active, _, (params, aux, opt_state), _, _ = jax_state
     it, model, optimizer = checkpoint.load_train_state(
-        path, OptimizationConfig(**OPT), SPATIAL_LR_SCALE)
+        path, OptimizationConfig(**OPT), SPATIAL_LR_SCALE, device="cpu")
     out = str(tmp_path / "chkpnt3_port.npz")
     checkpoint.save_checkpoint(out, it, model, optimizer)
     n = model.num_points
