@@ -29,20 +29,20 @@
 //
 // Design: one block per 16x16 tile, one thread per pixel. Both walks gather
 // the tile's depth-sorted ids in batches of 256 into shared memory (mean,
-// conic, opacity, g_w, A attributes), as K1 does, and leave a batch early
-// where a warp is done and the range once the block is. Phase B sums each
-// pair's 6 + A gradient terms across a warp with shuffles (a warp with no
-// blended pixel skips the pair), across warps with shared-memory atomics,
-// and adds them to device memory once per (tile, gaussian) with atomicAdd:
-// K2's reduction, from composite_grad.cuh.
+// conic, opacity, g_w, A attributes), and leave a batch early where a warp
+// is done and the range once the block is. Phase B sums each pair's 6 + A
+// gradient terms across a warp and across warps, and adds them to device
+// memory once per (tile, gaussian) with atomicAdd: K2's reduction, from
+// composite_grad.cuh (a reduce-scatter per 16 terms, one row per slot,
+// touched slots flushed).
 //
 // What bounds it on the H100: the per-(pixel, pair) arithmetic, twice: an
 // expf, ~15 FP32 operations and A FMAs for d in each walk, a division and
-// ~30 operations more in phase B, and there K2's reduction (5 shuffles and a
-// shared atomic per term per (warp, pair) with a blended pixel, scattered
-// float atomics per (tile, gaussian)). Each walk gathers the batch again;
-// the TPU kernel's pair-sized data table and per-slot gradient rows are not
-// carried over.
+// ~30 operations more in phase B, and there the reduction (16 shuffles and
+// a warp-wide shared atomic per 16 terms per (warp, pair) with a blended
+// pixel, scattered float atomics per (tile, gaussian)). Each walk gathers
+// the batch again, 8 + A 4-byte shared loads a pair; the TPU kernel's
+// pair-sized data table and per-slot gradient rows are not carried over.
 //
 // Plain C interface (built by nvcc into a shared library, bound with ctypes):
 // r3dg_composite_bwd_two_walk returns the first CUDA error, or 0.
@@ -59,12 +59,14 @@ constexpr int kBlock = kTile * kTile;  // one thread per pixel; pairs per batch
 constexpr int kMaxA = 32;              // widest attribute vector taken
 constexpr int kGeom = r3dg::kGeom;
 constexpr unsigned kFullMask = r3dg::kFullMask;
-static_assert(kBlock == r3dg::kPixels, "one slot per pixel");
 
 // Shared memory, in floats of kBlock each: id, mean x, mean y, conic a, b, c,
-// opacity, g_w (8 rows), then A attribute rows, then 6 + A gradient rows.
+// opacity, g_w (8 rows), then A attribute rows; then the gradient
+// accumulators, one row of acc_stride floats per slot, and the touched flags.
 inline size_t shared_bytes(int a_dim) {
-  return static_cast<size_t>(8 + a_dim + kGeom + a_dim) * kBlock * sizeof(float);
+  return static_cast<size_t>(8 + a_dim +
+                             r3dg::acc_stride(r3dg::term_chunks(a_dim)) + 1) *
+         kBlock * sizeof(float);
 }
 
 // d = g_w + sum_a attr_a g_img_a for the pair in slot j, in one fixed order
@@ -99,7 +101,10 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
                               float* __restrict__ g_attrs,         // [P, A]
                               int* __restrict__ n_blended) {       // [tiles, 256] or null
   constexpr int AMAX = A_STATIC > 0 ? A_STATIC : kMaxA;
+  constexpr int NT = r3dg::kChunk * r3dg::term_chunks(AMAX);
   const int A = A_STATIC > 0 ? A_STATIC : a_dim;
+  const int n_chunks = r3dg::term_chunks(A);
+  const int stride = r3dg::acc_stride(n_chunks);
 
   extern __shared__ float smem[];
   int* s_id = reinterpret_cast<int*>(smem);
@@ -111,7 +116,8 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
   float* s_op = smem + 6 * kBlock;
   float* s_gw = smem + 7 * kBlock;
   float* s_attr = smem + 8 * kBlock;        // [a][slot]
-  float* s_acc = s_attr + A * kBlock;       // [6 + a][slot]
+  float* s_acc = s_attr + A * kBlock;       // [slot][stride]
+  int* s_touched = reinterpret_cast<int*>(s_acc + kBlock * stride);
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -121,7 +127,6 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
   const int start = tile_start[tile];
   const int end = tile_end[tile];
   const size_t pix = static_cast<size_t>(tile) * kBlock + tid;
-  const int n_acc = kGeom + A;
 
   float gi[AMAX];
 #pragma unroll
@@ -176,6 +181,8 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
   }
 
   // ---- phase B: the gradients, from the inclusive prefix P_i ---------------
+  for (int i = tid; i < kBlock * stride; i += kBlock) s_acc[i] = 0.f;
+  s_touched[tid] = 0;
   T = 1.f;
   float prefix = 0.f;
   int count = 0;
@@ -184,7 +191,6 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
     // Barrier for phase A's and the previous flush's readers; exit vote.
     if (__syncthreads_count(done) == kBlock) break;
     gather(base);
-    for (int f = 0; f < n_acc; ++f) s_acc[f * kBlock + tid] = 0.f;
     __syncthreads();
     const int n = min(kBlock, end - base);
     for (int j = 0; j < n; ++j) {
@@ -219,12 +225,15 @@ composite_bwd_two_walk_kernel(const int* __restrict__ tile_start,
           done = T < r3dg::kTMin;
         }
       }
-      r3dg::reduce_pair(s_acc, j, blended, gm, w, gi, A, lane);
+      float terms[NT];
+      r3dg::set_terms(terms, gm, w, gi, A);
+      r3dg::reduce_pair(s_acc, stride, s_touched, j, blended, terms, n_chunks,
+                        lane);
     }
     __syncthreads();
     if (tid < n)
-      r3dg::flush_slot(s_acc, tid, s_id[tid], A, g_mean2d, g_conic, g_opacity,
-                       g_attrs);
+      r3dg::flush_slot(s_acc, stride, s_touched, tid, s_id[tid], A, g_mean2d,
+                       g_conic, g_opacity, g_attrs);
   }
   if (n_blended != nullptr) n_blended[pix] = count;
 }

@@ -36,8 +36,9 @@ def make_camera_params(R: np.ndarray, T: np.ndarray, width: int, height: int,
                        cx: float | None = None, cy: float | None = None,
                        znear: float = 0.01, zfar: float = 100.0,
                        trans: np.ndarray | None = None, scale: float = 1.0,
-                       device: torch.device | str = "cpu") -> CameraParams:
-    """Build CameraParams from COLMAP-style extrinsics + FoV or intrinsics."""
+                       device: torch.device | str = "cuda") -> CameraParams:
+    """Build CameraParams from COLMAP-style extrinsics + FoV or intrinsics, on
+    `device` (the card unless the caller asks for the CPU)."""
     w2c = graphics.world_to_view(R, T, trans, scale)
     if fx is None:
         assert fovx is not None and fovy is not None

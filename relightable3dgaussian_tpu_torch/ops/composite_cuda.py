@@ -37,6 +37,12 @@ KERNEL = "composite_fwd"
 BWD_KERNEL = "composite_bwd"
 TWO_WALK_KERNEL = "composite_bwd_two_walk"
 MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
+# The attribute widths K1 and K2 build apart, with their accumulators in
+# registers at that width (the `case`s of the dispatch in each source): the
+# main paths' 9 (stage 1), 8 (stage-2 train under STAGE2_NERF_SYNTHETIC) and,
+# for K1, 32 (stage-2 eval). Other widths up to MAX_ATTRS take the general
+# build.
+SPECIALISED_WIDTHS = {KERNEL: (9, 8, 32), BWD_KERNEL: (9, 8)}
 LAUNCHES = 0       # launches of K1 since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K2 since import (or the last reset)
 TWO_WALK_LAUNCHES = 0   # launches of K5 since import (or the last reset)

@@ -20,6 +20,7 @@ from relightable3dgaussian_tpu_torch.cli import eval_nvs
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
 from relightable3dgaussian_tpu_torch.models import lights
 from relightable3dgaussian_tpu_torch.models.gaussians import GaussianModel
+from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.scene import Scene
 from relightable3dgaussian_tpu_torch.train import checkpoint, config
 from relightable3dgaussian_tpu_torch.train.optim import (learning_rates,
@@ -294,6 +295,8 @@ def entry_point_calls(dataset, stage1):
             path, config.OptimizationConfig(), 1.0),
         "from_numpy": lambda: GaussianModel.from_numpy(d),
         "DirectLightMap": lambda: lights.DirectLightMap(4),
+        "make_camera_params": lambda: make_camera_params(
+            np.eye(3), np.zeros(3), 8, 8, fovx=0.9, fovy=0.9),
         "view_inputs": lambda: Scene(str(dataset), "", shuffle=False)
         .get_train_cameras()[0].view_inputs(),
         "cli.train": lambda: train_cli.main(["-s", str(dataset), "-m",
@@ -305,7 +308,8 @@ def entry_point_calls(dataset, stage1):
 
 @pytest.mark.parametrize("name", ["load_checkpoint", "load_train_state",
                                   "from_numpy", "DirectLightMap",
-                                  "view_inputs", "cli.train", "cli.eval_nvs"])
+                                  "make_camera_params", "view_inputs",
+                                  "cli.train", "cli.eval_nvs"])
 def test_entry_points_default_to_the_card(dataset, stage1, name):
     """Without a device argument every entry point asks for the card; this
     torch has none, so each raises and none carries on on the CPU."""

@@ -23,6 +23,7 @@ from relightable3dgaussian_tpu_torch.ops.composite import composite as composite
 from relightable3dgaussian_tpu_torch.ops.composite import composite_backward
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
+from relightable3dgaussian_tpu_torch.ops.tiles import Binning
 from relightable3dgaussian_tpu_torch.train import stage2
 from relightable3dgaussian_tpu_torch.train.checkpoint import (
     load_checkpoint, load_env_checkpoint, load_train_state,
@@ -92,7 +93,7 @@ def k1_args(device, n_features: int, weights: bool = True, seed: int = 0):
 
 
 @torch.no_grad()
-@pytest.mark.parametrize("n_features", [4, 1, 27])      # A = 9, 6, 32
+@pytest.mark.parametrize("n_features", [4, 3, 1, 27])   # A = 9, 8, 6, 32
 @pytest.mark.parametrize("weights", [True, False])
 def test_k1_matches_plain(cuda, n_features, weights):
     args = k1_args(cuda, n_features, weights)
@@ -137,7 +138,7 @@ def max_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 @torch.no_grad()
-@pytest.mark.parametrize("n_features", [4, 1, 27])      # A = 9, 6, 32
+@pytest.mark.parametrize("n_features", [4, 3, 1, 27])   # A = 9, 8, 6, 32
 @pytest.mark.parametrize("with_g_weights", [True, False])
 def test_k2_matches_plain(cuda, n_features, with_g_weights):
     """K2 from K1's walk state against the plain backward, on a scene with
@@ -167,6 +168,70 @@ def test_k2_matches_plain(cuda, n_features, with_g_weights):
         assert max_rel_err(g, w) <= 1e-4, (name, max_rel_err(g, w))
 
 
+def deep_tiles(device, A: int, seed: int, P: int = 2000):
+    """2x2 tiles whose every range holds all P gaussians (no cull): means
+    over the image and 2 pixels around it, widths 0.6-2.5 pixels at random
+    angles, opacities in [0.05, 0.99]. Pixels blend 40-100 of the 2000 pairs
+    and stop between pairs ~400 and ~2000, so a walk crosses more than 4
+    batches and the two pixels of a thread stop at different pairs."""
+    rng = np.random.default_rng(seed)
+    size = 32
+    mean = rng.uniform(-2.0, size + 2.0, (P, 2))
+    sig = rng.uniform(0.6, 2.5, (P, 2))
+    th = rng.uniform(0.0, np.pi, P)
+    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                    np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    inv = np.linalg.inv(rot @ (np.eye(2) * (sig ** 2)[:, None, :])
+                        @ rot.transpose(0, 2, 1))
+    cfg = RasterConfig(size, size)
+    T = cfg.num_tiles
+
+    def f(x, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(x), dtype=dtype,
+                            device=device)
+
+    binning = Binning(f(np.tile(np.arange(P), T), torch.int32),
+                      f(np.arange(T) * P, torch.int32),
+                      f((np.arange(T) + 1) * P, torch.int32), T * P)
+    return (binning, f(mean), f(inv[:, [0, 0, 1], [0, 1, 1]]),
+            f(rng.uniform(0.05, 0.99, P)), f(rng.normal(size=(P, A))), cfg)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("A", [9, 8])
+def test_k1_and_k2_deep_tiles(cuda, A):
+    """K1 and K2 against their plain versions where every pixel walks more
+    than 4 batches of pairs and neighbouring pixels stop at different pairs
+    inside one batch: the gates of test_k1_matches_plain and
+    test_k2_matches_plain, the image cotangent zeroed where K1's and the
+    plain n_contrib differ (as k5_case does)."""
+    args = deep_tiles(cuda, A, seed=A)
+    got, walk = composite_cuda.composite_k1(*args)
+    torch.cuda.synchronize()
+    want = composite_plain(*args)
+    # a thread's pixels: (x, y) and (x ^ 1, y + 1), y even
+    stop = walk.stop.view(-1, 8, 2, 16)          # [tile, y / 2, y % 2, x]
+    partner = stop[:, :, 1][..., torch.arange(16, device=cuda) ^ 1]
+    assert float((walk.stop > 4 * 128).float().mean()) > 0.9
+    assert float((stop[:, :, 0] != partner).float().mean()) > 0.5
+    agree = got.n_contrib == want.n_contrib
+    assert float(agree.float().mean()) >= 0.999
+    torch.testing.assert_close(got.image[agree], want.image[agree],
+                               atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(got.weights, want.weights, rtol=1e-4, atol=1e-6)
+    gen = torch.Generator().manual_seed(A)
+    g_image = torch.randn(got.image.shape, generator=gen).to(cuda) * agree[..., None]
+    g_weights = torch.randn((args[4].shape[0],), generator=gen).to(cuda)
+    binning, mean2d, conic, opacity, attrs, cfg = args
+    k2 = composite_cuda.composite_k2(binning, mean2d, conic, opacity, attrs,
+                                     walk, g_image, g_weights, cfg)
+    plain = composite_backward(binning, mean2d, conic, opacity, attrs,
+                               g_image, g_weights, cfg)
+    for name, g, w in zip(("mean2d", "conic", "opacity", "attrs"), k2, plain):
+        assert bool(torch.isfinite(g).all()), name
+        assert max_rel_err(g, w) <= 1e-4, (name, max_rel_err(g, w))
+
+
 def k5_case(cuda, n_features: int, with_g_weights: bool):
     """K1's inputs and walk state, K1's and the plain n_contrib, and seeded
     cotangents: the image cotangent zero on pixels where the two counts
@@ -184,7 +249,7 @@ def k5_case(cuda, n_features: int, with_g_weights: bool):
 
 
 @torch.no_grad()
-@pytest.mark.parametrize("n_features", [4, 1, 27])      # A = 9, 6, 32
+@pytest.mark.parametrize("n_features", [4, 3, 1, 27])   # A = 9, 8, 6, 32
 @pytest.mark.parametrize("with_g_weights", [True, False])
 def test_k5_matches_plain_and_k2(cuda, n_features, with_g_weights):
     """K5, the two-walk backward, against the plain backward and against K2

@@ -105,6 +105,62 @@ def test_two_walk_kernel_source_exports_the_bound_symbol():
         assert "__shfl_xor_sync" not in src
 
 
+def dispatched_widths(source: str) -> tuple[int, ...]:
+    """The attribute widths a compositor source's `switch (a_dim)` builds
+    apart."""
+    src = (PORT / "csrc" / source).read_text()
+    body = src.split("switch (a_dim) {", 1)[1].split("default:", 1)[0]
+    return tuple(int(w) for w in re.findall(r"case (\d+):", body))
+
+
+def test_specialised_widths_cover_the_main_paths():
+    """K1 and K2 build the main paths' attribute widths apart, and
+    ops/composite_cuda.py names the same widths: a config change that would
+    put a main path on the general build fails here."""
+    import numpy as np
+
+    from relightable3dgaussian_tpu_torch.models.gaussians import GaussianModel
+    from relightable3dgaussian_tpu_torch.models.render import view_features
+    from relightable3dgaussian_tpu_torch.models.render_neilf import (
+        EVAL_FEATURE_DIM, train_feature_dim)
+    from relightable3dgaussian_tpu_torch.ops import composite_cuda
+    from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
+    from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
+    from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
+    from relightable3dgaussian_tpu_torch.train.config import (
+        STAGE2_NERF_SYNTHETIC, OptimizationConfig)
+
+    fwd = dispatched_widths("composite_fwd.cu")
+    bwd = dispatched_widths("composite_bwd.cu")
+    assert fwd == composite_cuda.SPECIALISED_WIDTHS[composite_cuda.KERNEL]
+    assert bwd == composite_cuda.SPECIALISED_WIDTHS[composite_cuda.BWD_KERNEL]
+    assert max(fwd + bwd) <= composite_cuda.MAX_ATTRS
+
+    # stage 1: the width prepare gives the render's attributes
+    rng = np.random.default_rng(0)
+    n = 8
+    model = GaussianModel.from_numpy({
+        "xyz": rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
+        "normal": rng.normal(size=(n, 3)).astype(np.float32),
+        "shs_dc": rng.normal(size=(n, 1, 3)).astype(np.float32),
+        "shs_rest": np.zeros((n, 15, 3), np.float32),
+        "scaling": np.full((n, 3), -3.0, np.float32),
+        "rotation": np.tile([1.0, 0, 0, 0], (n, 1)).astype(np.float32),
+        "opacity": np.zeros((n, 1), np.float32)}, device="cpu")
+    cam = make_camera_params(np.eye(3), np.array([0.0, 0.0, 3.0]), 32, 32,
+                             fovx=0.9, fovy=0.9, device="cpu")
+    _, _, attrs = prepare(model.xyz, model.get_scaling, model.get_rotation,
+                          model.get_opacity, model.get_shs,
+                          view_features(model, cam), cam, RasterConfig(32, 32))
+    stage1 = attrs.shape[1]
+    assert stage1 == 3 + 4 + 2
+    stage2_train = 3 + train_feature_dim(
+        OptimizationConfig(**STAGE2_NERF_SYNTHETIC)) + 2
+    stage2_eval = 3 + EVAL_FEATURE_DIM + 2
+    assert {stage1, stage2_train, stage2_eval} <= set(fwd)
+    assert {stage1, stage2_train} <= set(bwd)
+
+
 @pytest.mark.parametrize("source,symbols,replaces", [
     ("ray_trace.cu", ["r3dg_trace"], "ray_trace.py::_trace_eval_kernel"),
     ("shading.cu", ["r3dg_shade_fwd", "r3dg_shade_bwd"],

@@ -161,7 +161,7 @@ def test_pixel_directions_match_jax(intrinsics):
           else dict(fovx=0.9, fovy=0.8))
     want = jax_camera.pixel_directions(
         jax_camera.make_camera_params(R, T, 64, 60, **kw), 60, 64)
-    cam = camera.make_camera_params(R, T, 64, 60, **kw)
+    cam = camera.make_camera_params(R, T, 64, 60, **kw, device="cpu")
     np.testing.assert_array_equal(cam.c2w_rot.numpy(), np.asarray(
         jax_camera.make_camera_params(R, T, 64, 60, **kw).c2w_rot))
     got = camera.pixel_directions(cam, 60, 64)

@@ -59,7 +59,8 @@ def jax_config(deg: int) -> JaxRasterConfig:
 def cameras(size: int = SIZE):
     args = (np.eye(3), np.array([0.0, 0.0, 4.0]), size, size)
     return (jax_camera.make_camera_params(*args, fovx=0.9, fovy=0.9),
-            camera.make_camera_params(*args, fovx=0.9, fovy=0.9))
+            camera.make_camera_params(*args, fovx=0.9, fovy=0.9,
+                                      device="cpu"))
 
 
 def t(x):
@@ -151,7 +152,7 @@ def test_make_camera_params(intrinsics):
     kw = (dict(fx=70.0, fy=72.0, cx=30.0, cy=33.0) if intrinsics
           else dict(fovx=0.9, fovy=0.8))
     want = jax_camera.make_camera_params(R, T, 64, 60, **kw)
-    got = camera.make_camera_params(R, T, 64, 60, **kw)
+    got = camera.make_camera_params(R, T, 64, 60, **kw, device="cpu")
     for name in camera.CameraParams._fields:
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)), err_msg=name)

@@ -104,7 +104,8 @@ def test_rasterize_non_square_partial_tiles():
         bg_color=jnp.asarray(BG)))(*scene)
     assert int(want.overflow_pairs) == 0 and int(want.overflow_chunks) == 0
     got = rasterize(*(t(x) for x in scene),
-                    cam=make_camera_params(*args, fovx=0.9, fovy=0.75),
+                    cam=make_camera_params(*args, fovx=0.9, fovy=0.75,
+                                           device="cpu"),
                     cfg=RasterConfig(h, w, sh_degree=3), bg_color=t(BG))
     assert got.color.shape == (3, h, w)
     np.testing.assert_allclose(got.color.numpy(), want.color, atol=2e-5)

@@ -470,7 +470,7 @@ def toy_views(size: int):
     pts = rng.uniform(-0.7, 0.7, (40, 3)).astype(np.float32)
     from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
     cam = make_camera_params(np.eye(3), np.array([0.0, 0.0, 3.5]), size, size,
-                             fovx=0.9, fovy=0.9)
+                             fovx=0.9, fovy=0.9, device="cpu")
     z = torch.zeros((3, size, size))
     return pts, ViewInputs(cam, torch.full((3, size, size), 0.4), z[:1] + 1,
                            z[:1], z)

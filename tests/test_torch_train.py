@@ -404,7 +404,7 @@ def toy_views(size: int):
         right /= np.linalg.norm(right)
         R = np.stack([right, np.cross(fwd, right), fwd], axis=1)
         cams.append(make_camera_params(R, -R.T @ (-fwd * 4.0), size, size,
-                                       fovx=0.8, fovy=0.8))
+                                       fovx=0.8, fovy=0.8, device="cpu"))
     rng = np.random.default_rng(0)
     n = 80
     pts = rng.uniform(-0.8, 0.8, (n, 3)).astype(np.float32)
