@@ -1,4 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
+[--ptxas-also OTHER_SHADING_CU ...]
 
 Drives the port's main paths, the stage-1 render of a checkpoint, stage-1
 training and stage-2 (PBR) training with its eval render, through the entry
@@ -11,7 +12,9 @@ no result line is printed):
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
               (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu)
-              with nvcc, all at once;
+              with nvcc, all at once, and prints ptxas's registers, spills
+              and shared memory for csrc/shading.cu and for each source
+              given with --ptxas-also (another version of it, to compare);
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
               400x400 scene (opacities in [0.1, 0.99]), with and without
               per-gaussian weights;
@@ -29,8 +32,10 @@ no result line is printed):
               beside it;
   6. k4-mid   K4 forward and backward against the plain shading (ops/
               shading_cuda.py::rendering_equation_train_reference, and it in
-              float64) at 20k points, 16 samples, on seeded inputs, one case
-              with all-zero visibility and one with all-zero local-light SH;
+              float64) at 20k points, 16 samples, on seeded inputs: mixed
+              roughness, all-zero visibility at the roughness bounds 0.09
+              and 0.99, and all-zero local-light SH (whose gradient must
+              reach the SH);
   7. slice    builds a seeded 100k-gaussian scene, saves it as a JAX-format
               checkpoint, loads it with train.checkpoint.load_checkpoint and
               renders 8 orbit views at 800x800 through models.render.render;
@@ -74,7 +79,8 @@ no result line is printed):
               the 8 views at 800x800 (32 splatted channels);
  16. stage2-profile  two windows of further stage-2 steps: without a
               profiler, and under the device-only profiler (kernel ms per
-              step, the largest kernels);
+              step, the largest kernels, and K4-fwd's and K4-bwd's device
+              ms a step whatever their rank);
  17. cli      the README's commands through the CLIs' main functions: a
               NeRF-synthetic-layout scene (24 train and 8 test views at
               800x800, RGBA PNGs written by the port's own PNG writer from
@@ -695,13 +701,16 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
             "extent": extent, "launches": launches}
 
 
-def profile_phase(label: str, step, points: int, full: bool) -> None:
+def profile_phase(label: str, step, points: int, full: bool,
+                  named: dict[str, str] | None = None) -> None:
     """Windows of PROFILE_STEPS calls of step(timer), each one train step
     continuing a trained model (no densify): no profiler; torch.profiler with
     device activity only, whose kernel time and the window's stream time
     (CUDA events from the first step's start to the last step's end) give
     the busy share; with `full`, host and device activity, for aten ops and
-    kernel launches per step. Prints the readings and the largest kernels."""
+    kernel launches per step. Prints the readings, the largest kernels and
+    the device ms and launches a step of each `named` kernel ({label: a
+    substring of its name}), which must have run."""
     from torch.profiler import ProfilerActivity, profile
 
     def window(prof=None):
@@ -756,6 +765,16 @@ def profile_phase(label: str, step, points: int, full: bool) -> None:
     say(f"{label}-kernels", ms_per_step=[
         (e.key[:60], round(e.self_device_time_total / 1e3 / PROFILE_STEPS, 4),
          e.count // PROFILE_STEPS) for e in top])
+    if named:
+        found = {}
+        for name, part in named.items():
+            hits = [e for e in kernels if part in e.key]
+            if not hits:
+                raise AssertionError(f"{label}: no device time for {name}")
+            found[name] = (round(sum(e.self_device_time_total for e in hits)
+                                 / 1e3 / PROFILE_STEPS, 4),
+                           sum(e.count for e in hits) / PROFILE_STEPS)
+        say(f"{label}-named", ms_and_launches_per_step=found)
 
 
 def timed_ms(fn):
@@ -823,13 +842,14 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
             "library_ms": None}
 
 
-def shading_case(P: int, S: int, seed: int, device, dark: bool = False,
-                 zero_shs: bool = False):
+def shading_case(P: int, S: int, seed: int, device, rough: float | None = None,
+                 dark: bool = False, zero_shs: bool = False):
     """rendering_equation_train's inputs, seeded: unit normals and view
     directions, Fibonacci samples, roughness uniform in [0.05, 0.95] with the
-    activation's bounds 0.09 and 0.99 on two points, visibility in [0, 1)
-    (zero everywhere when `dark`), local-light SH 0.3 N(0, 1) (zero, as at
-    the stage-2 start, with `zero_shs`), global light in [0, 2)."""
+    activation's bounds 0.09 and 0.99 on two points (or `rough` everywhere),
+    visibility in [0, 1) (zero everywhere when `dark`), local-light SH
+    0.3 N(0, 1) (zero, as at the stage-2 start, with `zero_shs`), global
+    light in [0, 2)."""
     rng = np.random.default_rng(seed)
 
     def unit(n):
@@ -841,6 +861,8 @@ def shading_case(P: int, S: int, seed: int, device, dark: bool = False,
     dirs, areas = fibonacci_sphere_sampling(normals, S)
     roughness = rng.uniform(0.05, 0.95, (P, 1))
     roughness[-2:, 0] = (0.09, 0.99)
+    if rough is not None:
+        roughness[:] = rough
     vis = rng.uniform(size=(P, S, 1)) * (not dark)
     return (f(rng.uniform(size=(P, 3))), f(roughness), normals, f(unit(P)),
             f(0.3 * rng.normal(size=(P, 16, 3)) * (not zero_shs)),
@@ -868,12 +890,13 @@ def plain_shading_graph(x, cot):
     return leaves, sum((c * o).sum() for c, o in zip(cot, outs))
 
 
-def check_k4(x, label: str, seed: int, reps: int = 10,
-             plain_reps: int = 3) -> tuple[dict, dict]:
+def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
+             min_dshs: float | None = None) -> tuple[dict, dict]:
     """K4-fwd and K4-bwd against the plain shading on the same inputs and a
     seeded cotangent, each held against the plain shading in float64 beside
-    the plain float32 version's own error (K4_SLACK); raises on
-    disagreement. Returns the numbers for the kernels line, fwd and bwd."""
+    the plain float32 version's own error (K4_SLACK), and with `min_dshs`
+    the SH gradient's largest entry above it; raises on disagreement.
+    Returns the numbers for the kernels line, fwd and bwd."""
     P = x[0].shape[0]
     gen = torch.Generator().manual_seed(seed)
     cot = [torch.randn((P, 3), generator=gen).to(x[0].device) for _ in range(3)]
@@ -913,6 +936,9 @@ def check_k4(x, label: str, seed: int, reps: int = 10,
                     f"the plain float32 version {e_plain} (limit "
                     f"max({tol}, {K4_SLACK} x that))")
             abs_err[kind] = max(abs_err[kind], float((g - p).abs().max()))
+    if min_dshs is not None and not float(dshs.abs().max()) > min_dshs:
+        raise AssertionError(f"{label}: K4-bwd's SH gradient "
+                             f"{float(dshs.abs().max())} is not above {min_dshs}")
     fwd_ms = cuda_ms(lambda: shading_cuda.shade_fwd(*kin), reps)
     bwd_ms = cuda_ms(lambda: shading_cuda.shade_bwd(*kin, *cot), reps)
     plain_fwd_ms = cuda_ms(
@@ -940,6 +966,19 @@ def check_k4(x, label: str, seed: int, reps: int = 10,
              "plain_ms": plain_fwd_ms, **fwd_bound, "library_ms": None},
             {"max_abs_err": abs_err["bwd"], "ms": bwd_ms,
              "plain_ms": plain_bwd_ms, **bwd_bound, "library_ms": None})
+
+
+def k4_mid_phase(device) -> None:
+    """K4 against the plain shading at N_MID points, S_MID samples: mixed
+    roughness, all-zero visibility at the roughness bounds 0.09 and 0.99,
+    and all-zero local-light SH (the stage-2 start, where max(SH, 0) passes
+    half the gradient: it must reach the SH)."""
+    for seed, (rough, dark, zero_shs) in enumerate((
+            (None, False, False), (0.09, True, False), (0.99, True, False),
+            (None, False, True))):
+        check_k4(shading_case(N_MID, S_MID, SEED + 4 + seed, device, rough,
+                              dark, zero_shs), "k4-mid", seed,
+                 min_dshs=0.01 if zero_shs else None)
 
 
 def reset_launches() -> None:
@@ -1263,7 +1302,27 @@ def cli_phase(gt_model: GaussianModel, device) -> dict:
     return l1
 
 
-def main(device: str = "cuda:0") -> None:
+def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
+    """Builds K1 to K5 from the checkout's sources, one nvcc each, all at
+    once, and prints ptxas's report of csrc/shading.cu and of each source in
+    `ptxas_also`, compiled beside them."""
+    t0 = time.perf_counter()
+    kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
+               ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
+               composite_cuda.TWO_WALK_KERNEL)
+    ptxas_sources = (str(_build.CSRC / f"{shading_cuda.KERNEL}.cu"),
+                     *ptxas_also)
+    with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
+        reports = pool.map(_build.ptxas_report, ptxas_sources)
+        list(pool.map(_build.load_library, kernels))
+        reports = list(reports)
+    say("build", kernels=list(kernels),
+        build_s=f"{time.perf_counter() - t0:.2f}")
+    for src, report in zip(ptxas_sources, reports):
+        say("ptxas", source=src, kernels=report)
+
+
+def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = ()) -> None:
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke needs an NVIDIA GPU")
@@ -1280,16 +1339,8 @@ def main(device: str = "cuda:0") -> None:
     # The phases before cli check K2 on the default backward.
     os.environ.pop("R3DG_BWD_TWO_WALK", None)
 
-    # 2. build K1 to K5 from the checkout's sources, one nvcc each, all at
-    # once
-    t0 = time.perf_counter()
-    kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
-               ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
-               composite_cuda.TWO_WALK_KERNEL)
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        list(pool.map(_build.load_library, kernels))
-    say("build", kernels=list(kernels),
-        build_s=f"{time.perf_counter() - t0:.2f}")
+    # 2. build K1 to K5 from the checkout's sources
+    build_phase(ptxas_also)
 
     with torch.no_grad():
         # 3. K1 against the plain version, mid-size scene
@@ -1312,12 +1363,8 @@ def main(device: str = "cuda:0") -> None:
         mid_dirs, _ = fibonacci_sphere_sampling(mid.get_normal, S_MID)
         check_k3(*visibility_rays(mid, mid_dirs), "k3-mid")
 
-        # 6. K4 against the plain shading, mid size: all-zero visibility,
-        # and all-zero local-light SH (the stage-2 start)
-        for seed, case in enumerate(((False, False), (True, False),
-                                     (False, True))):
-            check_k4(shading_case(N_MID, S_MID, SEED + 4 + seed, device, *case),
-                     "k4-mid", seed)
+        # 6. K4 against the plain shading, mid size
+        k4_mid_phase(device)
 
         # 7. the render slice: checkpoint → load_checkpoint → render, 8 views
         t0 = time.perf_counter()
@@ -1426,7 +1473,9 @@ def main(device: str = "cuda:0") -> None:
                           it2, cfg=s2["cfg"], opt=STAGE2_OPT,
                           spatial_lr_scale=s2["extent"], timer=timer)
 
-    profile_phase("stage2-profile", stage2_step, model.num_points, False)
+    profile_phase("stage2-profile", stage2_step, model.num_points, False,
+                  named={"K4-fwd": "shade_fwd_kernel",
+                         "K4-bwd": "shade_bwd_kernel"})
 
     # 17. the README's commands through the CLIs
     cli_launches = cli_phase(scene_model, device)
@@ -1454,4 +1503,8 @@ def main(device: str = "cuda:0") -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--ptxas-also", nargs="*", default=[],
+                        help="other kernel sources to print ptxas's report of")
+    sys.exit(main(ptxas_also=tuple(parser.parse_args().ptxas_also)))

@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace r3dg {
 
 constexpr int kBatch = 128;  // pairs per batch; one slot staged per thread
@@ -45,23 +47,6 @@ struct BatchSource {
   bool mean_8b;
   bool attr_16b;
 };
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(gmem), "n"(BYTES));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Waits until at most N of this thread's newest copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Issues the copies of gaussian g's record into slot `slot` of `buf`.
 template <int A_STATIC>

@@ -1,6 +1,7 @@
 // The warp-wide reduce-scatter the compositor kernels sum with: K1's
 // per-gaussian weights (composite_fwd.cu) and K2's and K5's gradient terms
-// (composite_grad.cuh).
+// (composite_grad.cuh). K4 (shading.cu) takes two of its butterfly steps to
+// sum over a group of 4 lanes.
 //
 // Each lane holds N values (N a power of two, at most 32). Each butterfly
 // step sends half of the values a lane still holds to its partner and adds

@@ -27,49 +27,107 @@
 //     (h x (n x h), v x (n x v)), and masks them, and VoH's, at the lower
 //     clip only: dot products of unit vectors pass 1 only by rounding.
 //     The same quantities, better conditioned.
-// The backward
-// recomputes the forward chain, as the TPU kernel does, and returns the analytic
-// VJP for base colour, roughness, view direction, the local-light SH and the
-// per-sample global light (dgl [P, S, 3]); torch chains dgl into the env map
-// through grid_sample's backward. Normals, visibility, directions and areas are
-// constants of the train step and get no gradient. expf/exp2f, no fast math.
+// The backward recomputes the forward chain, as the TPU kernel does, and
+// returns the analytic VJP for base colour, roughness, view direction, the
+// local-light SH and the per-sample global light (dgl [P, S, 3]); torch chains
+// dgl into the env map through grid_sample's backward. Normals, visibility,
+// directions and areas are constants of the train step and get no gradient.
+// IEEE divides and square roots, exp2f; no fast-math flags and no approximate
+// intrinsics. Where a sample divided by one value more than once (the half
+// vector by its length, f_s and its gradients by the GGX denominator) it
+// takes one IEEE reciprocal and multiplies.
 //
-// Design: one warp per point, 8 points per block. The per-point inputs are read
-// once (the 48 SH coefficients into shared memory, read by broadcast); lanes
-// stride over the samples, keep their sums in registers, and the per-point sums
-// are finished by warp shuffles (6 in the forward: dif and spec; 57 in the
-// backward: dif 3, dshs 48, three GGX scalars, and a 3-vector for v).
-// Per-sample inputs keep the natural [P, S, 3] / [P, S] layouts, so a warp's
-// loads of one sample step are contiguous.
+// What bounds it on the H100. Per (point, sample) the forward reads 32 bytes
+// ([P, S, 3] dirs and global light, [P, S] visibility and area) and issues
+// some 200 instructions (the SH basis and its 48 FMAs, the GGX chain with a
+// square root, two reciprocals and exp2f); the backward also writes 12 bytes
+// of dgl and issues about twice the forward's arithmetic, 48 more FMAs into
+// the SH gradients among it. At the main path's P ~ 101.7k, S = 64 the bytes
+// take 0.070 / 0.100 ms at 3.35 TB/s, the instructions less at the card's
+// issue rate. The first design (one warp per point) took 3.9x (forward) and
+// 9.2x (backward) those bounds in a stage-2 step on an H100 80GB HBM3 at
+// 700 W: every lane repeated the point's set-up for two samples and loaded
+// them with nothing in flight, and the backward finished 57 sums with full
+// 5-step warp butterflies, its epilogue on one lane, while 48 SH
+// accumulators beside the sample state held 186 registers a thread.
+// Now the forward is held by its staging: the same pipeline with the shading
+// taken out runs nearly as long as the whole forward, and neither deeper
+// pipelines (3 and 4 stages), longer runs (32 samples), nor smaller blocks
+// shortened it. The backward is held by the latency of its long
+// per-sample chain at 4 blocks an SM (128 registers, a few spilled): more
+// registers and fewer blocks, or two samples a lane interleaved, ran no
+// faster, and stores of dgl straight from registers ran slower than the
+// staged stores below.
 //
-// What bounds it on the H100: the forward streams 32 bytes per sample
-// ([P, S, 3] dirs and global light, [P, S] visibility and area) for ~150 FP32
-// operations, so it is near the bandwidth/compute balance; the backward also
-// writes 12 bytes of dgl per sample and holds 48 SH-gradient accumulators
-// per lane, so registers bound its occupancy.
+// Design. A 128-thread block owns kPoints = 32 consecutive points, a group of
+// kGroup = 4 lanes each; lane g of a group takes samples g, g + 4, ... (16 a
+// lane at S = 64), so the point's set-up runs on 4 lanes and its sums need
+// 2 butterfly steps. Every per-sample array of the block's points is staged
+// in shared memory kChunk = 16 samples at a time, in kStages = 2 buffers:
+// chunk c + 1's copies (cp.async, cp_async.cuh; 16-byte copies cached in L2
+// only, the data being read once) are in flight while the block computes
+// chunk c. Each point's run of a chunk lands in its row at the 16-byte phase
+// it has in device memory, so the quads of the run are 16-byte copies
+// whatever S or the tensors' storage offsets, and the at most 3 floats at
+// either end are 4-byte copies; nothing is refused and nothing falls back.
+// Rows of 52 and 20 floats put a warp's 8 points on distinct banks; the
+// group's 4 lanes read 4 consecutive samples. The 48 SH coefficients of a
+// point are staged once, in a 16-byte aligned row, and read as 12 broadcast
+// float4 loads a sample. The forward's 6 sums finish in one reduce-scatter
+// over the group (composite_warp.cuh's scatter_step: 6 shuffles), after
+// which lane c < 3 writes channel c. The backward keeps 57 per-lane sums (48
+// SH gradients, 3 diffuse, 6 GGX terms); one reduce-scatter over the group
+// (48 shuffles) leaves lanes 0-2 with 16 SH gradients each, which they store,
+// and lane 3 with the other 9, from which it computes d base colour,
+// d roughness and d view direction. It evaluates the SH basis twice a
+// sample, for the light and again for the SH gradients, so the basis is not
+// live across the GGX chain beside the 57 sums. dgl is written into the
+// chunk's global-light row in shared memory, which the lane has just read,
+// and leaves it a warp a row, 32 consecutive floats a store. Shared memory
+// is 43,520 bytes a block, under the 48 KB of static shared memory, so no
+// attribute is set: 5 blocks an SM by shared memory; the launch bounds ask
+// ptxas for registers that keep 5 (forward) and 4 (backward) blocks resident.
 //
 // Plain C interface (built by nvcc into a shared library, bound with ctypes):
 // r3dg_shade_fwd and r3dg_shade_bwd return the first CUDA error, or 0.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "composite_warp.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;              // points per block, one warp each
-constexpr int kThreads = 32 * kWarps;
-constexpr int kSH = 16;                // degree-3 SH coefficients
-constexpr int kSHC = 3 * kSH;          // [16, 3] per point
+constexpr int kGroup = 4;                    // lanes per point
+constexpr int kPoints = 32;                  // points per block
+constexpr int kThreads = kGroup * kPoints;   // 128
+constexpr int kChunk = 16;                   // samples per point a stage
+constexpr int kStages = 2;                   // chunk buffers
+constexpr int kSH = 16;                      // degree-3 SH coefficients
+constexpr int kSHC = 3 * kSH;                // [16, 3] per point
+// Row lengths in floats: a run plus its phase (up to 3 floats), rounded to
+// 16 bytes, and spread so a warp's 8 points fall on distinct banks.
+constexpr int kRow3 = 3 * kChunk + 4;        // dirs, global light: 52
+constexpr int kRow1 = kChunk + 4;            // visibility, area: 20
+constexpr int kRowSH = kSHC + 4;             // SH coefficients: 52
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float k4Pi = 4.f * kPi;
 constexpr float kFresnel = 0.04f;
 constexpr float kLn2 = 0.69314718055994530942f;
-constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
+struct Stage {
+  float dirs[kPoints * kRow3];
+  float light[kPoints * kRow3];   // global light; K4-bwd writes dgl over it
+  float vis[kPoints * kRow1];
+  float area[kPoints * kRow1];
+};
+
+struct Smem {
+  Stage stage[kStages];
+  float shs[kPoints * kRowSH];
+};
 
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -77,6 +135,106 @@ __device__ __forceinline__ float clip(float x, float lo, float hi) {
 
 __device__ __forceinline__ bool inside(float x, float lo, float hi) {
   return x >= lo && x <= hi;
+}
+
+// The 16-byte phase of a float's address, in floats (0..3).
+__device__ __forceinline__ int phase(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// This thread's share of the copies of n_runs runs of n <= NMAX floats, run r
+// from src + r * stride into row r of dst (ROW floats a row, 16-byte aligned)
+// at the run's phase: quads inside the run as 16-byte copies, the ends as
+// 4-byte copies.
+template <int ROW, int NMAX>
+__device__ __forceinline__ void stage_runs(float* dst, const float* src,
+                                           size_t stride, int n_runs, int n,
+                                           int tid) {
+  constexpr int kQuads = (NMAX + 6) / 4;     // quads a run can touch
+  for (int u = tid; u < n_runs * kQuads; u += kThreads) {
+    const int r = u / kQuads, q = u - r * kQuads;
+    const float* run = src + r * stride;
+    const int ph = phase(run);
+    const int lo = max(4 * q, ph), hi = min(4 * q + 4, ph + n);
+    float* row = dst + r * ROW;
+    if (lo == 4 * q && hi == 4 * q + 4) {
+      r3dg::cp_async_stream16(row + lo, run + (lo - ph));
+    } else {
+      for (int e = lo; e < hi; ++e) r3dg::cp_async<4>(row + e, run + (e - ph));
+    }
+  }
+}
+
+// The block's SH rows: 48 floats a point at phase 0 of its row, 16-byte
+// copies where the source is 16-byte aligned (rows lie 192 bytes apart, so
+// all are or none is).
+__device__ __forceinline__ void stage_shs(float* dst, const float* shs,
+                                          int n_pts, int tid) {
+  const bool aligned = phase(shs) == 0;
+  for (int u = tid; u < n_pts * (kSHC / 4); u += kThreads) {
+    const int r = u / (kSHC / 4), q = u - r * (kSHC / 4);
+    const float* s = shs + static_cast<size_t>(r) * kSHC + 4 * q;
+    float* d = dst + r * kRowSH + 4 * q;
+    if (aligned) {
+      r3dg::cp_async_stream16(d, s);
+    } else {
+      for (int e = 0; e < 4; ++e) r3dg::cp_async<4>(d + e, s + e);
+    }
+  }
+}
+
+// Where one chunk of the block's samples comes from.
+struct Source {
+  const float* dirs;   // [P, S, 3]
+  const float* vis;    // [P, S]
+  const float* area;   // [P, S]
+  const float* gl;     // [P, S, 3]
+  int S;
+};
+
+// Issues the copies of samples [c0, c0 + n) of points [p0, p0 + n_pts).
+__device__ __forceinline__ void stage_chunk(Stage& st, const Source& src,
+                                            int p0, int n_pts, int c0, int n,
+                                            int tid) {
+  const size_t s1 = static_cast<size_t>(p0) * src.S + c0;
+  const size_t S = src.S;
+  stage_runs<kRow3, 3 * kChunk>(st.dirs, src.dirs + 3 * s1, 3 * S, n_pts,
+                                3 * n, tid);
+  stage_runs<kRow3, 3 * kChunk>(st.light, src.gl + 3 * s1, 3 * S, n_pts,
+                                3 * n, tid);
+  stage_runs<kRow1, kChunk>(st.vis, src.vis + s1, S, n_pts, n, tid);
+  stage_runs<kRow1, kChunk>(st.area, src.area + s1, S, n_pts, n, tid);
+}
+
+// Stages chunk ch (if there is one) into its buffer and commits the copies
+// as one group, empty past the last chunk: every thread commits one group a
+// chunk, so waiting for all but the newest kStages - 1 groups waits for
+// chunk ch - kStages + 1.
+__device__ __forceinline__ void stage_ahead(Smem& sm, const Source& src,
+                                            int p0, int n_pts, int ch,
+                                            int tid) {
+  const int c0 = ch * kChunk;
+  if (c0 < src.S)
+    stage_chunk(sm.stage[ch % kStages], src, p0, n_pts, c0,
+                min(kChunk, src.S - c0), tid);
+  r3dg::cp_async_commit();
+}
+
+// One point's rows in a stage, at the phases its runs landed at.
+struct Rows {
+  const float* dirs;
+  float* light;                   // K4-bwd writes dgl here
+  const float* vis;
+  const float* area;
+};
+
+__device__ __forceinline__ Rows point_rows(Stage& st, const Source& src,
+                                           int p, int pt, int c0) {
+  const size_t s1 = static_cast<size_t>(p) * src.S + c0;
+  return {st.dirs + pt * kRow3 + phase(src.dirs + 3 * s1),
+          st.light + pt * kRow3 + phase(src.gl + 3 * s1),
+          st.vis + pt * kRow1 + phase(src.vis + s1),
+          st.area + pt * kRow1 + phase(src.area + s1)};
 }
 
 // Degree-3 real SH basis, in utils/sh.py order and sign convention.
@@ -101,10 +259,27 @@ __device__ __forceinline__ void sh_basis(float x, float y, float z, float* b) {
   b[15] = -0.5900435899266435f * x * (xx - 3.f * yy);
 }
 
+// e_c = sum_k basis_k shs[k, c] from a 16-byte aligned SH row (12 float4s).
+__device__ __forceinline__ void sh_light(const float* basis,
+                                         const float* shs_row, float* e) {
+  const float4* row = reinterpret_cast<const float4*>(shs_row);
+  e[0] = e[1] = e[2] = 0.f;
+#pragma unroll
+  for (int q = 0; q < kSHC / 4; ++q) {
+    const float4 v = row[q];
+    const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * q + i;             // coefficient j / 3, channel j % 3
+      e[j % 3] += basis[j / 3] * w[i];
+    }
+  }
+}
+
 // Per-point quantities shared by every sample.
 struct Point {
   float nx, ny, nz;                 // normal as given (transport)
-  float vdx, vdy, vdz, m_v, M_v;    // view direction and its length
+  float m_v, M_v;                   // length of the view direction
   float vx, vy, vz;                 // unit view direction
   float nsx, nsy, nsz;              // unit normal flipped towards v
   float r, alpha, alpha2, k;
@@ -117,10 +292,10 @@ __device__ __forceinline__ Point load_point(const float* __restrict__ nrm,
                                             int p) {
   Point q;
   q.nx = nrm[3 * p]; q.ny = nrm[3 * p + 1]; q.nz = nrm[3 * p + 2];
-  q.vdx = vdir[3 * p]; q.vdy = vdir[3 * p + 1]; q.vdz = vdir[3 * p + 2];
-  q.m_v = sqrtf(q.vdx * q.vdx + q.vdy * q.vdy + q.vdz * q.vdz);
+  const float vdx = vdir[3 * p], vdy = vdir[3 * p + 1], vdz = vdir[3 * p + 2];
+  q.m_v = sqrtf(vdx * vdx + vdy * vdy + vdz * vdz);
   q.M_v = fmaxf(q.m_v, 1e-12f);
-  q.vx = q.vdx / q.M_v; q.vy = q.vdy / q.M_v; q.vz = q.vdz / q.M_v;
+  q.vx = vdx / q.M_v; q.vy = vdy / q.M_v; q.vz = vdz / q.M_v;
   const float M_n = fmaxf(sqrtf(q.nx * q.nx + q.ny * q.ny + q.nz * q.nz), 1e-12f);
   const float nhx = q.nx / M_n, nhy = q.ny / M_n, nhz = q.nz / M_n;
   const float s = q.vx * nhx + q.vy * nhy + q.vz * nhz;
@@ -136,34 +311,27 @@ __device__ __forceinline__ Point load_point(const float* __restrict__ nrm,
   return q;
 }
 
-// One sample's forward chain (_chain), with what the backward reads.
-struct Sample {
-  float dx, dy, dz;
-  float h0x, h0y, h0z, m_h, M_h, hx, hy, hz;
-  float NoL_raw, NoH_raw, VoH_raw, NoL, NoH, VoH;
+// One sample's GGX chain (_chain), with what the backward reads.
+struct Ggx {
+  float hx, hy, hz, m_h, rM_h;       // unit half vector, |h0|, 1 / max(|h0|, eps)
+  float NoH_raw, VoH_raw, NoL, NoH, VoH;
   float cx, cy, cz;                  // ns x h, zero below the NoH clip
-  float e2, frac0, u, nom0, nom2, q, nom, f_s;
-  float an, vis;
-  float e[3], trans[3];
-  float basis[kSH];
+  float e2, frac0, u, nom0, nom2, q, r_nom, f_s;
 };
 
-__device__ __forceinline__ void sample_forward(
-    const Point& pt, const float* __restrict__ dirs,
-    const float* __restrict__ vis, const float* __restrict__ area,
-    const float* __restrict__ gl, const float* shs, size_t ps, Sample& s) {
-  s.dx = dirs[3 * ps]; s.dy = dirs[3 * ps + 1]; s.dz = dirs[3 * ps + 2];
-  s.vis = vis[ps];
-  s.h0x = (s.dx + pt.vx) * 0.5f;
-  s.h0y = (s.dy + pt.vy) * 0.5f;
-  s.h0z = (s.dz + pt.vz) * 0.5f;
-  s.m_h = sqrtf(s.h0x * s.h0x + s.h0y * s.h0y + s.h0z * s.h0z);
-  s.M_h = fmaxf(s.m_h, 1e-12f);
-  s.hx = s.h0x / s.M_h; s.hy = s.h0y / s.M_h; s.hz = s.h0z / s.M_h;
-  s.NoL_raw = pt.nsx * s.dx + pt.nsy * s.dy + pt.nsz * s.dz;
+__device__ __forceinline__ Ggx ggx(const Point& pt, float dx, float dy,
+                                   float dz) {
+  Ggx s;
+  const float h0x = (dx + pt.vx) * 0.5f;
+  const float h0y = (dy + pt.vy) * 0.5f;
+  const float h0z = (dz + pt.vz) * 0.5f;
+  s.m_h = sqrtf(h0x * h0x + h0y * h0y + h0z * h0z);
+  s.rM_h = 1.f / fmaxf(s.m_h, 1e-12f);
+  s.hx = h0x * s.rM_h; s.hy = h0y * s.rM_h; s.hz = h0z * s.rM_h;
+  const float NoL_raw = pt.nsx * dx + pt.nsy * dy + pt.nsz * dz;
   s.NoH_raw = pt.nsx * s.hx + pt.nsy * s.hy + pt.nsz * s.hz;
   s.VoH_raw = pt.vx * s.hx + pt.vy * s.hy + pt.vz * s.hz;
-  s.NoL = clip(s.NoL_raw, 1e-6f, 1.f);
+  s.NoL = clip(NoL_raw, 1e-6f, 1.f);
   s.NoH = clip(s.NoH_raw, 1e-6f, 1.f);
   s.VoH = clip(s.VoH_raw, 1e-6f, 1.f);
   const float FMi = (-5.55473f * s.VoH - 6.98316f) * s.VoH;
@@ -186,29 +354,24 @@ __device__ __forceinline__ void sample_forward(
   s.nom0 = sin2 + s.NoH * s.NoH * pt.alpha2;
   s.nom2 = s.NoL * (1.f - pt.k) + pt.k;
   s.q = k4Pi * s.nom0 * s.nom0 * pt.nom1 * s.nom2;
-  s.nom = clip(s.q, 1e-6f, k4Pi);
-  s.f_s = s.u / s.nom;
-
-  sh_basis(s.dx, s.dy, s.dz, s.basis);
-  const float ndi = fmaxf(pt.nx * s.dx + pt.ny * s.dy + pt.nz * s.dz, 0.f);
-  s.an = area[ps] * ndi;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float acc = s.basis[0] * shs[c];
-#pragma unroll
-    for (int k = 1; k < kSH; ++k) acc += s.basis[k] * shs[3 * k + c];
-    s.e[c] = acc;
-    s.trans[c] = (fmaxf(acc, 0.f) + gl[3 * ps + c] * s.vis) * s.an;
-  }
+  s.r_nom = 1.f / clip(s.q, 1e-6f, k4Pi);
+  s.f_s = s.u * s.r_nom;
+  return s;
 }
 
-__device__ __forceinline__ void load_shs(const float* __restrict__ shs, int p,
-                                         int lane, float* s_shs) {
-  for (int i = lane; i < kSHC; i += 32) s_shs[i] = shs[static_cast<size_t>(p) * kSHC + i];
-  __syncwarp();
+// One sample's local light e_c (before the clip) and transport factor
+// an = area max(n . d, 0).
+__device__ __forceinline__ void light_terms(const Point& pt, float dx,
+                                            float dy, float dz, float area,
+                                            const float* shs_row, float* e,
+                                            float& an) {
+  float basis[kSH];
+  sh_basis(dx, dy, dz, basis);
+  sh_light(basis, shs_row, e);
+  an = area * fmaxf(pt.nx * dx + pt.ny * dy + pt.nz * dz, 0.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 5)
 shade_fwd_kernel(const float* __restrict__ dirs,   // [P, S, 3]
                  const float* __restrict__ vis,    // [P, S]
                  const float* __restrict__ area,   // [P, S]
@@ -222,37 +385,71 @@ shade_fwd_kernel(const float* __restrict__ dirs,   // [P, S, 3]
                  float* __restrict__ pbr,          // [P, 3]
                  float* __restrict__ dif,          // [P, 3]
                  float* __restrict__ spec) {       // [P, 3]
-  __shared__ float s_shs[kWarps][kSHC];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + warp;
-  if (p >= P) return;  // whole warps only
-  load_shs(shs, p, lane, s_shs[warp]);
-  const Point pt = load_point(nrm, vdir, rough, p);
+  __shared__ __align__(16) Smem sm;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int pt = tid / kGroup, g = tid % kGroup;
+  const int p0 = blockIdx.x * kPoints;
+  const int n_pts = min(kPoints, P - p0);
+  const int p = p0 + pt;
+  const bool active = pt < n_pts;
+  const Source src{dirs, vis, area, gl, S};
+  const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  float a_dif[3] = {0.f, 0.f, 0.f}, a_spec[3] = {0.f, 0.f, 0.f};
-  for (int j = lane; j < S; j += 32) {
-    Sample s;
-    sample_forward(pt, dirs, vis, area, gl, s_shs[warp],
-                   static_cast<size_t>(p) * S + j, s);
+  stage_shs(sm.shs, shs + static_cast<size_t>(p0) * kSHC, n_pts, tid);
+  for (int ch = 0; ch < kStages - 1; ++ch)
+    stage_ahead(sm, src, p0, n_pts, ch, tid);
+  Point ptc;
+  if (active) ptc = load_point(nrm, vdir, rough, p);
+  const float* shs_row = sm.shs + pt * kRowSH;
+
+  // {dif_0, spec_0, dif_1, spec_1, dif_2, spec_2, -, -}: after the group's
+  // reduce-scatter lane c holds channel c's pair.
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * kChunk, n = min(kChunk, S - c0);
+    stage_ahead(sm, src, p0, n_pts, ch + kStages - 1, tid);
+    r3dg::cp_async_wait<kStages - 1>();   // this thread's chunk ch has landed
+    __syncthreads();
+    if (active) {
+      const Rows rows = point_rows(sm.stage[ch % kStages], src, p, pt, c0);
+      for (int j = g; j < n; j += kGroup) {
+        const float dx = rows.dirs[3 * j], dy = rows.dirs[3 * j + 1],
+                    dz = rows.dirs[3 * j + 2];
+        const float v = rows.vis[j];
+        const Ggx s = ggx(ptc, dx, dy, dz);
+        float e[3], an;
+        light_terms(ptc, dx, dy, dz, rows.area[j], shs_row, e, an);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      a_dif[c] += s.trans[c];
-      a_spec[c] += s.f_s * s.trans[c];
+        for (int c = 0; c < 3; ++c) {
+          const float trans = (fmaxf(e[c], 0.f) + rows.light[3 * j + c] * v) * an;
+          acc[2 * c] += trans;
+          acc[2 * c + 1] += s.f_s * trans;
+        }
+      }
     }
+    __syncthreads();            // the next stage overwrites this buffer
   }
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float d = warp_sum(a_dif[c]) / S;
-    const float sp = warp_sum(a_spec[c]) / S;
-    if (lane == c) {
-      dif[3 * p + c] = d;
-      spec[3 * p + c] = sp;
-      pbr[3 * p + c] = bc[3 * p + c] / kPi * d + sp;
-    }
+  r3dg::scatter_step<4, 2>(acc, lane);
+  r3dg::scatter_step<2, 1>(acc, lane);
+  if (active && g < 3) {
+    const float d = acc[0] / S, sp = acc[1] / S;
+    dif[3 * p + g] = d;
+    spec[3 * p + g] = sp;
+    pbr[3 * p + g] = bc[3 * p + g] / kPi * d + sp;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Slots of the backward's per-lane sums: the 48 SH gradients first, so the
+// group's reduce-scatter leaves lane g < 3 with SH gradients [16 g, 16 g + 16)
+// and lane 3 with the rest.
+constexpr int kDif = kSHC;          // 3: sum of trans_c
+constexpr int kGAlpha2 = kDif + 3;  // d alpha2
+constexpr int kGNom1 = kGAlpha2 + 1;
+constexpr int kGK2 = kGNom1 + 1;    // d k through nom2
+constexpr int kGV = kGK2 + 1;       // 3: d v-hat through VoH and h
+constexpr int kSums = 64;           // 57 used
+
+__global__ void __launch_bounds__(kThreads, 4)
 shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
                  const float* __restrict__ area, const float* __restrict__ gl,
                  const float* __restrict__ bc, const float* __restrict__ rough,
@@ -267,128 +464,160 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
                  float* __restrict__ dvdir,        // [P, 3]
                  float* __restrict__ dshs,         // [P, 48]
                  float* __restrict__ dgl) {        // [P, S, 3]
-  __shared__ float s_shs[kWarps][kSHC];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + warp;
-  if (p >= P) return;
-  load_shs(shs, p, lane, s_shs[warp]);
-  const Point pt = load_point(nrm, vdir, rough, p);
-  const float inv_s = 1.f / S;
-  float gD[3], gS[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float gpc = gpbr[3 * p + c];
-    gD[c] = gdif[3 * p + c] + gpc * bc[3 * p + c] / kPi;
-    gS[c] = gspec[3 * p + c] + gpc;
-  }
+  __shared__ __align__(16) Smem sm;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int pt = tid / kGroup, g = tid % kGroup;
+  const int p0 = blockIdx.x * kPoints;
+  const int n_pts = min(kPoints, P - p0);
+  const int p = p0 + pt;
+  const bool active = pt < n_pts;
+  const Source src{dirs, vis, area, gl, S};
+  const int n_chunks = (S + kChunk - 1) / kChunk;
 
-  float a_dif[3] = {0.f, 0.f, 0.f};
-  float a_shs[kSHC];
-#pragma unroll
-  for (int i = 0; i < kSHC; ++i) a_shs[i] = 0.f;
-  float a_galpha2 = 0.f, a_gnom1 = 0.f, a_gk2 = 0.f;
-  float a_gvx = 0.f, a_gvy = 0.f, a_gvz = 0.f;
-
-  for (int j = lane; j < S; j += 32) {
-    const size_t ps = static_cast<size_t>(p) * S + j;
-    Sample s;
-    sample_forward(pt, dirs, vis, area, gl, s_shs[warp], ps, s);
-    float gf = 0.f, ge[3];
+  stage_shs(sm.shs, shs + static_cast<size_t>(p0) * kSHC, n_pts, tid);
+  for (int ch = 0; ch < kStages - 1; ++ch)
+    stage_ahead(sm, src, p0, n_pts, ch, tid);
+  Point ptc;
+  float gD[3], gS[3];           // d trans_c, d (f_s trans_c), over S
+  if (active) {
+    ptc = load_point(nrm, vdir, rough, p);
+    const float inv_s = 1.f / S;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      a_dif[c] += s.trans[c];
-      const float gtrans = (gD[c] + gS[c] * s.f_s) * inv_s;
-      gf += gS[c] * s.trans[c] * inv_s;
-      const float glight = gtrans * s.an;
-      dgl[3 * ps + c] = glight * s.vis;
-      // max(e, 0) passes half the gradient at e == 0, as jnp.maximum and
-      // torch.maximum do: the local-light SH start at zero in stage 2.
-      ge[c] = s.e[c] > 0.f ? glight : (s.e[c] == 0.f ? 0.5f * glight : 0.f);
+      const float gpc = gpbr[3 * p + c];
+      gD[c] = (gdif[3 * p + c] + gpc * bc[3 * p + c] / kPi) * inv_s;
+      gS[c] = (gspec[3 * p + c] + gpc) * inv_s;
     }
-#pragma unroll
-    for (int k = 0; k < kSH; ++k) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) a_shs[3 * k + c] += s.basis[k] * ge[c];
-    }
+  }
+  const float* shs_row = sm.shs + pt * kRowSH;
 
-    // GGX backward
-    const float gu = gf / s.nom;
-    const float gq = inside(s.q, 1e-6f, k4Pi) ? -gf * s.u / (s.nom * s.nom) : 0.f;
-    const float gfrac0 = gu * pt.alpha2;
-    a_galpha2 += gu * s.frac0;
-    // NoH, VoH and NoV are dot products of unit vectors: they pass 1 only
-    // by rounding, so only the lower clip masks their gradients.
-    const float gVoH = s.VoH_raw >= 1e-6f
-        ? gfrac0 * (1.f - kFresnel) * kLn2 * s.e2 * (-2.f * 5.55473f * s.VoH - 6.98316f)
-        : 0.f;
-    const float gnom0 = gq * k4Pi * 2.f * s.nom0 * pt.nom1 * s.nom2;
-    a_gnom1 += gq * k4Pi * s.nom0 * s.nom0 * s.nom2;
-    const float gnom2 = gq * k4Pi * s.nom0 * s.nom0 * pt.nom1;
-    a_galpha2 += gnom0 * s.NoH * s.NoH;
-    const float gNoH = s.NoH_raw >= 1e-6f
-        ? gnom0 * 2.f * s.NoH * (pt.alpha2 - 1.f) : 0.f;
-    a_gk2 += gnom2 * (1.f - s.NoL);
-    a_gvx += gVoH * s.hx;
-    a_gvy += gVoH * s.hy;
-    a_gvz += gVoH * s.hz;
+  float acc[kSums];
+#pragma unroll
+  for (int i = 0; i < kSums; ++i) acc[i] = 0.f;
 
-    // H = h0 / max(|h0|, eps), h0 = (d + v) / 2: gh0 = (gH - (gH.h) h) / |h0|
-    // for gH = gNoH ns + gVoH v. Near the peak ns - NoH h cancels, so it is
-    // taken as h x (ns x h). Below |h0| = 1e-12, gh0 = gH / 1e-12.
-    float ghx, ghy, ghz;
-    if (s.m_h > 1e-12f) {
-      ghx = gNoH * (s.hy * s.cz - s.hz * s.cy) + gVoH * (pt.vx - s.VoH_raw * s.hx);
-      ghy = gNoH * (s.hz * s.cx - s.hx * s.cz) + gVoH * (pt.vy - s.VoH_raw * s.hy);
-      ghz = gNoH * (s.hx * s.cy - s.hy * s.cx) + gVoH * (pt.vz - s.VoH_raw * s.hz);
-    } else {
-      ghx = gNoH * pt.nsx + gVoH * pt.vx;
-      ghy = gNoH * pt.nsy + gVoH * pt.vy;
-      ghz = gNoH * pt.nsz + gVoH * pt.vz;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * kChunk, n = min(kChunk, S - c0);
+    Stage& st = sm.stage[ch % kStages];
+    stage_ahead(sm, src, p0, n_pts, ch + kStages - 1, tid);
+    r3dg::cp_async_wait<kStages - 1>();   // this thread's chunk ch has landed
+    __syncthreads();
+    if (active) {
+      const Rows rows = point_rows(st, src, p, pt, c0);
+      for (int j = g; j < n; j += kGroup) {
+        const float dx = rows.dirs[3 * j], dy = rows.dirs[3 * j + 1],
+                    dz = rows.dirs[3 * j + 2];
+        const float v = rows.vis[j];
+        float e[3], an;
+        light_terms(ptc, dx, dy, dz, rows.area[j], shs_row, e, an);
+        const Ggx s = ggx(ptc, dx, dy, dz);
+        float gf = 0.f, ge[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float trans = (fmaxf(e[c], 0.f) + rows.light[3 * j + c] * v) * an;
+          acc[kDif + c] += trans;
+          const float gtrans = gD[c] + gS[c] * s.f_s;
+          gf += gS[c] * trans;
+          const float glight = gtrans * an;
+          rows.light[3 * j + c] = glight * v;      // dgl, over the light read
+          // max(e, 0) passes half the gradient at e == 0, as jnp.maximum and
+          // torch.maximum do: the local-light SH start at zero in stage 2.
+          ge[c] = e[c] > 0.f ? glight : (e[c] == 0.f ? 0.5f * glight : 0.f);
+        }
+
+        // GGX backward
+        const float gu = gf * s.r_nom;
+        const float gq = inside(s.q, 1e-6f, k4Pi) ? -gf * s.f_s * s.r_nom : 0.f;
+        const float gfrac0 = gu * ptc.alpha2;
+        acc[kGAlpha2] += gu * s.frac0;
+        // NoH, VoH and NoV are dot products of unit vectors: they pass 1 only
+        // by rounding, so only the lower clip masks their gradients.
+        const float gVoH = s.VoH_raw >= 1e-6f
+            ? gfrac0 * (1.f - kFresnel) * kLn2 * s.e2 * (-2.f * 5.55473f * s.VoH - 6.98316f)
+            : 0.f;
+        const float gnom0 = gq * k4Pi * 2.f * s.nom0 * ptc.nom1 * s.nom2;
+        acc[kGNom1] += gq * k4Pi * s.nom0 * s.nom0 * s.nom2;
+        const float gnom2 = gq * k4Pi * s.nom0 * s.nom0 * ptc.nom1;
+        acc[kGAlpha2] += gnom0 * s.NoH * s.NoH;
+        const float gNoH = s.NoH_raw >= 1e-6f
+            ? gnom0 * 2.f * s.NoH * (ptc.alpha2 - 1.f) : 0.f;
+        acc[kGK2] += gnom2 * (1.f - s.NoL);
+        // H = h0 / max(|h0|, eps), h0 = (d + v) / 2: gh0 = (gH - (gH.h) h) / |h0|
+        // for gH = gNoH ns + gVoH v. Near the peak ns - NoH h cancels, so it is
+        // taken as h x (ns x h). Below |h0| = 1e-12, gh0 = gH / 1e-12.
+        float ghx, ghy, ghz;
+        if (s.m_h > 1e-12f) {
+          ghx = gNoH * (s.hy * s.cz - s.hz * s.cy) + gVoH * (ptc.vx - s.VoH_raw * s.hx);
+          ghy = gNoH * (s.hz * s.cx - s.hx * s.cz) + gVoH * (ptc.vy - s.VoH_raw * s.hy);
+          ghz = gNoH * (s.hx * s.cy - s.hy * s.cx) + gVoH * (ptc.vz - s.VoH_raw * s.hz);
+        } else {
+          ghx = gNoH * ptc.nsx + gVoH * ptc.vx;
+          ghy = gNoH * ptc.nsy + gVoH * ptc.vy;
+          ghz = gNoH * ptc.nsz + gVoH * ptc.vz;
+        }
+        acc[kGV] += gVoH * s.hx + 0.5f * ghx * s.rM_h;
+        acc[kGV + 1] += gVoH * s.hy + 0.5f * ghy * s.rM_h;
+        acc[kGV + 2] += gVoH * s.hz + 0.5f * ghz * s.rM_h;
+
+        // SH gradients, from the basis evaluated again
+        float basis[kSH];
+        sh_basis(dx, dy, dz, basis);
+#pragma unroll
+        for (int k = 0; k < kSH; ++k) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) acc[3 * k + c] += basis[k] * ge[c];
+        }
+      }
     }
-    a_gvx += 0.5f * ghx / s.M_h;
-    a_gvy += 0.5f * ghy / s.M_h;
-    a_gvz += 0.5f * ghz / s.M_h;
+    __syncthreads();            // this chunk's dgl is in shared memory
+    for (int r = tid / 32; r < n_pts; r += kThreads / 32) {   // a warp a row
+      const size_t at = 3 * (static_cast<size_t>(p0 + r) * S + c0);
+      const float* row = st.light + r * kRow3 + phase(gl + at);
+      for (int i = lane; i < 3 * n; i += 32) dgl[at + i] = row[i];
+    }
+    __syncthreads();            // the next stage overwrites this buffer
   }
 
+  r3dg::scatter_step<kSums / 2, 2>(acc, lane);
+  r3dg::scatter_step<kSums / 4, 1>(acc, lane);
+  if (!active) return;
+  if (g < 3) {                  // SH gradients [16 g, 16 g + 16)
+    float* out = dshs + static_cast<size_t>(p) * kSHC + 16 * g;
 #pragma unroll
-  for (int i = 0; i < kSHC; ++i) {
-    const float v = warp_sum(a_shs[i]);
-    if (lane == (i & 31)) dshs[static_cast<size_t>(p) * kSHC + i] = v;
+    for (int i = 0; i < 16; ++i) out[i] = acc[i];
+    return;
   }
-  const float galpha2 = warp_sum(a_galpha2);
-  const float gnom1 = warp_sum(a_gnom1);
-  const float gk = gnom1 * (1.f - pt.NoV) + warp_sum(a_gk2);
-  float gvhx = warp_sum(a_gvx), gvhy = warp_sum(a_gvy), gvhz = warp_sum(a_gvz);
-  float difc[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) difc[c] = warp_sum(a_dif[c]) / S;
-  if (lane != 0) return;
-
-  const float gNoV = pt.NoV_raw >= 1e-6f ? gnom1 * (1.f - pt.k) : 0.f;
-  const float galpha = galpha2 * 2.f * pt.alpha + gk * (1.f / 8.f);
-  drough[p] = galpha * 2.f * pt.r + gk * 0.25f;
+  // lane 3: acc[i] is the group's sum of slot kDif + i
+  const float galpha2 = acc[kGAlpha2 - kDif];
+  const float gnom1 = acc[kGNom1 - kDif];
+  const float gk = gnom1 * (1.f - ptc.NoV) + acc[kGK2 - kDif];
+  const float gvhx = acc[kGV - kDif], gvhy = acc[kGV + 1 - kDif],
+              gvhz = acc[kGV + 2 - kDif];
+  const float gNoV = ptc.NoV_raw >= 1e-6f ? gnom1 * (1.f - ptc.k) : 0.f;
+  const float galpha = galpha2 * 2.f * ptc.alpha + gk * (1.f / 8.f);
+  drough[p] = galpha * 2.f * ptc.r + gk * 0.25f;
   // V-hat = vdir / max(|vdir|, eps): dvdir = (gvh - (gvh.v) v) / |vdir| for
   // gvh = gNoV ns + (the sums above). Viewed head-on, ns - NoV v cancels, so
   // it is taken as v x (ns x v). Below |vdir| = 1e-12, dvdir = gvh / 1e-12.
   float dvx, dvy, dvz;
-  if (pt.m_v > 1e-12f) {
-    const float ex = pt.nsy * pt.vz - pt.nsz * pt.vy;
-    const float ey = pt.nsz * pt.vx - pt.nsx * pt.vz;
-    const float ez = pt.nsx * pt.vy - pt.nsy * pt.vx;
-    const float rv = gvhx * pt.vx + gvhy * pt.vy + gvhz * pt.vz;
-    dvx = gNoV * (pt.vy * ez - pt.vz * ey) + gvhx - rv * pt.vx;
-    dvy = gNoV * (pt.vz * ex - pt.vx * ez) + gvhy - rv * pt.vy;
-    dvz = gNoV * (pt.vx * ey - pt.vy * ex) + gvhz - rv * pt.vz;
+  if (ptc.m_v > 1e-12f) {
+    const float ex = ptc.nsy * ptc.vz - ptc.nsz * ptc.vy;
+    const float ey = ptc.nsz * ptc.vx - ptc.nsx * ptc.vz;
+    const float ez = ptc.nsx * ptc.vy - ptc.nsy * ptc.vx;
+    const float rv = gvhx * ptc.vx + gvhy * ptc.vy + gvhz * ptc.vz;
+    dvx = gNoV * (ptc.vy * ez - ptc.vz * ey) + gvhx - rv * ptc.vx;
+    dvy = gNoV * (ptc.vz * ex - ptc.vx * ez) + gvhy - rv * ptc.vy;
+    dvz = gNoV * (ptc.vx * ey - ptc.vy * ex) + gvhz - rv * ptc.vz;
   } else {
-    dvx = gvhx + gNoV * pt.nsx;
-    dvy = gvhy + gNoV * pt.nsy;
-    dvz = gvhz + gNoV * pt.nsz;
+    dvx = gvhx + gNoV * ptc.nsx;
+    dvy = gvhy + gNoV * ptc.nsy;
+    dvz = gvhz + gNoV * ptc.nsz;
   }
-  dvdir[3 * p] = dvx / pt.M_v;
-  dvdir[3 * p + 1] = dvy / pt.M_v;
-  dvdir[3 * p + 2] = dvz / pt.M_v;
+  dvdir[3 * p] = dvx / ptc.M_v;
+  dvdir[3 * p + 1] = dvy / ptc.M_v;
+  dvdir[3 * p + 2] = dvz / ptc.M_v;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) dbc[3 * p + c] = gpbr[3 * p + c] * difc[c] / kPi;
+  for (int c = 0; c < 3; ++c)
+    dbc[3 * p + c] = gpbr[3 * p + c] * (acc[c] / S) / kPi;
 }
 
 }  // namespace
@@ -400,7 +629,7 @@ extern "C" int r3dg_shade_fwd(const void* dirs, const void* vis,
                               void* pbr, void* dif, void* spec, void* stream) {
   if (P <= 0) return 0;
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (P + kWarps - 1) / kWarps;
+  const int blocks = (P + kPoints - 1) / kPoints;
   shade_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dirs), static_cast<const float*>(vis),
       static_cast<const float*>(area), static_cast<const float*>(gl),
@@ -421,7 +650,7 @@ extern "C" int r3dg_shade_bwd(const void* dirs, const void* vis,
                               void* stream) {
   if (P <= 0) return 0;
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (P + kWarps - 1) / kWarps;
+  const int blocks = (P + kPoints - 1) / kPoints;
   shade_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dirs), static_cast<const float*>(vis),
       static_cast<const float*>(area), static_cast<const float*>(gl),

@@ -7,15 +7,19 @@ loaded with ctypes. The port is meant to run from a checkout (or an editable
 install), where that is the checkout's git-ignored `build/`. The library name
 carries a hash of the source and of the headers beside it (`csrc/*.cuh`), so
 an edited source or header is rebuilt and a stale library is never loaded.
-A failed build raises; nothing here falls back.
+A failed build raises; nothing here falls back. `ptxas_report` compiles a
+source once more with `-Xptxas -v` for its kernels' registers, spills and
+shared memory.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -58,3 +62,42 @@ def load_library(name: str) -> ctypes.CDLL:
         os.replace(tmp, lib_path)
     _LOADED[name] = ctypes.CDLL(str(lib_path))
     return _LOADED[name]
+
+
+def ptxas_report(src: str | Path) -> dict[str, str]:
+    """{kernel: ptxas's registers, shared memory and spills} for the kernels
+    of one source, compiled with the build's flags and `-Xptxas -v` into a
+    throwaway object (the library is not touched)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        proc = subprocess.run([_nvcc(), *flags, "-Xptxas", "-v", "-c", "-o",
+                               os.path.join(tmp, "k.o"), str(src)],
+                              capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    report, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        entry = re.search(r"(?:entry function|Function properties for) '?([^' ]+)",
+                          line)
+        if entry:
+            name = _unqualified(entry.group(1))
+        elif name and ("Used" in line or "spill" in line):
+            fact = line.split(":", 1)[-1].strip()
+            report[name] = f"{report[name]}; {fact}" if name in report else fact
+    return report
+
+
+def _unqualified(mangled: str) -> str:
+    """The last name of a mangled nested name (_ZN <len><name>... E), e.g.
+    shade_fwd_kernel for a kernel in an anonymous namespace; other names as
+    they are."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, last = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        last, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    return last

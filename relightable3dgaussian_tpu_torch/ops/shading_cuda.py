@@ -26,6 +26,7 @@ from .shading import rendering_equation
 
 KERNEL = "shading"
 N_SH = 16          # csrc/shading.cu kSH: degree-3 local-light SH
+POINTS_PER_BLOCK = 32   # csrc/shading.cu kPoints: a block's run of points
 LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
 
@@ -76,9 +77,10 @@ class ShadeFunction(torch.autograd.Function):
         grads = shade_bwd(*ctx.saved_tensors, g_pbr.contiguous(),
                           g_dif.contiguous(), g_spec.contiguous())
         dbc, drough, dvdir, dshs, dgl = grads
-        d_incidents = torch.zeros(ctx.shs_shape, dtype=dshs.dtype,
-                                  device=dshs.device)
-        d_incidents[:, :N_SH] = dshs.view(-1, N_SH, 3)
+        d_incidents = dshs.view(-1, N_SH, 3)
+        if ctx.shs_shape[1] > N_SH:          # K4 reads the first 16 only
+            d_incidents = torch.cat((d_incidents, d_incidents.new_zeros(
+                (ctx.shs_shape[0], ctx.shs_shape[1] - N_SH, 3))), 1)
         return (dbc, drough[:, None], None, dvdir, d_incidents, dgl, None,
                 None, None)
 
@@ -136,9 +138,11 @@ def shade_fwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs):
     device = vis.device
     _check("K4-fwd", _expect(*inputs), device)
     P, S = vis.shape
-    lib = _library("r3dg_shade_fwd", 9, 3)
     outs = [torch.empty((P, 3), dtype=torch.float32, device=device)
             for _ in range(3)]
+    if P == 0:
+        return tuple(outs)             # no point, no launch
+    lib = _library("r3dg_shade_fwd", 9, 3)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.r3dg_shade_fwd(*(t.data_ptr() for t in inputs), P, S,
@@ -162,9 +166,11 @@ def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
     expect.update({"g_pbr": (g_pbr, (P, 3)), "g_diffuse": (g_dif, (P, 3)),
                    "g_specular": (g_spec, (P, 3))})
     _check("K4-bwd", expect, device)
-    lib = _library("r3dg_shade_bwd", 12, 5)
     shapes = ((P, 3), (P,), (P, 3), (P, 3 * N_SH), (P, S, 3))
     outs = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
+    if P == 0:
+        return tuple(outs)             # no point, no launch
+    lib = _library("r3dg_shade_bwd", 12, 5)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.r3dg_shade_bwd(*(t.data_ptr() for t in inputs),

@@ -574,7 +574,7 @@ def shading_inputs(P: int, S: int, seed: int, device, rough: float | None = None
     normals = f(unit(P))
     dirs, areas = fibonacci_sphere_sampling(normals, S)
     roughness = rng.uniform(0.05, 0.95, (P, 1))
-    roughness[-2:, 0] = (0.09, 0.99)
+    roughness[-2:, 0] = (0.09, 0.99)[2 - min(P, 2):]
     if rough is not None:
         roughness[:] = rough
     vis = rng.uniform(size=(P, S, 1)) * (not dark)
@@ -665,6 +665,81 @@ def test_k4_matches_plain(cuda, case):
         assert_k4_close(name, g, p, e, bwd_err, 1e-4)
     if zero_shs:
         assert float(dshs.abs().max()) > 0.01
+
+
+def check_k4_launch(x: tuple, inputs: tuple, seed: int) -> None:
+    """K4-fwd and K4-bwd on `inputs` (x in the kernel's layout, wherever in
+    memory) against the plain version of x and it in float64 (K4_SLACK)."""
+    P = x[0].shape[0]
+    x64 = [t.double() for t in x]
+    got = shading_cuda.shade_fwd(*inputs)
+    gen = torch.Generator().manual_seed(seed)
+    cot = [torch.randn((P, 3), generator=gen).to(x[0].device) for _ in range(3)]
+    dbc, drough, dvdir, dshs, dgl = shading_cuda.shade_bwd(*inputs, *cot)
+    torch.cuda.synchronize()
+    for name, g, p, e in zip(
+            ("pbr", "diffuse", "specular"), got,
+            shading_cuda.rendering_equation_train_reference(*x),
+            shading_cuda.rendering_equation_train_reference(*x64)):
+        assert_k4_close(name, g, p, e, fwd_err, 1.0)
+    for name, g, p, e in zip(
+            ("base_color", "roughness", "viewdirs", "shs", "gl"),
+            (dbc, drough[:, None], dvdir, dshs.view(-1, 16, 3), dgl),
+            plain_shading_grads(x, cot),
+            plain_shading_grads(x64, [c.double() for c in cot])):
+        assert bool(torch.isfinite(g).all()), name
+        assert_k4_close(name, g, p, e, bwd_err, 1e-4)
+
+
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 128])
+@pytest.mark.parametrize("P", [1, shading_cuda.POINTS_PER_BLOCK - 1,
+                               shading_cuda.POINTS_PER_BLOCK + 1,
+                               2 * shading_cuda.POINTS_PER_BLOCK + 1])
+def test_k4_edge_shapes(cuda, P, S):
+    """K4 where its design has edges: a block's run of points cut short
+    (P around multiples of a block's 32 points) and sample counts that are
+    not a whole number of 16-sample chunks, or whose rows are not 16-byte
+    multiples."""
+    x = shading_inputs(P, S, 20 + S, cuda)
+    check_k4_launch(x, shading_cuda.kernel_inputs(*x), S)
+
+
+def at_offset(t: torch.Tensor, floats: int) -> torch.Tensor:
+    """A copy of t in a larger buffer, `floats` floats past its start."""
+    buf = torch.zeros(t.numel() + floats, dtype=t.dtype, device=t.device)
+    out = buf[floats:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("S", [17, 64])
+def test_k4_inputs_at_unaligned_storage_offsets(cuda, S):
+    """Every K4 input cut from a larger tensor 1, 2 or 3 floats past a
+    16-byte boundary (sliced views, as a caller may pass them): the kernels
+    stage the ends of each run with 4-byte copies and raise nothing."""
+    P = 70
+    x = shading_inputs(P, S, 30 + S, cuda)
+    inputs = [at_offset(t, 1 + i % 3)
+              for i, t in enumerate(shading_cuda.kernel_inputs(*x))]
+    assert all(t.data_ptr() % 16 for t in inputs)
+    check_k4_launch(x, tuple(inputs), S)
+
+
+def test_k4_without_points_launches_nothing(cuda):
+    """P = 0: empty outputs and gradients, no launch."""
+    x = shading_inputs(0, 64, 7, cuda)
+    leaves = [x[i].clone().requires_grad_() for i in (0, 1, 3, 4)]
+    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    outs = shading_cuda.rendering_equation_train(
+        leaves[0], leaves[1], x[2], leaves[2], leaves[3], *x[5:])
+    assert [tuple(o.shape) for o in outs] == [(0, 3)] * 3
+    sum(o.sum() for o in outs).backward()
+    assert [tuple(t.grad.shape) for t in leaves] == [(0, 3), (0, 1), (0, 3),
+                                                      (0, 16, 3)]
+    dgl = shading_cuda.shade_bwd(*shading_cuda.kernel_inputs(*x),
+                                 *(torch.zeros((0, 3), device=cuda),) * 3)[-1]
+    assert tuple(dgl.shape) == (0, 64, 3)
+    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == before
 
 
 def test_shade_function_gradient_matches_autograd(cuda):

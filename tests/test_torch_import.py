@@ -175,6 +175,67 @@ def test_stage2_kernel_sources_export_the_bound_symbols(source, symbols,
     assert "__expf" not in src and "use_fast_math" not in src
 
 
+def test_shading_launch_plan_matches_the_source():
+    """K4's block of points, as ops/shading_cuda.py names it for the card
+    tests, is csrc/shading.cu's, and its shared memory (kStages chunk
+    buffers of dirs, light, visibility and area rows, and the SH rows) fits
+    the 48 KB a block has without an attribute."""
+    from relightable3dgaussian_tpu_torch.ops import shading_cuda
+
+    src = (PORT / "csrc" / "shading.cu").read_text()
+    const = {name: int(value) for name, value in re.findall(
+        r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kPoints"] == shading_cuda.POINTS_PER_BLOCK
+    assert const["kGroup"] * const["kPoints"] % 32 == 0     # whole warps
+    assert 32 % const["kGroup"] == 0                         # groups in a warp
+    row3, row1 = 3 * const["kChunk"] + 4, const["kChunk"] + 4
+    smem = 4 * (const["kStages"] * const["kPoints"] * (2 * row3 + 2 * row1)
+                + const["kPoints"] * (48 + 4))
+    assert smem <= 48 * 1024
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" not in src
+    assert f"is {smem:,} bytes a block" in src.replace("\n// ", " ")  # the note
+
+
+PTXAS_TRANSCRIPT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__711c6463_10_shading_cu_aa6ed2ef16shade_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_iiPfS2_S2_S2_S2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__711c6463_10_shading_cu_aa6ed2ef16shade_bwd_kernelEPKfS1_S1_S1_S1_S1_S1_S1_S1_S1_S1_S1_iiPfS2_S2_S2_S2_
+    32 bytes stack frame, 32 bytes spill stores, 76 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 32 bytes cumulative stack size, 43520 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120composite_fwd_kernelILi9EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120composite_fwd_kernelILi9EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 9216 bytes smem
+"""
+
+
+def test_ptxas_report_reads_each_kernel(monkeypatch):
+    """_build.ptxas_report names each kernel of nvcc's -Xptxas -v report
+    (mangled in an anonymous namespace, templated or not) with its
+    registers, spills and shared memory; nvcc is faked with a transcript of
+    the form it prints."""
+    import subprocess as sp
+
+    from relightable3dgaussian_tpu_torch.ops import _build
+
+    calls = []
+
+    def fake_run(cmd, **kwargs):
+        calls.append(cmd)
+        return sp.CompletedProcess(cmd, 0, "", PTXAS_TRANSCRIPT)
+
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    report = _build.ptxas_report(PORT / "csrc" / "shading.cu")
+    assert sorted(report) == ["composite_fwd_kernel", "shade_bwd_kernel"]
+    assert report["shade_bwd_kernel"] == (
+        "32 bytes stack frame, 32 bytes spill stores, 76 bytes spill loads; "
+        "Used 128 registers, used 1 barriers, 32 bytes cumulative stack "
+        "size, 43520 bytes smem")
+    assert "Used 64 registers" in report["composite_fwd_kernel"]
+    assert "-Xptxas" in calls[0] and "-shared" not in calls[0]
+
+
 def test_chip_smoke_fails_without_cuda():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = run_python(["chip_smoke.py"], ROOT, env)
