@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
-[--ptxas-also OTHER_SHADING_CU ...]
+[--ptxas-also OTHER_KERNEL_CU ...]
 
 Drives the port's main paths, the stage-1 render of a checkpoint, stage-1
 training and stage-2 (PBR) training with its eval render, through the entry
@@ -13,11 +13,15 @@ no result line is printed):
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
               (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu)
               with nvcc, all at once, and prints ptxas's registers, spills
-              and shared memory for csrc/shading.cu and for each source
-              given with --ptxas-also (another version of it, to compare);
+              and shared memory for csrc/ray_trace.cu and
+              csrc/composite_bwd_two_walk.cu and for each source given with
+              --ptxas-also (another version of one, to compare);
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
               400x400 scene (opacities in [0.1, 0.99]), with and without
-              per-gaussian weights;
+              per-gaussian weights; the weights of the tiles that hold a
+              split pixel (K1 and the plain walk end apart: count, stop or
+              final T, ops/composite.py::split_pixels) are held to the
+              count-split rule, every other weight to W_RTOL, W_ATOL;
   4. k2-mid   K2 against the plain backward (ops/composite.py::
               composite_backward) on the same scene, with a seeded image
               cotangent (zero on pixels where K1 and the plain compositor
@@ -73,7 +77,10 @@ no result line is printed):
               beside it, on the inputs render_neilf hands the compositor for
               the stage's trained model and first view;
  13. k3-main  K3 against the plain tracer on a seeded subset of the stage's
-              rays, both timed, and K3 timed on all of them;
+              rays, both timed, and K3 timed on all of them: in coherent
+              order with the sort (the main path), the sort alone, in the
+              order visibility_rays gives, and sample-major; its bound
+              counted on all of them;
  14. k4-main  K4 against the plain shading at the train step's shapes;
  15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
               the 8 views at 800x800 (32 splatted channels);
@@ -134,7 +141,9 @@ from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                  shading_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
-from relightable3dgaussian_tpu_torch.ops.composite import composite_backward
+from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
+                                                          split_pixels,
+                                                          walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
 from relightable3dgaussian_tpu_torch.scene.image_io import write_png
@@ -181,10 +190,13 @@ N_INIT, PCD_LO, PCD_HI = 100_000, -1.3, 1.3   # dataset_readers.py:230
 # the atomics add in another order. A pixel whose count differs moved one
 # crossing by one pair: at T = 1e-4 that pair's w = alpha T < 1e-4; at
 # alpha = 1/255 its w = T / 255 and the 1/255 it takes from the T of every
-# later pair, at most 2/255 in all. Only gaussians with a pair in such a
-# pixel's tile can move: every other weight is held to W_RTOL, W_ATOL, and
-# those of the tiles that differ by more may differ by at most 2/255 in sum
-# for each such pixel.
+# later pair, at most 2/255 in all. Such a pair blended on one side only can
+# leave the counts equal, where the T = 1e-4 end moves one pair the other
+# way: so the split pixels are those where the two walks' counts, stops or
+# final T differ (ops/composite.py::split_pixels). Only gaussians with a
+# pair in a split pixel's tile can move: every other weight is held to
+# W_RTOL, W_ATOL, and those of the tiles that differ by more may differ by
+# at most 2/255 in sum for each split pixel.
 IMG_ATOL = IMG_RTOL = 1e-5
 COUNT_AGREE = 0.9999
 W_RTOL, W_ATOL = 1e-4, 1e-6
@@ -195,11 +207,12 @@ W_RTOL, W_ATOL = 1e-4, 1e-6
 # K1 and plain n_contrib differ, held to COUNT_AGREE as for K1) one pixel
 # moves a gradient by ~1e-4 of its max on a trained, near-opaque model:
 # the image cotangent is zeroed on those pixels for both. So it is where the
-# counts are equal but the images are not (past IMG_ATOL, IMG_RTOL): a pair
-# at alpha ~ 1/255 blended by one side only moves T by 1/255, and with it
-# the T = 1e-4 crossing by one pair the other way, so both blend as many
-# pairs but not the same ones (one view in ~100 of a trained model, 3.5e-4
-# of mean2d's max with the count mask alone).
+# counts are equal but the blended pairs are not: a pair at alpha ~ 1/255
+# blended by one side only moves T by 1/255, and with it the T = 1e-4
+# crossing by one pair the other way, so both blend as many pairs but not
+# the same ones (one view in ~100 of a trained model, 3.5e-4 of mean2d's
+# max with the count mask alone). Those pixels are K1's split pixels, and,
+# as before, the pixels whose images differ past IMG_ATOL, IMG_RTOL.
 K2_TOL = 1e-4
 PROFILE_STEPS = 10   # train steps in each window of the profile phases
 K3_SOURCE = "relightable3dgaussian_tpu_torch/csrc/ray_trace.cu"
@@ -224,8 +237,8 @@ WALK_OPS = 15
 # FP32 operations per tested (ray, gaussian) pair of K3 (g - o, the two
 # 3x3 products, t, the residual, the power, expf, alpha, the tests, the
 # product): 72, counted from csrc/ray_trace.cu. Counted only on the rays that
-# end visible: every implementation must test all their pairs, where an
-# occluded ray may stop early.
+# end visible (K3's T on this run's rays): every implementation must test
+# all their pairs, where an occluded ray may stop early.
 K3_PAIR_OPS = 72
 # FP32 operations per (point, sample) of K4, counted from the plain shading's
 # formula (SH incident light 126, the env mix, half vector and dots 38, GGX
@@ -358,13 +371,21 @@ def pairs_walked(out, walk) -> tuple[int, int]:
     return int(walk.stop.sum()), int(out.n_contrib.sum())
 
 
+def k1_split(args, got, walk) -> tuple:
+    """The plain compositor on K1's inputs, and the pixels where K1 and it
+    blended other pairs (split_pixels against the plain walk state)."""
+    want = composite_plain(*args)
+    want_walk = walk_state(*args[:4], args[-1])
+    torch.cuda.synchronize()
+    return want, split_pixels(got.n_contrib, walk, want.n_contrib, want_walk)
+
+
 def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     """K1 against the plain compositor on the same card inputs; raises on
     disagreement. Returns the numbers for the kernels line."""
     got, walk = composite_cuda.composite_k1(*args)
     torch.cuda.synchronize()
-    want = composite_plain(*args)
-    torch.cuda.synchronize()
+    want, split = k1_split(args, got, walk)
     agree = got.n_contrib == want.n_contrib
     agree_frac = float(agree.float().mean())
     if agree_frac < COUNT_AGREE:
@@ -373,26 +394,26 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     torch.testing.assert_close(got.image[agree], want.image[agree],
                                atol=IMG_ATOL, rtol=IMG_RTOL)
     img_err = float((got.image[agree] - want.image[agree]).abs().max())
-    # the gaussians with a pair in the range of a tile that holds a pixel
-    # whose count differs; every other weight is held to W_RTOL, W_ATOL
+    # the gaussians with a pair in the range of a tile that holds a split
+    # pixel; every other weight is held to W_RTOL, W_ATOL
     binning = args[0]
     starts, ends = binning.tile_start.tolist(), binning.tile_end.tolist()
     near = torch.zeros_like(got.weights, dtype=torch.bool)
-    split_tiles = torch.nonzero((~agree).any(1)).flatten().tolist()
+    split_tiles = torch.nonzero(split.any(1)).flatten().tolist()
     for t in split_tiles:
         near[binning.sorted_ids[starts[t]:ends[t]].long()] = True
     torch.testing.assert_close(got.weights[~near], want.weights[~near],
                                rtol=W_RTOL, atol=W_ATOL)
     w_diff = (got.weights - want.weights).abs()
     moved = near & (w_diff > W_ATOL + W_RTOL * want.weights.abs())
-    n_split = int((~agree).sum())
+    n_split = int(split.sum())
     w_err = float(w_diff[~moved].max())
     moved_sum = float(w_diff[moved].sum())
     if moved_sum > 2 / 255 * n_split:
         raise AssertionError(
             f"{label}: {int(moved.sum())} weights of the split pixels' tiles "
             f"off by {moved_sum} in sum (beyond {W_RTOL} rel, {W_ATOL} abs) "
-            f"with {n_split} pixels whose n_contrib differs")
+            f"with {n_split} split pixels")
 
     k1_ms = cuda_ms(lambda: composite_cuda.composite_k1(*args), k1_reps)
     plain_ms = cuda_ms(lambda: composite_plain(*args), plain_reps)
@@ -404,8 +425,9 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     say(label, pairs=binning.num_rendered, tiles=args[-1].num_tiles,
         attrs=A, weights=args[-1].compute_weights,
         n_contrib_equal=f"{agree_frac:.6f}", image_max_abs_err=img_err,
-        weights_max_abs_err=w_err, split_tiles=len(split_tiles),
-        weights_moved_by_count_splits=int(moved.sum()),
+        weights_max_abs_err=w_err, split_pixels=n_split,
+        count_equal_splits=int((split & agree).sum()),
+        split_tiles=len(split_tiles), weights_moved_by_splits=int(moved.sum()),
         weights_moved_sum=f"{moved_sum:.3e}", k1_ms=f"{k1_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", pixel_pairs_walked=walked,
         pixel_pairs_blended=blended, bound_ms=f"{bnd['bound_ms']:.4f}",
@@ -417,13 +439,14 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
 def backward_case(args, label: str, with_g_weights: bool, seed: int):
     """K1's forward and walk state on `args`, and a seeded cotangent whose
     image part is zero on the pixels where K1 and the plain compositor
-    blended other pairs: their n_contrib differ, or their images differ
-    past IMG_ATOL, IMG_RTOL (K2_TOL's note). The others, `agree`, are held
-    to COUNT_AGREE. Returns (out, walk, agree, g_image, g_weights)."""
+    blended other pairs: split_pixels (their n_contrib, stops or final T
+    differ), or their images differ past IMG_ATOL, IMG_RTOL (K2_TOL's
+    note). The others, `agree`, are held to COUNT_AGREE. Returns (out,
+    walk, agree, g_image, g_weights)."""
     attrs = args[4]
     out, walk = composite_cuda.composite_k1(*args)
-    plain = composite_plain(*args)
-    agree = (out.n_contrib == plain.n_contrib) & (
+    plain, split = k1_split(args, out, walk)
+    agree = ~split & (
         (out.image - plain.image).abs()
         <= IMG_ATOL + IMG_RTOL * plain.image.abs()).all(-1)
     agree_frac = float(agree.float().mean())
@@ -789,11 +812,33 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def visible_ray_pairs(bvh, o, d, T, chunk: int = 16384) -> int:
+    """The (ray, gaussian) pairs the rays that end visible (T >= 0.9) test:
+    every gaussian of each cluster they slab-hit (ops/ray_trace.py's rule)."""
+    inv_d, pairs = ray_trace.safe_inverse(d), 0
+    for i in range(0, o.shape[0], chunk):
+        hit = ray_trace.slab_hit(bvh.cluster_lo, bvh.cluster_hi,
+                                 o[i:i + chunk], inv_d[i:i + chunk])
+        pairs += int(hit[T[i:i + chunk] >= ray_trace.T_MIN].sum())
+    return pairs * ray_trace.CLUSTER_SIZE
+
+
+def k3_bound(bvh, o, d, T) -> tuple[dict, int]:
+    """K3's bound on rays o, d whose transmittance is T, and the visible
+    rays' pairs it counts."""
+    pairs = visible_ray_pairs(bvh, o, d, T)
+    return bound(nbytes(o, d, T, bvh.records, bvh.cluster_lo, bvh.cluster_hi,
+                        bvh.super_lo, bvh.super_hi), pairs * K3_PAIR_OPS), pairs
+
+
 def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
-             seed: int = 0, reps: int = 5) -> dict:
+             seed: int = 0, reps: int = 5, samples: int = SAMPLE_NUM) -> dict:
     """K3 against the plain tracer on rays [R, 3] from their points (a seeded
     subset of `subset` rays, kept in their order, when given); raises on
-    disagreement. K3 is timed on the checked rays and on all of them."""
+    disagreement. K3 is timed on the checked rays and, with a subset, on all
+    of them: in coherent order (the sort included, and the sort alone), in
+    the order given, and sample-major (ray (s, p) of `samples` a point at
+    s P + p, a layout that needs no sort); the bound counted on all rays."""
     o = rays_o + ray_trace.RAY_OFFSET * rays_d     # as trace_visibility does
     o_all, d_all = o, rays_d
     if subset is not None and subset < o.shape[0]:
@@ -817,29 +862,42 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
                              f"on different sides of 0.9, {far} of them with "
                              f"|T_plain - 0.9| >= {SPLIT_BAND}")
     k3_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d), reps)
-    # the pairs the rays that end visible test: every gaussian of each hit
-    # cluster (ops/ray_trace.py's rule)
-    inv_d, visible_pairs = ray_trace.safe_inverse(rays_d), 0
-    for i in range(0, o.shape[0], 4096):
-        hit = ray_trace.slab_hit(bvh.cluster_lo, bvh.cluster_hi,
-                                 o[i:i + 4096], inv_d[i:i + 4096])
-        visible_pairs += int(hit[side[i:i + 4096]].sum()) * ray_trace.CLUSTER_SIZE
-    bnd = bound(nbytes(o, rays_d, T, bvh.records, bvh.cluster_lo,
-                       bvh.cluster_hi, bvh.super_lo, bvh.super_hi),
-                visible_pairs * K3_PAIR_OPS)
-    extra = {}
+    k3_unsorted_ms = cuda_ms(
+        lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d, sort=False), reps)
+    bnd, pairs = k3_bound(bvh, o, rays_d, T)
+    extra, line = {}, {}
     if o_all.shape[0] != o.shape[0]:
+        T_all = ray_trace_cuda.trace_k3(bvh, o_all, d_all)
         all_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o_all, d_all),
                          reps)
-        extra = {"rays_all": o_all.shape[0], "k3_ms_all_rays": f"{all_ms:.4f}"}
+        sort_ms = cuda_ms(lambda: ray_trace.coherent_order(bvh, o_all, d_all),
+                          reps)
+        given_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(
+            bvh, o_all, d_all, sort=False), reps)
+        o_sm, d_sm = (x.view(-1, samples, 3).transpose(0, 1).reshape(-1, 3)
+                      for x in (o_all, d_all))
+        sample_major_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(
+            bvh, o_sm, d_sm, sort=False), reps)
+        all_bnd, all_pairs = k3_bound(bvh, o_all, d_all, T_all)
+        extra = {"rays_all": o_all.shape[0], "k3_ms_all_rays": f"{all_ms:.4f}",
+                 "sort_ms_all_rays": f"{sort_ms:.4f}",
+                 "k3_ms_all_rays_given_order": f"{given_ms:.4f}",
+                 "k3_ms_all_rays_sample_major": f"{sample_major_ms:.4f}",
+                 "visible_ray_pairs_all_rays": all_pairs,
+                 "bound_ms_all_rays": f"{all_bnd['bound_ms']:.4f}",
+                 "bound_by_all_rays": all_bnd["bound_by"]}
+        line = {"rays_all": o_all.shape[0], "ms_all_rays": all_ms,
+                "sort_ms_all_rays": sort_ms,
+                "bound_ms_all_rays": all_bnd["bound_ms"]}
     say(label, gaussians=bvh.order.shape[0], rays=T.numel(),
         mean_vis=f"{float(vis_plain.mean()):.4f}",
         vis_zero_share=f"{float((~side_plain).float().mean()):.4f}",
         max_abs_err=f"{err:.3e}", rays_split=n_split, k3_ms=f"{k3_ms:.4f}",
-        plain_ms=f"{plain_ms:.4f}", visible_ray_pairs=visible_pairs,
+        k3_ms_given_order=f"{k3_unsorted_ms:.4f}",
+        plain_ms=f"{plain_ms:.4f}", visible_ray_pairs=pairs,
         bound_ms=f"{bnd['bound_ms']:.4f}", bound_by=bnd["bound_by"], **extra)
     return {"max_abs_err": err, "ms": k3_ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+            "library_ms": None, **line}
 
 
 def shading_case(P: int, S: int, seed: int, device, rough: float | None = None,
@@ -1310,8 +1368,8 @@ def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
                composite_cuda.TWO_WALK_KERNEL)
-    ptxas_sources = (str(_build.CSRC / f"{shading_cuda.KERNEL}.cu"),
-                     *ptxas_also)
+    ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
+        ray_trace_cuda.KERNEL, composite_cuda.TWO_WALK_KERNEL)), *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
         reports = pool.map(_build.ptxas_report, ptxas_sources)
         list(pool.map(_build.load_library, kernels))
@@ -1361,7 +1419,7 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = ()) -> None:
 
         # 5. K3 against the plain tracer, every ray of the mid-size scene
         mid_dirs, _ = fibonacci_sphere_sampling(mid.get_normal, S_MID)
-        check_k3(*visibility_rays(mid, mid_dirs), "k3-mid")
+        check_k3(*visibility_rays(mid, mid_dirs), "k3-mid", samples=S_MID)
 
         # 6. K4 against the plain shading, mid size
         k4_mid_phase(device)
@@ -1456,7 +1514,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = ()) -> None:
         model = s2["model"]
         dirs = s2["vis"].incident_dirs
         main_k3 = check_k3(*visibility_rays(model, dirs), "k3-main",
-                           subset=K3_SUBSET, seed=SEED + 5)
+                           subset=K3_SUBSET, seed=SEED + 5,
+                           samples=dirs.shape[1])
         # 14. K4 at the train step's shapes
         main_k4f, main_k4b = check_k4(train_shading_case(
             model, s2["env"], s2["vis"], s2["views"][0]), "k4-main", SEED + 6)

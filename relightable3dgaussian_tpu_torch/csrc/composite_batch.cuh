@@ -1,12 +1,13 @@
-// The batch of depth-sorted pairs the compositor kernels K1 (composite_fwd.cu)
-// and K2 (composite_bwd.cu) walk, staged in shared memory as packed records.
+// The batch of depth-sorted pairs the compositor kernels K1 (composite_fwd.cu),
+// K2 (composite_bwd.cu) and K5 (composite_bwd_two_walk.cu, both of its walks)
+// walk, staged in shared memory as packed records.
 //
-// Both run one 128-thread block per 16x16 tile and walk the tile's range of
+// All run one 128-thread block per 16x16 tile and walk the tile's range of
 // gaussian ids in batches of kBatch pairs, one slot staged by each thread.
 // A slot is three kinds of float4 row, each kBatch slots long:
 //   geo0    = {mean x, mean y, conic a, conic b}
-//   geo1    = {conic c, opacity, g_w (K2's weight cotangent; 0 in K1),
-//              gaussian id as float bits}
+//   geo1    = {conic c, opacity, g_w (the weight cotangent of K2 and K5; 0
+//              in K1), gaussian id as float bits}
 //   attr[q] = attributes 4q .. 4q + 3, q < ceil(A / 4) (the tail unused),
 // so a pixel reads a pair with 2 + ceil(A / 4) broadcast 16-byte shared loads
 // where a row per field took 8 + A 4-byte loads. The thread reads the pair's

@@ -46,6 +46,13 @@ def _tile_batches(lengths: list[int], max_elements: int) -> list[list[int]]:
     return batches
 
 
+class WalkState(NamedTuple):
+    """Per pixel, where the front-to-back walk stopped: what K1 writes for
+    K2, and `walk_state` computes from the plain blend."""
+    final_T: torch.Tensor   # [num_tiles, 256] f32 transmittance at the stop
+    stop: torch.Tensor      # [num_tiles, 256] i32 one past the last pair walked
+
+
 class _Blend(NamedTuple):
     """One batch of tiles blended: what composite and its backward read."""
     tiles: torch.Tensor       # [G] tile ids
@@ -53,6 +60,7 @@ class _Blend(NamedTuple):
     w: torch.Tensor           # [G, L, tile²] blend weights
     ids: torch.Tensor         # [G, L] gaussian ids (0 where not valid)
     valid: torch.Tensor       # [G, L] slot lies in the tile's range
+    cum: torch.Tensor         # [G, L, tile²] transmittance after each slot
 
 
 def _batches(binning: Binning, cfg: RasterConfig, mean2d, conic, opacity,
@@ -96,7 +104,7 @@ def _batches(binning: Binning, cfg: RasterConfig, mean2d, conic, opacity,
         T_at = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
         w = torch.where(T_at >= 1e-4, alpha * T_at, 0.0)          # [G, L, tt]
         yield _Blend(tiles=tb, image=torch.einsum("glt,gla->gta", w, attrs[ids]),
-                     w=w, ids=ids, valid=valid)
+                     w=w, ids=ids, valid=valid, cum=cum)
 
 
 def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
@@ -165,6 +173,55 @@ def composite_backward(binning: Binning, mean2d: torch.Tensor,
                 if d is not None:
                     g += d
     return tuple(grads)
+
+
+def walk_state(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
+               opacity: torch.Tensor, cfg: RasterConfig) -> WalkState:
+    """The plain compositor's walk state, in K1's terms: per pixel, the
+    transmittance after its last blended pair (1 where it blends none), and
+    one past the index in the tile's range of the blended pair that took T
+    under 1e-4, or the range's length where T never fell under it."""
+    dev = mean2d.device
+    tt = cfg.tile * cfg.tile
+    final_T = torch.ones((cfg.num_tiles, tt), dtype=torch.float32, device=dev)
+    stop = torch.zeros((cfg.num_tiles, tt), dtype=torch.int32, device=dev)
+    lengths = (binning.tile_end - binning.tile_start).to(torch.int64)
+    ones = mean2d.new_ones((mean2d.shape[0], 1))
+    for b in _batches(binning, cfg, mean2d, conic, opacity, ones):
+        blended = b.w > 0                                         # [G, L, tt]
+        ended = blended & (b.cum < 1e-4)
+        L = blended.shape[1]
+        k = torch.arange(L, device=dev)[None, :, None]
+        # one past the last blended pair (the ending one, where T ended)
+        last = torch.where(blended, k + 1, 0).amax(1)             # [G, tt]
+        T = torch.gather(b.cum, 1, (last - 1).clamp(min=0)[:, None])[:, 0]
+        final_T[b.tiles] = torch.where(last > 0, T, 1.0)
+        stop[b.tiles] = torch.where(ended.any(1), last,
+                                    lengths[b.tiles][:, None]).to(torch.int32)
+    return WalkState(final_T=final_T, stop=stop)
+
+
+# A blend decision that differs at alpha >= 1/255 changes a pixel's final T
+# by a factor of at most 1 - 1/255, 3.9e-3 of it. Two walks that blend the
+# same pairs round their T apart by one ulp of each of its factors (at most a
+# few thousand, 6e-8 each) and, through 1 - alpha, by alpha / (1 - alpha)
+# times alpha's few ulps (at most 99 x 2.4e-7 a factor at the 0.99 cap, and
+# at most two such factors before T < 1e-4): at most ~2e-4 in all. SPLIT_T_RTOL
+# lies between the two.
+SPLIT_T_RTOL = 1e-3
+
+
+def split_pixels(n_contrib_a: torch.Tensor, walk_a: WalkState,
+                 n_contrib_b: torch.Tensor, walk_b: WalkState) -> torch.Tensor:
+    """[num_tiles, 256] mask of the pixels where two compositors blended
+    other pairs: their counts differ, their walks ended at other pairs, or
+    their final T differ by more than SPLIT_T_RTOL of it. A pair at alpha ~
+    1/255 blended on one side only, with the T = 1e-4 end moved one pair the
+    other way, keeps the counts equal; it moves the stop, and the final T by
+    the ratio of the two pairs' 1 - alpha."""
+    return ((n_contrib_a != n_contrib_b) | (walk_a.stop != walk_b.stop)
+            | ((walk_a.final_T - walk_b.final_T).abs()
+               > SPLIT_T_RTOL * walk_b.final_T.abs()))
 
 
 def tiles_to_image(tile_buf: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:

@@ -24,12 +24,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .composite import CompositeOut, composite as composite_plain
+from .composite import CompositeOut, WalkState, composite as composite_plain
 from .config import RasterConfig
 from .tiles import Binning
 
@@ -37,21 +36,16 @@ KERNEL = "composite_fwd"
 BWD_KERNEL = "composite_bwd"
 TWO_WALK_KERNEL = "composite_bwd_two_walk"
 MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
-# The attribute widths K1 and K2 build apart, with their accumulators in
+# The attribute widths K1, K2 and K5 build apart, with their accumulators in
 # registers at that width (the `case`s of the dispatch in each source): the
 # main paths' 9 (stage 1), 8 (stage-2 train under STAGE2_NERF_SYNTHETIC) and,
 # for K1, 32 (stage-2 eval). Other widths up to MAX_ATTRS take the general
 # build.
-SPECIALISED_WIDTHS = {KERNEL: (9, 8, 32), BWD_KERNEL: (9, 8)}
+SPECIALISED_WIDTHS = {KERNEL: (9, 8, 32), BWD_KERNEL: (9, 8),
+                      TWO_WALK_KERNEL: (9, 8)}
 LAUNCHES = 0       # launches of K1 since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K2 since import (or the last reset)
 TWO_WALK_LAUNCHES = 0   # launches of K5 since import (or the last reset)
-
-
-class WalkState(NamedTuple):
-    """K1's per-pixel walk state, where K2 starts."""
-    final_T: torch.Tensor   # [num_tiles, 256] f32 transmittance at the stop
-    stop: torch.Tensor      # [num_tiles, 256] i32 one past the last pair walked
 
 
 def _library(name: str, symbol: str, n_ptr_in: int, n_int: int,

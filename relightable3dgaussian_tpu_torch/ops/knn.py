@@ -25,10 +25,12 @@ def _expand_bits(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def morton_codes(points: torch.Tensor) -> torch.Tensor:
-    """[N] 30-bit Morton codes (int64) of [N, 3] points in their bbox."""
-    lo = points.min(0).values
-    hi = points.max(0).values
+def morton_codes(points: torch.Tensor, lo: torch.Tensor | None = None,
+                 hi: torch.Tensor | None = None) -> torch.Tensor:
+    """[N] 30-bit Morton codes (int64) of [N, 3] points in the box [lo, hi]
+    (their own bbox by default)."""
+    lo = points.min(0).values if lo is None else lo
+    hi = points.max(0).values if hi is None else hi
     x = torch.clamp((points - lo) / torch.clamp(hi - lo, min=1e-9), 0.0, 1.0)
     q = torch.clamp((x * 1024.0).to(torch.int64), max=1023)
     return ((_expand_bits(q[:, 0]) << 2) | (_expand_bits(q[:, 1]) << 1)

@@ -24,9 +24,11 @@ The whitened form takes g − o before multiplying by W, in float32, which
 keeps needle-thin gaussians far from the origin well conditioned. Super
 AABBs over SUPER_SIZE clusters let K3 skip whole groups; they never change
 the set (a hit cluster's box lies in its super's box). The TPU tracer's
-quad feature tiles, candidate caps and their probes, ray sorting and
-overflow counts exist for its static shapes and are not carried over: this
-rule is exact by construction.
+quad feature tiles, candidate caps and their probes, and overflow counts
+exist for its static shapes and are not carried over: this rule is exact by
+construction. Its coherent ray order is carried over (`coherent_order`):
+on the card, as on the TPU, it is what lets the rays a warp traces
+together walk the same clusters. It changes no ray's T.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ RECORD = 16         # floats per gaussian record: g(3), W(9, row-major), op, n(3
 RAY_OFFSET = 0.05   # rays start at o + RAY_OFFSET · d
 T_MIN = 0.9         # visibility = T where T >= T_MIN, else 0
 RAY_CHUNK = 256     # rays per step of the plain version
+DIR_RES = 16        # octahedral direction bins per axis of the ray order
 
 
 class GaussianBVH(NamedTuple):
@@ -142,6 +145,41 @@ def pair_one_minus_alpha(records: torch.Tensor, o: torch.Tensor,
     ok = (op >= 1.0 / 255.0) & (nd <= 0.0) & (t >= 0.01)
     alpha = torch.clamp(op * torch.exp(power), max=0.9999)
     return torch.where(ok, 1.0 - alpha, 1.0)
+
+
+def direction_bins(d: torch.Tensor) -> torch.Tensor:
+    """[R] octahedral-map bin in [0, DIR_RES²) (int64) of unit directions
+    [R, 3]."""
+    res = DIR_RES
+    a = torch.clamp(d.abs().sum(-1), min=1e-12)
+    u, v = d[:, 0] / a, d[:, 1] / a
+    neg = d[:, 2] < 0
+    u2 = torch.where(neg, (1.0 - v.abs()) * torch.sign(u), u)
+    v2 = torch.where(neg, (1.0 - u.abs()) * torch.sign(v), v)
+    iu = torch.clamp(((u2 * 0.5 + 0.5) * res).to(torch.int64), 0, res - 1)
+    iv = torch.clamp(((v2 * 0.5 + 0.5) * res).to(torch.int64), 0, res - 1)
+    return iu * res + iv
+
+
+def coherent_key(bvh: GaussianBVH, o: torch.Tensor,
+                 d: torch.Tensor) -> torch.Tensor:
+    """[R] 32-bit sort key (int64) of rays from o along d: the direction bin
+    in the high bits, the origin's Morton code in the cloud's box in the
+    rest (the JAX package's ops/ray_trace.py::_coherent_order)."""
+    morton_bits = 32 - 2 * (DIR_RES - 1).bit_length()
+    code = morton_codes(o, lo=bvh.cluster_lo.amin(0), hi=bvh.cluster_hi.amax(0))
+    return ((direction_bins(d) << morton_bits)
+            | (code >> max(0, 30 - morton_bits)))
+
+
+def coherent_order(bvh: GaussianBVH, o: torch.Tensor,
+                   d: torch.Tensor) -> torch.Tensor:
+    """[R] permutation (int64) that sorts rays by `coherent_key`: rays of
+    one direction bin together, and inside it by origin along the Morton
+    curve, so neighbouring rays pass the same clusters."""
+    # the key less 2^31 fits int32, which sorts faster than int64
+    key = (coherent_key(bvh, o, d) - (1 << 31)).to(torch.int32)
+    return torch.argsort(key)
 
 
 def trace_transmittance_plain(bvh: GaussianBVH, o: torch.Tensor,

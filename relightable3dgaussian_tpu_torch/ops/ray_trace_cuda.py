@@ -3,10 +3,12 @@
 K3 (`csrc/ray_trace.cu`) replaces the TPU kernel
 `relightable3dgaussian_tpu/ops/ray_trace.py::_trace_eval_kernel`. It applies
 the rule of ops/ray_trace.py to every ray in one launch; `trace_k3` takes the
-BVH and rays already moved to their offset origins, and returns T [R] (any
-value below 0.9 stands for "blocked"). `ops/ray_trace.py::trace_visibility`
-calls it for CUDA tensors and applies the T >= 0.9 rule. `LAUNCHES` counts
-its launches.
+BVH and rays already moved to their offset origins, sorts them into
+`ops/ray_trace.py::coherent_order` (the kernel reads them through the
+permutation and writes each T in place), and returns T [R] in the rays'
+order (any value below 0.9 stands for "blocked"). A ray's T does not depend
+on the order. `ops/ray_trace.py::trace_visibility` calls it for CUDA
+tensors and applies the T >= 0.9 rule. `LAUNCHES` counts its launches.
 """
 from __future__ import annotations
 
@@ -15,16 +17,18 @@ import ctypes
 import torch
 
 from . import _build
-from .ray_trace import CLUSTER_SIZE, RECORD, SUPER_SIZE, GaussianBVH
+from .ray_trace import (CLUSTER_SIZE, RECORD, SUPER_SIZE, GaussianBVH,
+                        coherent_order)
 
 KERNEL = "ray_trace"
 LAUNCHES = 0   # launches of K3 since import (or the last reset)
 
 
-def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor,
-             rays_d: torch.Tensor) -> torch.Tensor:
+def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
+             sort: bool = True) -> torch.Tensor:
     """Launch K3 on CUDA tensors: rays [R, 3] starting at their offset
-    origins → transmittance [R]."""
+    origins → transmittance [R]. The rays are traced in coherent order, or
+    with `sort=False` in the order given."""
     global LAUNCHES
     device = rays_o.device
     R = rays_o.shape[0]
@@ -45,9 +49,11 @@ def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor,
             raise ValueError(f"K3 {name}: not contiguous")
     lib = _build.load_library(KERNEL)
     if lib.r3dg_trace.argtypes is None:
-        lib.r3dg_trace.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        lib.r3dg_trace.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                                    + [ctypes.c_void_p] * 2)
         lib.r3dg_trace.restype = ctypes.c_int
+    order = (coherent_order(bvh, rays_o, rays_d).to(torch.int32)
+             if sort and R > 1 and C > 0 else None)
     T = torch.empty((R,), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -55,6 +61,7 @@ def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor,
             bvh.records.data_ptr(), bvh.cluster_lo.data_ptr(),
             bvh.cluster_hi.data_ptr(), bvh.super_lo.data_ptr(),
             bvh.super_hi.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
+            order.data_ptr() if order is not None else None,
             C, n_super, R, T.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError_t {rc}")

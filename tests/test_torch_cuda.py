@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain PyTorch versions,
-and the card's stage-1 and stage-2 train steps against the CPU's.
+"""Kernels K1 to K5 on the card against their plain PyTorch versions, and
+the card's stage-1 and stage-2 train steps against the CPU's.
 
 Needs an NVIDIA GPU (Hopper, sm_90a) and nvcc; skips without one. These tests
 import no jax, so on a machine without it run them with
@@ -20,7 +20,9 @@ from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                  shading_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
-from relightable3dgaussian_tpu_torch.ops.composite import composite_backward
+from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
+                                                          split_pixels,
+                                                          walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
 from relightable3dgaussian_tpu_torch.ops.tiles import Binning
@@ -293,6 +295,79 @@ def test_k5_blended_count_is_k1_n_contrib(cuda, n_features):
     assert torch.equal(count, out.n_contrib)
 
 
+@torch.no_grad()
+@pytest.mark.parametrize("A", [9, 8])
+@pytest.mark.parametrize("with_g_weights", [True, False])
+def test_k5_deep_and_empty_tiles(cuda, A, with_g_weights):
+    """K5 against the plain backward and K2 where every pixel walks more
+    than 4 batches and the two pixels of a thread stop at different pairs,
+    with one tile's range empty: per field within 1e-4 of the largest
+    entry, the image cotangent zeroed where K1 and the plain compositor
+    blended other pairs (split_pixels); its blended count equals K1's
+    n_contrib on every pixel, 0 on the empty tile."""
+    binning, *inputs, cfg = deep_tiles(cuda, A, seed=A + 20)
+    ends = binning.tile_end.clone()
+    ends[1] = binning.tile_start[1]                 # tile 1 holds no pair
+    binning = binning._replace(tile_end=ends)
+    args = (binning, *inputs, cfg)
+    out, walk = composite_cuda.composite_k1(*args)
+    plain = composite_plain(*args)
+    split = split_pixels(out.n_contrib, walk, plain.n_contrib,
+                         walk_state(*args[:4], cfg))
+    assert float(split.float().mean()) <= 1e-2
+    gen = torch.Generator().manual_seed(A + 3)
+    g_image = torch.randn(out.image.shape, generator=gen).to(cuda) * ~split[..., None]
+    g_weights = (torch.randn((inputs[3].shape[0],), generator=gen).to(cuda)
+                 if with_g_weights else None)
+    count = torch.full_like(out.n_contrib, -1)
+    got = composite_cuda.composite_k5(*args[:5], g_image, g_weights, cfg,
+                                      n_blended=count)
+    k2 = composite_cuda.composite_k2(*args[:5], walk, g_image, g_weights, cfg)
+    want = composite_backward(*args[:5], g_image, g_weights, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(count, out.n_contrib)
+    assert int(count[1].abs().max()) == 0 and int(count.max()) > 40
+    for name, g, w, g2 in zip(("mean2d", "conic", "opacity", "attrs"), got,
+                              want, k2):
+        assert bool(torch.isfinite(g).all()), name
+        assert max_rel_err(g, w) <= 1e-4, (name, max_rel_err(g, w))
+        assert max_rel_err(g, g2) <= 1e-4, (name, max_rel_err(g, g2))
+
+
+def crossing_case(device, op_x: float):
+    """tests/test_torch_walk_state.py::crossing on `device`: one tile, four
+    gaussians centred on pixel (5, 7); X at opacity op_x blends there only at
+    the float32 1/255 and moves the T = 1e-4 end by one pair."""
+    t1 = np.float32(1) - np.float32(0.99)
+    ops = np.array([op_x, 0.99, 1 - 1.002e-4 / t1, 0.5], np.float32)
+    P = ops.shape[0]
+    f = lambda x, dtype=torch.float32: torch.tensor(x, dtype=dtype,  # noqa: E731
+                                                    device=device)
+    binning = Binning(f(np.arange(P), torch.int32), f([0], torch.int32),
+                      f([P], torch.int32), P)
+    return (binning, f([[5.0, 7.0]] * P), f([[1.0, 0.0, 1.0]] * P), f(ops),
+            f(np.ones((P, 1))), RasterConfig(16, 16))
+
+
+@torch.no_grad()
+def test_split_pixels_flags_a_count_equal_crossing_of_k1(cuda):
+    """chip_smoke.py's K1 gate on the card: K1 with X at the float32 1/255
+    (blended) against the plain compositor with X one ulp below it: the
+    counts are equal everywhere, and split_pixels flags pixel (5, 7) and no
+    other; on the same inputs it flags nothing."""
+    on = np.float32(1 / 255)
+    off = np.nextafter(on, np.float32(0))
+    k1_args_on = crossing_case(cuda, on)
+    got, walk = composite_cuda.composite_k1(*k1_args_on)
+    for op_x, flagged in ((off, [[0, 7 * 16 + 5]]), (on, [])):
+        args = crossing_case(cuda, op_x)
+        plain = composite_plain(*args)
+        assert torch.equal(got.n_contrib, plain.n_contrib)
+        split = split_pixels(got.n_contrib, walk, plain.n_contrib,
+                             walk_state(*args[:4], args[-1]))
+        assert torch.nonzero(split).tolist() == flagged
+
+
 def test_composite_function_takes_k5_under_the_switch(cuda, monkeypatch):
     """With R3DG_BWD_TWO_WALK=1 the autograd Function's backward launches K5
     and not K2, and gives autograd's gradients through the plain
@@ -555,6 +630,79 @@ def test_k3_needles_and_single_gaussian_rules(cuda):
     assert one(g, [0.0, 0.0, 0.0], z) == 0.0
     assert one(g, [0.0, 0.0, 3.0], z) == 1.0
     assert one(bvh([0.0, 0.0, 1.0], 0.1, (0.0, 0.0, 1.0)), [0.0, 0.0, 0.0], z) == 1.0
+
+
+@torch.no_grad()
+def test_k3_is_bitwise_independent_of_ray_order(cuda):
+    """A ray's T from K3 is a function of that ray alone: traced in coherent
+    order, in the order given, and shuffled and traced both ways, every T is
+    bit for bit the same."""
+    xyz, scaling, rot, op, nrm = shell(5, 20_000, cuda)
+    bvh = ray_trace.build_bvh(xyz, scaling, rot, op, nrm)
+    rays_o, rays_d = surface_rays(xyz[bvh.order][::8], nrm[bvh.order][::8], 16)
+    o = rays_o + ray_trace.RAY_OFFSET * rays_d
+    T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
+    perm = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(0)
+                          ).to(cuda)
+    for sort in (True, False):
+        shuffled = torch.empty_like(T)
+        shuffled[perm] = ray_trace_cuda.trace_k3(bvh, o[perm], rays_d[perm],
+                                                 sort=sort)
+        assert torch.equal(shuffled, T)
+        assert torch.equal(ray_trace_cuda.trace_k3(bvh, o, rays_d, sort=sort), T)
+    blocked = float((T < ray_trace.T_MIN).float().mean())
+    assert 0.05 < blocked < 0.95, blocked
+    assert_visibility_close(T, ray_trace.trace_transmittance_plain(bvh, o, rays_d))
+
+
+def blocked_rays(seed: int, n: int, device):
+    """Rays from near the bowl's centre into it (z of the direction below
+    -0.5): each meets the bowl's inward-facing gaussians."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.5 * np.linalg.norm(d[:, :2], axis=-1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = rng.uniform(-0.2, 0.2, (n, 3))
+    return [torch.tensor(x, dtype=torch.float32, device=device) for x in (o, d)]
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("case", ["one_ray", "odd_rays", "all_blocked",
+                                  "odd_gaussians"])
+def test_k3_edge_shapes(cuda, case):
+    """K3 against the plain tracer: one ray; 1000 rays (not a multiple of a
+    warp's 32 or the block's 128); rays that are all blocked; 1000
+    gaussians (not a multiple of the cluster's 32) in a random cloud."""
+    if case == "odd_gaussians":
+        rng = np.random.default_rng(3)
+        rot = rng.normal(size=(1000, 4))
+        nrm = rng.normal(size=(1000, 3))
+        cloud = [torch.tensor(x, dtype=torch.float32, device=cuda) for x in (
+            rng.uniform(-1, 1, (1000, 3)), rng.uniform(0.01, 0.05, (1000, 3)),
+            rot / np.linalg.norm(rot, axis=-1, keepdims=True),
+            rng.uniform(0.1, 0.9, 1000),
+            nrm / np.linalg.norm(nrm, axis=-1, keepdims=True))]
+        bvh = ray_trace.build_bvh(*cloud)
+        rays_o, rays_d = surface_rays(cloud[0][:64], cloud[4][:64], 16)
+    else:
+        xyz, scaling, rot, op, nrm = shell(6, 20_000, cuda)
+        bvh = ray_trace.build_bvh(xyz, scaling, rot, op, nrm)
+        if case == "all_blocked":
+            rays_o, rays_d = blocked_rays(4, 4096, cuda)
+        else:
+            rays_o, rays_d = surface_rays(xyz[bvh.order], nrm[bvh.order], 4)
+            rays_o, rays_d = (rays_o[:1], rays_d[:1]) if case == "one_ray" else (
+                rays_o[5:1005], rays_d[5:1005])
+    o = (rays_o + ray_trace.RAY_OFFSET * rays_d).contiguous()
+    rays_d = rays_d.contiguous()
+    T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
+    want = ray_trace.trace_transmittance_plain(bvh, o, rays_d)
+    torch.cuda.synchronize()
+    assert T.shape == want.shape
+    if case == "all_blocked":
+        assert bool((want < ray_trace.T_MIN).all())
+        assert bool((T < ray_trace.T_MIN).all())
+    assert_visibility_close(T, want)
 
 
 def shading_inputs(P: int, S: int, seed: int, device, rough: float | None = None,

@@ -114,7 +114,7 @@ def dispatched_widths(source: str) -> tuple[int, ...]:
 
 
 def test_specialised_widths_cover_the_main_paths():
-    """K1 and K2 build the main paths' attribute widths apart, and
+    """K1, K2 and K5 build the main paths' attribute widths apart, and
     ops/composite_cuda.py names the same widths: a config change that would
     put a main path on the general build fails here."""
     import numpy as np
@@ -134,6 +134,8 @@ def test_specialised_widths_cover_the_main_paths():
     bwd = dispatched_widths("composite_bwd.cu")
     assert fwd == composite_cuda.SPECIALISED_WIDTHS[composite_cuda.KERNEL]
     assert bwd == composite_cuda.SPECIALISED_WIDTHS[composite_cuda.BWD_KERNEL]
+    assert dispatched_widths("composite_bwd_two_walk.cu") == (
+        composite_cuda.SPECIALISED_WIDTHS[composite_cuda.TWO_WALK_KERNEL])
     assert max(fwd + bwd) <= composite_cuda.MAX_ATTRS
 
     # stage 1: the width prepare gives the render's attributes

@@ -171,3 +171,75 @@ def test_single_gaussian_rules():
         torch.tensor([[1.0, 0, 0, 0]]), torch.tensor([0.95]),
         torch.tensor([[0.0, 0.0, 1.0]]))
     assert trace_one(back, [0.0, 0.0, 0.0], [0.0, 0.0, 1.0]) == 1.0
+
+
+def coherent_rays(seed: int, n: int = 20_000):
+    """A cloud and seeded rays: origins in its box, unit directions over the
+    sphere (numpy float32)."""
+    xyz, scaling, rot, op, nrm = random_cloud(seed, 600)
+    rng = np.random.default_rng(seed + 100)
+    return ((xyz, scaling, rot, op, nrm),
+            rng.uniform(-1.1, 1.1, (n, 3)).astype(F32), unit(rng, n))
+
+
+def test_coherent_key_matches_jax():
+    """The direction bins and the 32-bit key (bin major, origin Morton code
+    in the cloud's box minor) against the JAX package's _direction_bins and
+    _coherent_order on the same rays. Both take the same float32 steps; at
+    most 1e-3 of the rays may fall in another cell, where a quotient lies
+    within rounding of a bin or cell edge (XLA may associate |x|+|y|+|z| or
+    fold the box scaling differently). The JAX order sorts the port's key
+    wherever the keys agree."""
+    import jax.numpy as jnp
+    from relightable3dgaussian_tpu.ops import knn as jax_knn
+
+    cloud, o, d = coherent_rays(0)
+    bvh_j = jax_rt.build_bvh(*cloud)
+    bvh = ray_trace.build_bvh(*map(t, cloud))
+    bins = ray_trace.direction_bins(t(d)).numpy()
+    bins_j = np.asarray(jax_rt._direction_bins(jnp.asarray(d),
+                                             res=ray_trace.DIR_RES))
+    assert float((bins != bins_j).mean()) <= 1e-3
+    key = ray_trace.coherent_key(bvh, t(o), t(d)).numpy()
+    code_j = np.asarray(jax_knn.morton_codes(
+        jnp.asarray(o), lo=bvh_j.cluster_lo.min(0),
+        hi=bvh_j.cluster_hi.max(0))).astype(np.int64)
+    key_j = (bins_j.astype(np.int64) << 24) | (code_j >> 6)
+    differ = key != key_j
+    assert float(differ.mean()) <= 1e-3
+    assert key.min() >= 0 and key.max() < 1 << 32
+    perm_j = np.asarray(jax_rt._coherent_order(bvh_j, jnp.asarray(o),
+                                               jnp.asarray(d), 16))
+    agree = ~differ[perm_j]
+    assert (np.diff(key[perm_j][agree]) >= 0).all()
+
+
+def test_coherent_order_sorts_its_key():
+    """A permutation of the rays along which the key does not decrease."""
+    cloud, o, d = coherent_rays(1)
+    bvh = ray_trace.build_bvh(*map(t, cloud))
+    perm = ray_trace.coherent_order(bvh, t(o), t(d))
+    assert torch.equal(torch.sort(perm).values, torch.arange(o.shape[0]))
+    key = ray_trace.coherent_key(bvh, t(o), t(d))[perm]
+    assert bool((key[1:] >= key[:-1]).all())
+    # rays of one direction bin lie together
+    bins = ray_trace.direction_bins(t(d))[perm]
+    assert int((bins[1:] != bins[:-1]).sum()) == len(torch.unique(bins)) - 1
+
+
+def test_plain_tracer_in_coherent_order_is_the_same():
+    """The plain tracer run on the rays in coherent order and scattered
+    back gives the original order's T bit for bit: a ray's T is a function
+    of that ray alone."""
+    xyz, scaling, rot, op, nrm = shell_scene(7, 2048)
+    rays_o, rays_d = surface_rays(xyz, nrm, 128, 8)
+    bvh = ray_trace.build_bvh(t(xyz), t(scaling), t(rot), t(op), t(nrm))
+    o = t(rays_o) + ray_trace.RAY_OFFSET * t(rays_d)
+    d = t(rays_d)
+    want = ray_trace.trace_transmittance_plain(bvh, o, d)
+    perm = ray_trace.coherent_order(bvh, o, d)
+    assert not torch.equal(perm, torch.arange(o.shape[0]))
+    got = torch.empty_like(want)
+    got[perm] = ray_trace.trace_transmittance_plain(bvh, o[perm], d[perm])
+    assert torch.equal(got, want)
+    assert 0.02 < float((want < ray_trace.T_MIN).float().mean()) < 0.98
