@@ -98,6 +98,29 @@ no result line is printed):
               refresh, an env-map upsample), and cli.eval_nvs -t neilf on
               the test views; every artifact, the launch counts and rising
               test PSNRs are checked.
+ 18. relight  cli.relighting.main: the cli phase's stage-2 PLY and the
+              stage2 phase's model (written by save_gaussian_ply) composed
+              side by side at half scale, one turned a quarter (~193k
+              points), visibility traced at 64 samples (K3 once), 8 frames
+              at 800x800 under a procedural 256x512 sky-and-sun map written
+              by write_exr_zip, the light rotated each frame (K1 once a
+              frame); every PNG; K3's T on 65,536 of the traced rays (the
+              last 1024 included) against the plain tracer under k3-main's
+              gate, K1 on the first frame's inputs under k1-main's
+              (relight-k3, relight-k1); on cloud A's rays the composite's
+              visibility nowhere above A's alone and lower on some; a
+              --vis_one run no darker at any pbr_env pixel; env_only moved
+              by the light rotation alone;
+ 19. relight-eval  cli.eval_relighting_syn4.main with LPIPS_WEIGHTS=random
+              on a Synthetic4Relight layout of the cli phase's 8 test views
+              (its RGBA images as the relit ground truth, constant albedo
+              and roughness), the cli phase's stage-2 checkpoint under a
+              model path holding /hotdog/, two procedural maps, 384 samples
+              (~35M rays in one K3 launch, K1 16 times): K3 and K1 held as
+              in relight (relight-eval-k3, relight-eval-k1), both metric.txt
+              whole and finite, the two maps' renders apart;
+ 20. finetune-vis  train.stage2.finetune_visibility, 50 iterations on the
+              stage2 phase's model: K3 once an iteration, losses finite.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -126,16 +149,22 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from relightable3dgaussian_tpu_torch.cli import eval_nvs
+from relightable3dgaussian_tpu_torch.cli import (eval_nvs,
+                                                 eval_relighting_syn4,
+                                                 relighting)
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
 from relightable3dgaussian_tpu_torch.models.gaussians import (GaussianModel,
                                                               create_from_pcd)
-from relightable3dgaussian_tpu_torch.models.lights import query_light
+from relightable3dgaussian_tpu_torch.losses import lpips
+from relightable3dgaussian_tpu_torch.models import render_neilf as neilf
+from relightable3dgaussian_tpu_torch.models.lights import (load_env_light,
+                                                           query_light)
 from relightable3dgaussian_tpu_torch.models.render import (ViewInputs, render,
                                                            view_features)
 from relightable3dgaussian_tpu_torch.models.render_neilf import (
-    EVAL_FEATURE_DIM, render_neilf, visibility_rays)
+    EVAL_FEATURE_DIM, render_neilf, update_visibility, visibility_rays)
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                  ray_trace, ray_trace_cuda,
                                                  shading_cuda)
@@ -146,7 +175,11 @@ from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
                                                           walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
-from relightable3dgaussian_tpu_torch.scene.image_io import write_png
+from relightable3dgaussian_tpu_torch.scene.cameras import Camera
+from relightable3dgaussian_tpu_torch.scene.dataset_readers import _blender_pose
+from relightable3dgaussian_tpu_torch.scene.exr import write_exr_zip
+from relightable3dgaussian_tpu_torch.scene.image_io import read_png, write_png
+from relightable3dgaussian_tpu_torch.scene.ply_io import save_gaussian_ply
 from relightable3dgaussian_tpu_torch.train.checkpoint import (load_checkpoint,
                                                               save_checkpoint)
 from relightable3dgaussian_tpu_torch.train import stage2
@@ -256,6 +289,7 @@ STAGE2_OPT = OptimizationConfig(**{
     **STAGE2_NERF_SYNTHETIC, "iterations": TRAIN_OPT.iterations + STAGE2_STEPS,
     "densify_until_iter": TRAIN_OPT.iterations})
 K3_SUBSET = 65_536   # rays of the stage's trace held against the plain tracer
+K3_TAIL = 1024       # of them, a CLI trace's last rays (check_cli_kernels)
 # K3 against the plain tracer. Both take the product of the same factors in
 # another order: |dvis| <= VIS_ATOL where both T lie on the same side of 0.9;
 # a last-bit change can move a T across 0.9, so at most SPLIT_SHARE of the
@@ -831,6 +865,27 @@ def k3_bound(bvh, o, d, T) -> tuple[dict, int]:
                         bvh.super_lo, bvh.super_hi), pairs * K3_PAIR_OPS), pairs
 
 
+def k3_gate(T, T_plain, label: str) -> tuple[float, int, torch.Tensor]:
+    """K3's transmittance T against the plain tracer's T_plain on the same
+    rays: raises unless |dvis| <= VIS_ATOL where both lie on one side of
+    0.9, and at most SPLIT_SHARE of the rays, each within SPLIT_BAND of 0.9,
+    lie on different sides. Returns (max |dvis|, split rays, plain vis)."""
+    side, side_plain = T >= ray_trace.T_MIN, T_plain >= ray_trace.T_MIN
+    same = side == side_plain
+    vis = torch.where(side, T, 0.0)
+    vis_plain = torch.where(side_plain, T_plain, 0.0)
+    err = float((vis - vis_plain)[same].abs().max()) if bool(same.any()) else 0.0
+    split = ~same
+    n_split = int(split.sum())
+    far = int(((T_plain[split] - ray_trace.T_MIN).abs() >= SPLIT_BAND).sum())
+    if err > VIS_ATOL or n_split > SPLIT_SHARE * T.numel() or far:
+        raise AssertionError(f"{label}: K3 against the plain tracer: max "
+                             f"|dvis| {err} (limit {VIS_ATOL}), {n_split} rays "
+                             f"on different sides of 0.9, {far} of them with "
+                             f"|T_plain - 0.9| >= {SPLIT_BAND}")
+    return err, n_split, vis_plain
+
+
 def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
              seed: int = 0, reps: int = 5, samples: int = SAMPLE_NUM) -> dict:
     """K3 against the plain tracer on rays [R, 3] from their points (a seeded
@@ -848,19 +903,7 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
     T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
     T_plain, plain_ms = timed_ms(
         lambda: ray_trace.trace_transmittance_plain(bvh, o, rays_d))
-    side, side_plain = T >= ray_trace.T_MIN, T_plain >= ray_trace.T_MIN
-    same = side == side_plain
-    vis = torch.where(side, T, 0.0)
-    vis_plain = torch.where(side_plain, T_plain, 0.0)
-    err = float((vis - vis_plain)[same].abs().max()) if bool(same.any()) else 0.0
-    split = ~same
-    n_split = int(split.sum())
-    far = int(((T_plain[split] - ray_trace.T_MIN).abs() >= SPLIT_BAND).sum())
-    if err > VIS_ATOL or n_split > SPLIT_SHARE * T.numel() or far:
-        raise AssertionError(f"{label}: K3 against the plain tracer: max "
-                             f"|dvis| {err} (limit {VIS_ATOL}), {n_split} rays "
-                             f"on different sides of 0.9, {far} of them with "
-                             f"|T_plain - 0.9| >= {SPLIT_BAND}")
+    err, n_split, vis_plain = k3_gate(T, T_plain, label)
     k3_ms = cuda_ms(lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d), reps)
     k3_unsorted_ms = cuda_ms(
         lambda: ray_trace_cuda.trace_k3(bvh, o, rays_d, sort=False), reps)
@@ -891,7 +934,7 @@ def check_k3(bvh, rays_o, rays_d, label: str, subset: int | None = None,
                 "bound_ms_all_rays": all_bnd["bound_ms"]}
     say(label, gaussians=bvh.order.shape[0], rays=T.numel(),
         mean_vis=f"{float(vis_plain.mean()):.4f}",
-        vis_zero_share=f"{float((~side_plain).float().mean()):.4f}",
+        vis_zero_share=f"{float((vis_plain == 0).float().mean()):.4f}",
         max_abs_err=f"{err:.3e}", rays_split=n_split, k3_ms=f"{k3_ms:.4f}",
         k3_ms_given_order=f"{k3_unsorted_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", visible_ray_pairs=pairs,
@@ -936,6 +979,27 @@ def train_shading_case(model: GaussianModel, env, vis, view: ViewInputs):
         model.get_base_color, model.get_roughness, model.get_normal, viewdirs,
         model.get_incidents, query_light(env, vis.incident_dirs),
         vis.visibility, vis.incident_dirs, vis.incident_areas))
+
+
+def k4_worst_points(x, got, plain, exact, n: int = 4) -> list[dict]:
+    """For a K4 failure report: the n points where `got` is farthest from
+    `exact` ([P, ...]), with the view-normal cosine in float32 and float64,
+    the roughness, and the kernel's, the plain and the float64 values
+    there."""
+    far = (got.double() - exact).abs().reshape(got.shape[0], -1).amax(1)
+    out = []
+    for i in far.topk(min(n, far.numel())).indices.tolist():
+        nrm, vd = x[2][i], x[3][i]
+        cos32 = float((nrm / nrm.norm()) @ (vd / vd.norm()))
+        n64, v64 = nrm.double(), vd.double()
+        cos64 = float((n64 / n64.norm()) @ (v64 / v64.norm()))
+        out.append({"point": i, "cos_nv32": f"{cos32:.3e}",
+                    "cos_nv64": f"{cos64:.3e}",
+                    "roughness": f"{float(x[1][i]):.4f}",
+                    "got": got[i].flatten()[:3].tolist(),
+                    "plain": plain[i].flatten()[:3].tolist(),
+                    "exact": exact[i].flatten()[:3].tolist()})
+    return out
 
 
 def plain_shading_graph(x, cot):
@@ -992,7 +1056,8 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
                 raise AssertionError(
                     f"{label}: K4-{kind} {name} is {e_kernel} from float64, "
                     f"the plain float32 version {e_plain} (limit "
-                    f"max({tol}, {K4_SLACK} x that))")
+                    f"max({tol}, {K4_SLACK} x that)); worst points "
+                    f"{k4_worst_points(x, g, p, e)}")
             abs_err[kind] = max(abs_err[kind], float((g - p).abs().max()))
     if min_dshs is not None and not float(dshs.abs().max()) > min_dshs:
         raise AssertionError(f"{label}: K4-bwd's SH gradient "
@@ -1250,7 +1315,8 @@ def cli_phase(gt_model: GaussianModel, device) -> dict:
     """The README's three commands through cli.train.main and
     cli.eval_nvs.main on a scene of the render cell; raises on a missing
     artifact, a wrong launch count or test PSNRs that do not rise. Returns
-    the launches of stage 1."""
+    the launches of stage 1, the dataset's and the stage-2 run's
+    directories and the stage-2 run's last iteration."""
     root = WORK / "cli"
     data, out1, out2 = root / "nerf_synthetic", root / "stage1", root / "stage2"
     for d in (data, out1, out2):
@@ -1357,7 +1423,509 @@ def cli_phase(gt_model: GaussianModel, device) -> dict:
         stage2_metric_test=stage2_metrics.strip().replace("\n", "; "),
         eval_nvs_test={k: round(v, 4) for k, v in test.items()
                        if k != "view_ms"})
-    return l1
+    return {"launches": l1, "data": data, "stage2": out2, "n2": n2}
+
+
+# The relighting phases: the composition's two clouds side by side at half
+# scale (RELIGHT_SHIFT along x, the second turned a quarter about the
+# vertical), RELIGHT_FRAMES frames at 800x800 (the first two from one pose
+# under two light rotations) at the CLI's default 64 samples; the syn4 eval
+# at the README's 384 samples; FINETUNE_ITERS iterations of
+# finetune_visibility. The mutual-occlusion check allows OCCLUSION_SHARE of
+# the rays to be above the cloud-alone trace (float order at the 0.9
+# threshold) and wants at least SHADOWED_SHARE of them lower.
+RELIGHT_SCALE, RELIGHT_SHIFT, RELIGHT_FRAMES = 0.5, 0.6, 8
+RELIGHT_CAPTURES = ("pbr_env", "base_color", "roughness", "visibility",
+                    "normal", "points", "env_only")
+SYN4_SAMPLES = 384
+FINETUNE_ITERS = 50
+OCCLUSION_SHARE, SHADOWED_SHARE = 1e-5, 1e-3
+ENV_H, ENV_W = 256, 512
+
+
+def rotation(axis, angle: float) -> np.ndarray:
+    """Rodrigues' rotation about `axis` by `angle`."""
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+
+def sky_envmap(sun_dir, sun_rgb, sky_rgb) -> np.ndarray:
+    """A procedural equirect HDR map [ENV_H, ENV_W, 3] in the layout
+    models/lights.py::equirect_query reads (row r at polar angle
+    pi r / (H - 1) from +z, column c at azimuth -pi (2c / (W - 1) - 1)): a
+    sky gradient over the +z hemisphere, a dim ground, and a sun lobe of
+    peak radiance sun_rgb (~0.06 rad wide) about sun_dir."""
+    phi = np.linspace(0, math.pi, ENV_H)[:, None]
+    theta = -math.pi * (np.linspace(-1, 1, ENV_W)[None, :])
+    d = np.stack(np.broadcast_arrays(np.sin(phi) * np.cos(theta),
+                                     np.sin(phi) * np.sin(theta),
+                                     np.cos(phi)), -1)
+    up = np.clip(d[..., 2:], 0, 1)
+    sky = np.asarray(sky_rgb) * (0.4 + 0.6 * up) * (d[..., 2:] > 0) + 0.05
+    s = np.asarray(sun_dir, np.float64) / np.linalg.norm(sun_dir)
+    sun = np.exp(((d @ s) - 1) / 0.002)[..., None] * np.asarray(sun_rgb)
+    return (sky + sun).astype(np.float32)
+
+
+class CallTimer:
+    """While active, replaces `module.name` (looked up at each call by its
+    callers) by a wrapper that times each call with CUDA events around it,
+    synchronized after (timed_ms), or with `timed=False` calls it as it is;
+    `ms` lists the calls' times, `sizes` size(*args) of each and `kept`
+    keep(args, result) of the first call, taken outside its timing.
+    Counters stay the wrapped function's own."""
+
+    def __init__(self, module, name: str, size=lambda *args: None,
+                 keep=None, timed: bool = True):
+        self.module, self.name, self.size, self.keep = module, name, size, keep
+        self.timed = timed
+        self.ms: list[float] = []
+        self.sizes: list = []
+        self.kept = None
+
+    def __enter__(self):
+        fn = self._fn = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            if self.timed:
+                out, ms = timed_ms(lambda: fn(*args, **kwargs))
+            else:
+                out, ms = fn(*args, **kwargs), None
+            self.ms.append(ms)
+            self.sizes.append(self.size(*args))
+            if self.keep is not None and len(self.ms) == 1:
+                self.kept = self.keep(args, out)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self._fn)
+
+
+def write_relight_config(root: Path, plys: list[Path]) -> Path:
+    """transform.json (the two clouds side by side), trajectory.json
+    (RELIGHT_FRAMES frames on the orbit of radius CAM_RADIUS, fov FOV; frames
+    0 and 1 from the same pose), light_transform.json (a rotation of its own
+    for each frame, frame 0 the identity) and env_map/envmap12.exr; returns
+    the map's path."""
+    entries = {}
+    for i, (ply, sign, turn) in enumerate(((plys[0], -1, 0.0),
+                                           (plys[1], 1, math.pi / 2))):
+        T = np.eye(4)
+        T[:3, :3] = RELIGHT_SCALE * rotation([0, 1, 0], turn)
+        T[0, 3] = sign * RELIGHT_SHIFT
+        entries[f"obj{i}"] = {"path": str(ply),
+                              "transform": T.reshape(-1).tolist()}
+    traj = {"camera": {"width": SIZE_MAIN, "height": SIZE_MAIN,
+                       "camera_angle_x": FOV}, "trajectory": {}}
+    lights = {"transform": {}}
+    for i in range(RELIGHT_FRAMES):
+        a = 2 * math.pi * max(i - 1, 0) / (RELIGHT_FRAMES - 1)
+        w2c = np.eye(4)
+        w2c[:3, :3] = rotation([0, 1, 0], a).T
+        w2c[2, 3] = CAM_RADIUS
+        traj["trajectory"][str(i)] = w2c.reshape(-1).tolist()
+        lights["transform"][str(i)] = rotation(
+            [math.sin(i), 1.0, math.cos(i)], 0.7 * i).reshape(-1).tolist()
+    for name, obj in (("transform.json", entries),
+                      ("trajectory.json", traj),
+                      ("light_transform.json", lights)):
+        with open(root / name, "w") as f:
+            json.dump(obj, f)
+    env = root / "env_map" / "envmap12.exr"
+    env.parent.mkdir(parents=True, exist_ok=True)
+    write_exr_zip(str(env), sky_envmap([0.5, 0.3, 0.8], [20.0, 19.0, 17.0],
+                                       [0.3, 0.45, 0.8]))
+    return env
+
+
+def k3_check_rays(args, T) -> tuple:
+    """Of K3's inputs (bvh, o, d) and output T: a seeded K3_SUBSET of the
+    rays, spread over the whole index range and the last K3_TAIL of them
+    included, as (bvh, all rays, indices, o, d, T at them)."""
+    bvh, o, d = args[:3]
+    R = o.shape[0]
+    gen = torch.Generator().manual_seed(SEED + 9)
+    head = torch.randperm(R - K3_TAIL, generator=gen)[:K3_SUBSET - K3_TAIL]
+    idx = torch.cat([head.sort().values,
+                     torch.arange(R - K3_TAIL, R)]).to(o.device)
+    return bvh, R, idx, o[idx], d[idx], T[idx]
+
+
+def k1_inputs(args, _) -> tuple:
+    binning, *tensors, cfg = args
+    return (binning, *(t.detach() for t in tensors), cfg)
+
+
+def run_cli_timed(fn, cli_module):
+    """run_cli with K3's launches (the ray order included; rays) and the
+    CLI module's render_neilf calls timed, and kept from the first K3 and
+    K1 launch what check_cli_kernels checks: (fn's result, launches, wall
+    s, peak GiB, the K3 timer, the K1 recorder, the render timer)."""
+    result = []
+    with CallTimer(ray_trace_cuda, "trace_k3", keep=k3_check_rays,
+                   size=lambda bvh, o, d, *rest: o.shape[0]) as k3, \
+            CallTimer(composite_cuda, "composite_k1", keep=k1_inputs,
+                      timed=False) as k1, \
+            CallTimer(cli_module, "render_neilf") as renders:
+        launches, wall, peak = run_cli(lambda: result.append(fn()))
+    return result[0], launches, wall, peak, k3, k1, renders
+
+
+@torch.no_grad()
+def check_cli_kernels(k3: CallTimer, k1: CallTimer, label: str) -> dict:
+    """K3 and K1 as a CLI run launched them, against their plain versions:
+    the T K3 gave on the rays k3_check_rays kept against the plain tracer
+    under k3-main's gate, and K1 on its first launch's inputs under
+    k1-main's (check_k1). Returns K3's readings."""
+    bvh, R, idx, o, d, T = k3.kept
+    T_plain, plain_ms = timed_ms(
+        lambda: ray_trace.trace_transmittance_plain(bvh, o, d))
+    err, n_split, vis_plain = k3_gate(T, T_plain, f"{label}-k3")
+    say(f"{label}-k3", gaussians=bvh.order.shape[0], rays=R,
+        rays_checked=idx.numel(), last_ray_checked=int(idx[-1]),
+        mean_vis=f"{float(vis_plain.mean()):.4f}", max_abs_err=f"{err:.3e}",
+        rays_split=n_split, plain_ms=f"{plain_ms:.4f}")
+    check_k1(k1.kept, f"{label}-k1", k1_reps=3, plain_reps=1)
+    return {"k3_max_abs_err": err, "k3_rays_split": n_split}
+
+
+def relight_phase(s2: dict, cli: dict, device) -> dict:
+    """cli.relighting.main on the card: the cli phase's stage-2 PLY and the
+    stage2 phase's model composed; every PNG, K3 once and K1 once a frame
+    (each held against its plain version as the CLI launched it); the
+    mutual occlusion on cloud A's rays; a --vis_one run no darker at
+    any pbr_env pixel and brighter on average; env_only moved by the light
+    rotation alone. Returns its launches and K3's readings."""
+    root = WORK / "relight"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    t0 = phase_t0 = time.perf_counter()
+    plys = [cli["stage2"] / "point_cloud" / f"iteration_{cli['n2']}"
+            / "point_cloud.ply", root / "stage2_model.ply"]
+    save_gaussian_ply(str(plys[1]), s2["model"].to_numpy())
+    env = write_relight_config(root, plys)
+    setup_s = time.perf_counter() - t0
+
+    def relight(out: str, *flags):
+        return relighting.main(
+            ["-co", str(root), "-e", str(env), "--output", str(root / out),
+             "--sample_num", str(SAMPLE_NUM), *flags], device=device)
+
+    _, launches, wall, peak, k3, k1, renders = run_cli_timed(lambda: relight(
+        "capture", "--capture_list", ",".join(RELIGHT_CAPTURES)), relighting)
+    missing = [f"{t}/frame_{i}.png" for t in RELIGHT_CAPTURES
+               for i in range(RELIGHT_FRAMES)
+               if not (root / "capture" / t / f"frame_{i}.png").exists()]
+    expect = {"K1": RELIGHT_FRAMES, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0}
+    if missing or any(launches[k] != v for k, v in expect.items()):
+        raise AssertionError(f"relight: launches {launches} (expected "
+                             f"{expect}), missing {missing[:5]}")
+    traced_k3 = check_cli_kernels(k3, k1, "relight")
+    _, launches1, wall1, *_ = run_cli_timed(lambda: relight(
+        "capture_vis_one", "--capture_list", "pbr_env", "--vis_one"),
+        relighting)
+    if launches1["K1"] != RELIGHT_FRAMES or launches1["K3"] != 1:
+        raise AssertionError(f"relight --vis_one: launches {launches1}")
+
+    # the ablation: visibility 1 can only brighten a pixel
+    traced, ones = ([read_png(str(root / d / "pbr_env" / f"frame_{i}.png"))
+                     .astype(np.int64) for i in range(RELIGHT_FRAMES)]
+                    for d in ("capture", "capture_vis_one"))
+    darker = sum(int((b < a - 1).sum()) for a, b in zip(traced, ones))
+    mean_traced = float(np.mean([a.mean() for a in traced]))
+    mean_ones = float(np.mean([b.mean() for b in ones]))
+    if darker or not mean_ones > mean_traced:
+        raise AssertionError(f"relight --vis_one: {darker} pixel values "
+                             f"darker, mean {mean_ones} against traced "
+                             f"{mean_traced}")
+    # the light rotation alone moves the environment (frames 0 and 1 share
+    # a pose)
+    env0, env1 = (read_png(str(root / "capture" / "env_only"
+                               / f"frame_{i}.png")).astype(np.int64)
+                  for i in (0, 1))
+    env_moved = float(np.abs(env0 - env1).mean())
+    if not env_moved > 1.0:
+        raise AssertionError(f"relight: env_only of frames 0 and 1 differ by "
+                             f"{env_moved} u8 on average")
+
+    # mutual occlusion: cloud A's rays in the composite against A alone
+    # (the composite with B's opacities below the tested 1/255, so both
+    # traces test the same clusters), and against A under its own BVH
+    # (other clusters: a gaussian outside its 3-sigma box counts in one
+    # trace only)
+    with open(root / "transform.json") as f:
+        entries = json.load(f)
+    with torch.no_grad():
+        comp = relighting.scene_composition(entries, device)
+        own = relighting.scene_composition({"obj0": entries["obj0"]}, device)
+        n_a = own.num_points
+        values = {k: getattr(comp, k).detach().clone() for k in comp.fields}
+        values["opacity"][n_a:] = -30.0
+        alone = GaussianModel(**values)
+        vis_c = update_visibility(comp, SAMPLE_NUM).visibility[:n_a]
+        vis_a = update_visibility(alone, SAMPLE_NUM).visibility[:n_a]
+        vis_own = update_visibility(own, SAMPLE_NUM).visibility
+    above = float((vis_c > vis_a + 1e-6).float().mean())
+    lower = float((vis_c < vis_a - 1e-6).float().mean())
+    own_above = float((vis_c > vis_own + 1e-6).float().mean())
+    own_lower = float((vis_c < vis_own - 1e-6).float().mean())
+    if above > OCCLUSION_SHARE or lower < SHADOWED_SHARE:
+        raise AssertionError(f"relight: on cloud A's rays the composite's "
+                             f"visibility is above A's alone on {above} of "
+                             f"them (limit {OCCLUSION_SHARE}), lower on "
+                             f"{lower} (at least {SHADOWED_SHARE})")
+    (k3_rays,), (k3_ms,) = k3.sizes, k3.ms
+    render_ms = renders.ms
+    say("relight", points=comp.num_points, points_a=n_a, rays=k3_rays,
+        k3_ms=f"{k3_ms:.4f}",
+        render_ms_per_frame_median=f"{float(np.median(render_ms[1:])):.3f}",
+        render_ms=[round(ms, 3) for ms in render_ms],
+        size=f"{SIZE_MAIN}x{SIZE_MAIN}", frames=RELIGHT_FRAMES,
+        captures=len(RELIGHT_CAPTURES), setup_s=f"{setup_s:.2f}",
+        wall_s=f"{wall:.2f}", vis_one_wall_s=f"{wall1:.2f}",
+        phase_s=f"{time.perf_counter() - phase_t0:.2f}",
+        peak_mem_gib=f"{peak:.2f}", launches=launches,
+        vis_one_launches=launches1)
+    say("relight-checks", vis_one_darker_values=darker,
+        pbr_env_mean_traced=f"{mean_traced:.3f}",
+        pbr_env_mean_vis_one=f"{mean_ones:.3f}",
+        env_only_frame0_vs_1_mean_u8=f"{env_moved:.3f}",
+        a_rays=int(vis_c.numel()), above_alone_share=above,
+        lower_than_alone_share=f"{lower:.5f}",
+        mean_vis_a_composite=f"{float(vis_c.mean()):.4f}",
+        mean_vis_a_alone=f"{float(vis_a.mean()):.4f}",
+        own_bvh_above_share=f"{own_above:.6f}",
+        own_bvh_lower_share=f"{own_lower:.5f}")
+    return {"launches": launches, "k3_ms": k3_ms, "k3_rays": k3_rays,
+            **traced_k3}
+
+
+def write_syn4(root: Path, cli: dict) -> tuple[Path, Path]:
+    """A Synthetic4Relight layout of the cli phase's test views:
+    transforms_test.json (its poses), test_rli/envmap{6,12}_<stem>.png (its
+    RGBA test images), test/<stem>_{albedo,rough}.png (constant under the
+    same alpha); env_map/envmap{6,12}.exr (two procedural maps) in a
+    directory of their own. Returns (the scene, the maps' directory, the
+    number of views)."""
+    data, envs = root / "syn4" / "hotdog", root / "envs"
+    for d in (data / "test_rli", data / "test", envs / "env_map"):
+        d.mkdir(parents=True)
+    with open(cli["data"] / "transforms_test.json") as f:
+        meta = json.load(f)
+    for frame in meta["frames"]:
+        stem = frame["file_path"].split("/")[-1]
+        src = cli["data"] / f"{frame['file_path']}.png"
+        for env in ("envmap6", "envmap12"):
+            shutil.copy(src, data / "test_rli" / f"{env}_{stem}.png")
+        rgba = read_png(str(src))
+        for name, value in (("albedo", (180, 120, 60)), ("rough", (90,) * 3)):
+            img = np.zeros_like(rgba)
+            img[..., :3], img[..., 3] = value, rgba[..., 3]
+            write_png(str(data / "test" / f"{stem}_{name}.png"), img)
+    with open(data / "transforms_test.json", "w") as f:
+        json.dump(meta, f)
+    write_exr_zip(str(envs / "env_map" / "envmap6.exr"),
+                  sky_envmap([-0.6, 0.2, 0.7], [8.0, 6.0, 4.0],
+                             [0.5, 0.35, 0.2]))
+    write_exr_zip(str(envs / "env_map" / "envmap12.exr"),
+                  sky_envmap([0.5, 0.3, 0.8], [20.0, 19.0, 17.0],
+                             [0.3, 0.45, 0.8]))
+    return data, envs, len(meta["frames"])
+
+
+@torch.no_grad()
+def syn4_view_breakdown(ckpt: Path, data: Path, envs: Path, frame: dict,
+                        device, views: int = 3) -> dict:
+    """Where a syn4 view's time goes, on the relight-eval phase's model and
+    first view under envmap12 at SYN4_SAMPLES samples (traced once more,
+    outside the phase's counted run): `views` renders under the device-only
+    profiler (kernel ms a view against the stream's, K1's and the env
+    query's share, the largest kernels), and the plain eval shading alone
+    (models/render_neilf.py::_shade_points, CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+    _, model = load_checkpoint(str(ckpt), device=device)
+    vis = update_visibility(model, SYN4_SAMPLES)
+    env = load_env_light(str(envs / "env_map" / "envmap12.exr"),
+                         device=device)
+    scale = torch.tensor(eval_relighting_syn4.BASE_COLOR_SCALE["hotdog"],
+                         device=device)
+    with open(data / "transforms_test.json") as f:
+        fovx = json.load(f)["camera_angle_x"]
+    R, T = _blender_pose(frame)
+    view = Camera(uid=0, R=R, T=T, fovx=fovx, fovy=fovx, width=SIZE_MAIN,
+                  height=SIZE_MAIN).view_inputs(device)
+    cfg, bg = RasterConfig(SIZE_MAIN, SIZE_MAIN), torch.ones(3, device=device)
+
+    def render_one():
+        return render_neilf(view, model, cfg, bg, env, vis,
+                            base_color_scale=scale)
+
+    render_one()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    prof.start()
+    start.record()
+    for _ in range(views):
+        render_one()
+    end.record()
+    torch.cuda.synchronize()
+    prof.stop()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(part: str = "") -> float:
+        return sum(e.self_device_time_total for e in kernels
+                   if part in e.key) / 1e3 / views
+
+    stream_ms = start.elapsed_time(end) / views
+    if ms() <= 0:
+        raise AssertionError("relight-eval: the profiler recorded no device "
+                             "time")
+    viewdirs = F.normalize(view.cam.campos[None] - model.xyz, dim=-1)
+    shade_ms = cuda_ms(lambda: neilf._shade_points(
+        model.get_base_color * scale, model.get_roughness, model.get_normal,
+        viewdirs, model.get_incidents, env, vis), 3)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {"ms_per_view_device_profiler": f"{stream_ms:.3f}",
+            "kernel_ms_per_view": f"{ms():.3f}",
+            "busy_share": f"{ms() / stream_ms:.3f}",
+            "k1_ms_per_view": f"{ms('composite_fwd_kernel'):.4f}",
+            "grid_sample_ms_per_view": f"{ms('grid_sampler'):.3f}",
+            "shading_ms_per_view": f"{shade_ms:.3f}",
+            "largest_kernels_ms_per_view": [
+                (e.key[:50], round(e.self_device_time_total / 1e3 / views, 3))
+                for e in top]}
+
+
+def relight_eval_phase(cli: dict, device) -> dict:
+    """cli.eval_relighting_syn4.main on the card, LPIPS_WEIGHTS=random, at
+    SYN4_SAMPLES samples, on the cli phase's stage-2 checkpoint under a
+    model path holding /hotdog/: both metric.txt files with the seven
+    fields, finite, the LPIPS the CLI loaded the random backbone, K3 once
+    over every ray and K1 once a view of each map (each held against its
+    plain version as the CLI launched it), the two maps' renders apart.
+    Returns its launches and K3's readings."""
+    root = WORK / "relight_eval"
+    if root.exists():
+        shutil.rmtree(root)
+    t0 = time.perf_counter()
+    data, envs, n_frames = write_syn4(root, cli)
+    setup_s = time.perf_counter() - t0
+    model_dir = root / "out" / "hotdog"
+    saved = os.environ.get("LPIPS_WEIGHTS")
+    os.environ["LPIPS_WEIGHTS"] = "random"
+    lpips._CACHE.clear()
+    try:
+        res, launches, wall, peak, k3, k1, renders = run_cli_timed(
+            lambda: eval_relighting_syn4.main(
+                ["-s", str(data), "-m", str(model_dir), "-c",
+                 str(cli["stage2"] / f"chkpnt{cli['n2']}.npz"), "-e",
+                 str(envs), "--sample_num", str(SYN4_SAMPLES)],
+                device=device), eval_relighting_syn4)
+        backbone = lpips.metric_name()
+    finally:
+        lpips._CACHE.clear()
+        if saved is None:
+            del os.environ["LPIPS_WEIGHTS"]
+        else:
+            os.environ["LPIPS_WEIGHTS"] = saved
+    n_views = len(renders.ms)
+    metrics = {}
+    for task in ("env6", "env12"):
+        with open(model_dir / "test_rli" / task / "metric.txt") as f:
+            metrics[task] = dict(line.split(": ") for line in
+                                 f.read().splitlines())
+    fields = list(eval_relighting_syn4.METRICS)
+    bad = {t: m for t, m in metrics.items() if list(m) != fields
+           or not all(np.isfinite(float(m[k])) for k in fields)}
+    if backbone != "lpips(random-vgg)":
+        bad["backbone"] = backbone
+    expect = {"K1": 2 * n_frames, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0}
+    (k3_rays,), (k3_ms,) = k3.sizes, k3.ms
+    if bad or sorted(res) != ["env12", "env6"] or any(
+            launches[k] != v for k, v in expect.items()) or (
+            k3_rays % SYN4_SAMPLES or n_views != 2 * n_frames):
+        raise AssertionError(f"relight-eval: metric files {bad}, tasks "
+                             f"{sorted(res)}, launches {launches} (expected "
+                             f"{expect}), K3 over {k3_rays} rays, {n_views} "
+                             "views")
+    traced_k3 = check_cli_kernels(k3, k1, "relight-eval")
+    # the relit object under the two maps: its mean u8 value inside the
+    # mask, and the mean difference of the two renders there
+    pbr, inside = {}, []
+    with open(data / "transforms_test.json") as f:
+        frames = json.load(f)["frames"]
+    for i, frame in enumerate(frames):
+        stem = frame["file_path"].split("/")[-1]
+        inside.append(read_png(str(data / "test_rli" / f"envmap6_{stem}.png"))
+                      [..., 3] > 0)
+        for t in ("env6", "env12"):
+            pbr.setdefault(t, []).append(read_png(str(
+                model_dir / "test_rli" / t / "pbr" / f"{i}.png")).astype(
+                    np.int64))
+    pbr_mean = {t: float(np.mean([x[m].mean() for x, m in zip(v, inside)]))
+                for t, v in pbr.items()}
+    pbr_apart = float(np.mean([np.abs(a - b)[m].mean() for a, b, m in zip(
+        pbr["env6"], pbr["env12"], inside)]))
+    if not pbr_apart > 1.0:
+        raise AssertionError(f"relight-eval: the renders under the two maps "
+                             f"differ by {pbr_apart} u8 inside the mask "
+                             f"(means {pbr_mean})")
+    view_ms = renders.ms
+    breakdown = syn4_view_breakdown(
+        cli["stage2"] / f"chkpnt{cli['n2']}.npz", data, envs, frames[0],
+        device)
+    say("relight-eval", rays=k3_rays, samples=SYN4_SAMPLES,
+        points=k3_rays // SYN4_SAMPLES, k3_ms=f"{k3_ms:.4f}",
+        views=len(view_ms),
+        ms_per_view_median=f"{float(np.median(view_ms[1:])):.3f}",
+        view_ms=[round(ms, 3) for ms in view_ms], setup_s=f"{setup_s:.2f}",
+        wall_s=f"{wall:.2f}", phase_s=f"{time.perf_counter() - t0:.2f}",
+        peak_mem_gib=f"{peak:.2f}",
+        launches=launches, pbr_mean_u8_in_mask={t: round(v, 3) for t, v in
+                                                pbr_mean.items()},
+        pbr_env6_vs_env12_u8_in_mask=f"{pbr_apart:.3f}")
+    say("relight-eval-breakdown", **breakdown)
+    say("relight-eval-metrics", **{t: "; ".join(f"{k} {v}" for k, v in
+                                                m.items())
+                                   for t, m in metrics.items()})
+    return {"launches": launches, "k3_ms": k3_ms, "k3_rays": k3_rays,
+            **traced_k3}
+
+
+def finetune_vis_phase(s2: dict, device) -> dict:
+    """train.stage2.finetune_visibility for FINETUNE_ITERS iterations on a
+    copy of the stage2 phase's model: K3 once an iteration (P rays), the
+    losses finite. Returns its launches."""
+    t0 = time.perf_counter()
+    src = s2["model"]
+    model = GaussianModel(**{k: getattr(src, k).detach().clone()
+                             for k in src.fields})
+    torch.cuda.synchronize()
+    reset_launches()
+    (_, losses), ms = timed_ms(lambda: stage2.finetune_visibility(
+        model, FINETUNE_ITERS,
+        generator=torch.Generator(device=device).manual_seed(SEED + 8)))
+    launches = read_launches()
+    losses = losses.cpu().numpy()
+    expect = {"K3": FINETUNE_ITERS, "K1": 0, "K2": 0, "K4-fwd": 0, "K5": 0}
+    if any(launches[k] != v for k, v in expect.items()) or not (
+            np.isfinite(losses).all() and losses.shape == (FINETUNE_ITERS,)):
+        raise AssertionError(f"finetune-vis: launches {launches} (expected "
+                             f"{expect}), losses {losses}")
+    say("finetune-vis", points=model.num_points, iterations=FINETUNE_ITERS,
+        ms_per_iteration=f"{ms / FINETUNE_ITERS:.3f}",
+        phase_s=f"{time.perf_counter() - t0:.2f}", launches=launches,
+        loss_first=f"{losses[0]:.5f}",
+        loss_last5_mean=f"{losses[-5:].mean():.5f}")
+    return {"launches": launches}
 
 
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
@@ -1537,16 +2105,33 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = ()) -> None:
                          "K4-bwd": "shade_bwd_kernel"})
 
     # 17. the README's commands through the CLIs
-    cli_launches = cli_phase(scene_model, device)
+    cli = cli_phase(scene_model, device)
+    cli_launches = cli["launches"]
+    # 18. composition and relighting through cli.relighting
+    relight = relight_phase(s2, cli, device)
+    # 19. the Synthetic4Relight eval through cli.eval_relighting_syn4
+    relight_eval = relight_eval_phase(cli, device)
+    # 20. the visibility SH fit
+    finetune = finetune_vis_phase(s2, device)
 
     s2_launches = s2["launches"]
     print(json.dumps({"kernels": [
         {"name": "K1 composite_fwd", "route": "cuda", "source": K1_SOURCE,
-         "replaces": K1_REPLACES, "launches": launches["K1"], **main_k1},
+         "replaces": K1_REPLACES, "launches": launches["K1"], **main_k1,
+         "relight_launches": relight["launches"]["K1"],
+         "relight_eval_launches": relight_eval["launches"]["K1"]},
         {"name": "K2 composite_bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2},
         {"name": "K3 ray_trace", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": s2_launches["K3"], **main_k3},
+         "replaces": K3_REPLACES, "launches": s2_launches["K3"], **main_k3,
+         "relight_launches": relight["launches"]["K3"],
+         "relight_rays": relight["k3_rays"], "relight_ms": relight["k3_ms"],
+         "relight_max_abs_err": relight["k3_max_abs_err"],
+         "relight_eval_launches": relight_eval["launches"]["K3"],
+         "relight_eval_rays": relight_eval["k3_rays"],
+         "relight_eval_ms": relight_eval["k3_ms"],
+         "relight_eval_max_abs_err": relight_eval["k3_max_abs_err"],
+         "finetune_vis_launches": finetune["launches"]["K3"]},
         {"name": "K4 shade_fwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4F_REPLACES, "launches": s2_launches["K4-fwd"],
          **main_k4f},

@@ -42,6 +42,31 @@ def add_dataclass_args(parser: ArgumentParser, cls, name: str) -> None:
                                default=field.default)
 
 
+MULTI_GPU_QUEUE = "ROADMAP queue 1 item 4"
+NO_EFFECT = "accepted for the JAX CLI's flag surface; no effect here"
+
+
+def add_tpu_flags(parser: ArgumentParser) -> None:
+    """The JAX CLIs' TPU-only flags: --no_auto_plan and the tracer's caps
+    are accepted with no effect; --n_devices > 1 is refused by
+    `refuse_multi_gpu`."""
+    parser.add_argument("--no_auto_plan", action="store_true", help=NO_EFFECT)
+    parser.add_argument("--n_devices", type=int, default=1,
+                        help=f"values > 1 are refused ({MULTI_GPU_QUEUE})")
+    parser.add_argument("--trace_max_clusters", type=int, default=0,
+                        help=NO_EFFECT)
+    parser.add_argument("--trace_max_supers", type=int, default=0,
+                        help=NO_EFFECT)
+
+
+def refuse_multi_gpu(args: Namespace, what: str) -> None:
+    """Raise SystemExit for --n_devices > 1: multi-GPU `what` is not
+    ported."""
+    if (getattr(args, "n_devices", 1) or 1) > 1:
+        raise SystemExit(f"--n_devices {args.n_devices}: multi-GPU {what} "
+                         f"is not ported yet ({MULTI_GPU_QUEUE})")
+
+
 def extract(cls, args: Namespace):
     fields = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in vars(args).items() if k in fields})

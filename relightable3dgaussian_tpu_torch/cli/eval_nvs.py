@@ -3,10 +3,9 @@
 Port of relightable3dgaussian_tpu/cli/eval_nvs.py (the reference's
 eval_nvs.py): load a trained model (an npz checkpoint, or the newest
 point_cloud/iteration_N PLY), render the train and test splits, save the
-images and write PSNR and SSIM to metric_{split}.txt. LPIPS is not ported
-yet (ROADMAP queue 1 item 4), so it is left out, as the JAX CLI leaves it out
-without LPIPS weights. With `-t neilf` the visibility is traced anew (kernel
-K3) and the env light is read from env_light_<checkpoint name>.
+images and write PSNR, SSIM and, where LPIPS has weights (losses/lpips.py),
+LPIPS to metric_{split}.txt. With `-t neilf` the visibility is traced anew
+(kernel K3) and the env light is read from env_light_<checkpoint name>.
 
 Usage:
   python -m relightable3dgaussian_tpu_torch.cli.eval_nvs -s <data> \
@@ -21,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import losses
+from ..losses import lpips
 from ..models import gaussians as G
 from ..models.lights import DirectLightMap
 from ..models.render import render
@@ -30,7 +30,8 @@ from ..scene.image_io import save_image_u8
 from ..train import checkpoint as ckpt
 from ..train.config import ModelConfig, OptimizationConfig, PipelineConfig
 from ..utils.image import psnr as psnr_fn, visualize_depth
-from .arguments import build_parser, extract, get_combined_args
+from .arguments import (add_tpu_flags, build_parser, extract,
+                        get_combined_args, refuse_multi_gpu)
 from .train import background, raster_config, require_device
 
 
@@ -63,7 +64,8 @@ def render_set(out_dir: str, name: str, cams, render_one, device) -> dict:
     device)."""
     os.makedirs(os.path.join(out_dir, name, "renders"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, name, "gt"), exist_ok=True)
-    psnrs, ssims, view_ms = [], [], []
+    psnrs, ssims, lpipss, view_ms = [], [], [], []
+    use_lpips = lpips.available()
 
     def hwc(x):
         return np.moveaxis(x.detach().cpu().numpy(), 0, -1)
@@ -75,6 +77,8 @@ def render_set(out_dir: str, name: str, cams, render_one, device) -> dict:
         img = res["pbr"] if "pbr" in res else res["render"]
         psnrs.append(float(psnr_fn(img[None], gt[None]).mean()))
         ssims.append(float(losses.ssim(img, gt)))
+        if use_lpips:
+            lpipss.append(float(lpips.lpips(img, gt)))
         view_ms.append((time.perf_counter() - t0) * 1e3)
         save_image_u8(os.path.join(out_dir, name, "renders", f"{i:05d}.png"),
                       hwc(img))
@@ -90,6 +94,8 @@ def render_set(out_dir: str, name: str, cams, render_one, device) -> dict:
                 os.path.join(out_dir, name, "renders", f"{i:05d}_normal.png"),
                 hwc(res["normal"] * 0.5 + 0.5))
     metrics = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+    if lpipss:
+        metrics[lpips.metric_name()] = float(np.mean(lpipss))
     with open(os.path.join(out_dir, f"metric_{name}.txt"), "w") as f:
         for k, v in metrics.items():
             f.write(f"{k}: {v}\n")
@@ -104,14 +110,7 @@ def build_eval_parser():
     parser.add_argument("-c", "--checkpoint", default=None)
     parser.add_argument("--skip_train", action="store_true")
     parser.add_argument("--skip_test", action="store_true")
-    no_effect = "accepted for the JAX CLI's flag surface; no effect here"
-    parser.add_argument("--no_auto_plan", action="store_true", help=no_effect)
-    parser.add_argument("--n_devices", type=int, default=1,
-                        help="values > 1 are refused (ROADMAP queue 1 item 4)")
-    parser.add_argument("--trace_max_clusters", type=int, default=0,
-                        help=no_effect)
-    parser.add_argument("--trace_max_supers", type=int, default=0,
-                        help=no_effect)
+    add_tpu_flags(parser)
     return parser
 
 
@@ -120,9 +119,7 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
     device = torch.device(device)
     require_device(device)
     args = get_combined_args(build_eval_parser(), argv)
-    if (args.n_devices or 1) > 1:
-        raise SystemExit(f"--n_devices {args.n_devices}: multi-GPU evaluation "
-                         "is not ported yet (ROADMAP queue 1 item 4)")
+    refuse_multi_gpu(args, "evaluation")
     model_cfg = extract(ModelConfig, args)
     pipe = extract(PipelineConfig, args)
     is_pbr = args.type == "neilf"

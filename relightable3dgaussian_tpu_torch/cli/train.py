@@ -24,9 +24,8 @@ its tracer is exact, so it has no caps. Their flags (--capacity,
 --max_tiles_per_gaussian, --trace_max_clusters, --trace_max_supers) are
 accepted and have no effect; --max_capacity > 0 is refused, as there is no
 capacity to cap. --n_devices > 1 and --gui are refused: multi-GPU training
-and the viewer are ROADMAP queue 1 item 4. LPIPS is not ported yet, so the
-final metrics are PSNR and SSIM, as the JAX CLI writes them without LPIPS
-weights.
+and the viewer are ROADMAP queue 1 item 4. The final metrics add LPIPS
+where it has weights (losses/lpips.py), as the JAX CLI's do.
 """
 from __future__ import annotations
 
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import losses
+from ..losses import lpips
 from ..models import gaussians as G
 from ..models import lights
 from ..models.render import render
@@ -52,9 +52,9 @@ from ..train import stage1, stage2
 from ..train.optim import make_env_optimizer, make_optimizer, start_state
 from ..utils.image import psnr as psnr_fn, visualize_depth
 from ..utils.logging import MetricsLogger, debug_dump, save_training_vis
-from .arguments import build_parser, extract_all, save_cfg_args
-
-QUEUE_REST = "ROADMAP queue 1 item 4"
+from .arguments import (MULTI_GPU_QUEUE, NO_EFFECT, add_tpu_flags,
+                        build_parser, extract_all, refuse_multi_gpu,
+                        save_cfg_args)
 
 
 class ModelCollapseError(RuntimeError):
@@ -82,11 +82,10 @@ def background(cfg: RasterConfig, device) -> torch.Tensor:
 
 
 def refuse_unsupported(args) -> None:
-    if (getattr(args, "n_devices", 1) or 1) > 1:
-        raise SystemExit(f"--n_devices {args.n_devices}: multi-GPU training "
-                         f"is not ported yet ({QUEUE_REST})")
+    refuse_multi_gpu(args, "training")
     if getattr(args, "gui", False):
-        raise SystemExit(f"--gui: the viewer is not ported yet ({QUEUE_REST})")
+        raise SystemExit(f"--gui: the viewer is not ported yet "
+                         f"({MULTI_GPU_QUEUE})")
     if getattr(args, "max_capacity", 0):
         raise SystemExit("--max_capacity: the port keeps only the live "
                          "gaussians and has no capacity to cap")
@@ -455,8 +454,9 @@ def _run_stage2(state, views, cfg, opt, spatial_lr_scale, first_iter,
 @torch.no_grad()
 def evaluate(scene, model, env, vis, model_cfg, device) -> None:
     """Final test metrics and per-image dumps (reference eval_render,
-    train.py:319-380): the SH render's PSNR and SSIM over every test
-    camera, and the PBR render's and its BRDF maps when stage 2 ran."""
+    train.py:319-380): the SH render's PSNR, SSIM and (with weights) LPIPS
+    over every test camera, and the PBR render's and its BRDF maps when
+    stage 2 ran."""
     test_cams = scene.get_test_cameras()
     is_pbr = env is not None and vis is not None
     cfg = raster_config(test_cams, model_cfg.white_background)
@@ -467,13 +467,17 @@ def evaluate(scene, model, env, vis, model_cfg, device) -> None:
     def to_hwc(x):
         return np.clip(x.detach().cpu().numpy().transpose(1, 2, 0), 0, 1)
 
-    m = {"psnr": [], "ssim": [], "psnr_pbr": [], "ssim_pbr": []}
+    use_lpips = lpips.available()
+    m = {"psnr": [], "ssim": [], "lpips": [], "psnr_pbr": [], "ssim_pbr": [],
+         "lpips_pbr": []}
     for i, cam in enumerate(test_cams):
         view = cam.view_inputs(device)
         res = render(view, model, cfg, bg)
         img = res["render"]
         m["psnr"].append(float(psnr_fn(img[None], view.image[None]).mean()))
         m["ssim"].append(float(losses.ssim(img, view.image)))
+        if use_lpips:
+            m["lpips"].append(float(lpips.lpips(img, view.image)))
         save_image_u8(os.path.join(out_dir, f"{i:03d}_render.png"),
                       to_hwc(img))
         save_image_u8(os.path.join(out_dir, f"{i:03d}_gt.png"),
@@ -490,6 +494,8 @@ def evaluate(scene, model, env, vis, model_cfg, device) -> None:
             m["psnr_pbr"].append(
                 float(psnr_fn(pbr[None], view.image[None]).mean()))
             m["ssim_pbr"].append(float(losses.ssim(pbr, view.image)))
+            if use_lpips:
+                m["lpips_pbr"].append(float(lpips.lpips(pbr, view.image)))
             for key in ("pbr", "base_color", "roughness", "lights",
                         "visibility"):
                 if key in pres:
@@ -499,10 +505,15 @@ def evaluate(scene, model, env, vis, model_cfg, device) -> None:
                     save_image_u8(
                         os.path.join(out_dir, f"{i:03d}_{key}.png"), im)
 
+    lp = lpips.metric_name()
     lines = [f"psnr: {np.mean(m['psnr'])}", f"ssim: {np.mean(m['ssim'])}"]
+    if m["lpips"]:
+        lines.append(f"{lp}: {np.mean(m['lpips'])}")
     if m["psnr_pbr"]:
         lines += [f"psnr_pbr: {np.mean(m['psnr_pbr'])}",
                   f"ssim_pbr: {np.mean(m['ssim_pbr'])}"]
+        if m["lpips_pbr"]:
+            lines.append(f"{lp}_pbr: {np.mean(m['lpips_pbr'])}")
     print("[EVAL] " + "  ".join(lines) + f"  ({len(test_cams)} views)")
     with open(os.path.join(model_cfg.model_path, "metric_test.txt"),
               "w") as f:
@@ -514,25 +525,18 @@ def build_train_parser():
     parser.add_argument("-t", "--type", choices=["render", "neilf"],
                         default="render")
     parser.add_argument("-c", "--checkpoint", default=None)
-    parser.add_argument("--n_devices", type=int, default=1,
-                        help=f"values > 1 are refused ({QUEUE_REST})")
-    no_effect = "accepted for the JAX CLI's flag surface; no effect here"
-    parser.add_argument("--capacity", type=int, default=0, help=no_effect)
+    add_tpu_flags(parser)
+    parser.add_argument("--capacity", type=int, default=0, help=NO_EFFECT)
     parser.add_argument("--max_capacity", type=int, default=0,
                         help="refused when > 0: the port has no capacity")
     parser.add_argument("--max_init_points", type=int, default=0)
     parser.add_argument("--buffer_multiple", type=int, default=0,
-                        help=no_effect)
-    parser.add_argument("--no_auto_plan", action="store_true", help=no_effect)
-    parser.add_argument("--chunk", type=int, default=0, help=no_effect)
+                        help=NO_EFFECT)
+    parser.add_argument("--chunk", type=int, default=0, help=NO_EFFECT)
     parser.add_argument("--max_chunks_per_tile", type=int, default=0,
-                        help=no_effect)
+                        help=NO_EFFECT)
     parser.add_argument("--max_tiles_per_gaussian", type=int, default=0,
-                        help=no_effect)
-    parser.add_argument("--trace_max_clusters", type=int, default=0,
-                        help=no_effect)
-    parser.add_argument("--trace_max_supers", type=int, default=0,
-                        help=no_effect)
+                        help=NO_EFFECT)
     parser.add_argument("--save_interval", type=int, default=5000)
     parser.add_argument("--checkpoint_interval", type=int, default=5000)
     parser.add_argument("--log_interval", type=int, default=100)
@@ -549,7 +553,7 @@ def build_train_parser():
                              "(progressive refinement, "
                              "direct_light_map.py:85-101)")
     parser.add_argument("--gui", action="store_true",
-                        help=f"refused ({QUEUE_REST})")
+                        help=f"refused ({MULTI_GPU_QUEUE})")
     parser.add_argument("--collapse_min_points", type=int, default=32,
                         help="abort (exit 3) when active gaussians fall "
                              "below this floor, drop >55%% in one densify "

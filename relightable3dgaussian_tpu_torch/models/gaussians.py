@@ -14,14 +14,15 @@ the PBR rows stay aligned. Nothing is ever dropped for want of capacity.
 """
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..ops.knn import mean_sq_dist_to_3nn
-from ..utils.quaternions import inverse_sigmoid, quaternion_to_rotmat
+from ..utils.quaternions import (inverse_sigmoid, quaternion_multiply,
+                                 quaternion_to_rotmat, rotmat_to_quaternion)
 from ..utils.sh import rgb_to_sh
 
 MAX_SH_DEGREE = 3
@@ -181,6 +182,48 @@ def create_from_pcd(points: torch.Tensor, colors: torch.Tensor,
         shs_rest=torch.zeros((n, N_SH - 1, 3), device=dev), scaling=scales,
         rotation=rot,
         opacity=inverse_sigmoid(torch.full((n, 1), 0.1, device=dev)))
+
+
+# ---------------------------------------------------------------------------
+# Composition (the relighting CLI's)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def set_transform(model: GaussianModel,
+                  transform: torch.Tensor) -> GaussianModel:
+    """A new model: `model` under the 4x4 affine `transform` (rotation,
+    scale, translation; gaussian_model.py:88-112), on the model's device,
+    with zero statistics. As the JAX package computes it: the scale is the
+    norm of each row of the 3x3 block, the raw normals are rotated and not
+    renormalized, and the rotation's quaternion multiplies the raw
+    (unnormalized) quaternions."""
+    transform = torch.as_tensor(transform, dtype=model.xyz.dtype,
+                                device=model.xyz.device)
+    A = transform[:3, :3]
+    scale = torch.linalg.norm(A, dim=-1)            # per row
+    rot = A / scale[:, None]
+    xyz1 = torch.cat([model.xyz, torch.ones_like(model.xyz[:, :1])], dim=-1)
+    values = {k: getattr(model, k).detach().clone() for k in model.fields}
+    values.update(
+        xyz=(xyz1 @ transform.T)[:, :3],
+        scaling=torch.log(model.get_scaling * scale[None, :]),
+        normal=model.normal @ rot.T,
+        rotation=quaternion_multiply(rotmat_to_quaternion(rot)[None, :],
+                                     model.rotation))
+    return GaussianModel(**values)
+
+
+@torch.no_grad()
+def concatenate(models: Sequence[GaussianModel]) -> GaussianModel:
+    """One model of the rows of `models` in turn (gaussian_model.py:344-356,
+    `create_from_gaussians`), with zero statistics. Every model must hold
+    the PBR fields."""
+    lacking = [i for i, m in enumerate(models) if not m.has_pbr]
+    if lacking:
+        raise ValueError(f"concatenate: models {lacking} have no PBR fields")
+    return GaussianModel(**{k: torch.cat([getattr(m, k).detach()
+                                          for m in models])
+                            for k in models[0].fields})
 
 
 # ---------------------------------------------------------------------------

@@ -5,17 +5,21 @@
 optional 3×3 direction transform. Both are queried by `equirect_query`,
 whose bilinear lookup is `F.grid_sample` with align_corners=True and zero
 padding, which the JAX package replicates. Its one-hot-matmul branch for
-small maps is a TPU workaround and is not carried over. Loading an HDR file
-comes with the relighting entry points.
+small maps is a TPU workaround and is not carried over. `load_env_light`
+reads a relighting map: EXR (ZIP, RLE or none) and Radiance HDR as linear,
+any other file as an 8-bit sRGB PNG, by the port's own readers.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.graphics import srgb_to_rgb
 
 
 def grid_sample_bilinear(img: torch.Tensor, gx: torch.Tensor,
@@ -93,6 +97,29 @@ class EnvLight(NamedTuple):
 
     def direct_light(self, dirs: torch.Tensor) -> torch.Tensor:
         return equirect_query(self.envmap, dirs, self.transform)
+
+
+def load_env_light(path: str, scale: float = 1.0,
+                   device: torch.device | str = "cuda") -> EnvLight:
+    """The linear HDR map of `path` times `scale` as an `EnvLight` on
+    `device` (the card unless the caller asks for the CPU)."""
+    img = _load_image_linear(path)
+    return EnvLight(envmap=torch.as_tensor(img * scale, dtype=torch.float32,
+                                           device=device))
+
+
+def _load_image_linear(path: str) -> np.ndarray:
+    """[H, W, 3] float32 linear radiance: .exr and .hdr as stored, any other
+    file as an 8-bit PNG / 255 through the sRGB decode."""
+    from ..scene import exr, image_io  # the scene package imports this one
+    if path.endswith(".exr"):
+        arr = exr.read_exr_rgb(path)
+    elif path.endswith(".hdr"):
+        arr = exr.read_hdr(path)
+    else:
+        arr = image_io.read_png(path)[:, :, :3].astype(np.float32) / 255.0
+        arr = srgb_to_rgb(torch.from_numpy(arr)).numpy()
+    return arr[:, :, :3].astype(np.float32)
 
 
 def query_light(light, dirs: torch.Tensor) -> torch.Tensor:

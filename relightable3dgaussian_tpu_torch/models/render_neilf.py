@@ -127,12 +127,18 @@ def _shade_points(base_color, roughness, normal, viewdirs, incidents, env,
 def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
                 bg_color: torch.Tensor, env, vis: VisibilityCache,
                 is_training: bool, mean2d_offset: torch.Tensor | None = None,
-                opt: OptimizationConfig | None = None) -> dict[str, Any]:
+                opt: OptimizationConfig | None = None,
+                base_color_scale: torch.Tensor | None = None
+                ) -> dict[str, Any]:
     """Shade, splat and unpack one view; returns the reference results dict
     (eval adds the specular and light maps and the environment
-    background)."""
+    background). `base_color_scale` [3] multiplies the linear base color
+    before the shading (the relighting benchmark's per-scene albedo scale,
+    eval_relighting_syn4.py:95-105)."""
     cam = view.cam
     base_color = model.get_base_color
+    if base_color_scale is not None:
+        base_color = base_color * base_color_scale[None, :]
     roughness = model.get_roughness
     normal = model.get_normal
     viewdirs = cam.campos[None, :] - model.xyz
@@ -317,13 +323,15 @@ def render_neilf(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
                  bg_color: torch.Tensor, env, vis: VisibilityCache,
                  opt: OptimizationConfig | None = None,
                  is_training: bool = False,
-                 mean2d_offset: torch.Tensor | None = None) -> dict[str, Any]:
+                 mean2d_offset: torch.Tensor | None = None,
+                 base_color_scale: torch.Tensor | None = None
+                 ) -> dict[str, Any]:
     """Stage-2 entry point (the reference's `render_neilf`); with
     `is_training` the results also hold "loss" and "tb_dict"."""
     if is_training and opt is None:
         raise ValueError("render_neilf: is_training needs an OptimizationConfig")
     results = render_view(model, view, cfg, bg_color, env, vis, is_training,
-                          mean2d_offset, opt)
+                          mean2d_offset, opt, base_color_scale)
     if is_training:
         results["loss"], results["tb_dict"] = calculate_loss(
             view, model, results, opt, env)

@@ -1,4 +1,4 @@
-"""OpenEXR scanline + Radiance HDR readers.
+"""OpenEXR scanline reader and ZIP writer, Radiance HDR reader.
 
 The port's own copy of relightable3dgaussian_tpu/scene/exr.py, numpy only
 (the port imports nothing of the JAX package and loads none of its native
@@ -7,8 +7,10 @@ code). The formats are read from their specs:
   * EXR: version-2 scanline files; NONE/RLE/ZIPS/ZIP decoded in numpy
     (zlib + delta predictor + byte de-interleave); HALF/FLOAT/UINT
     channels. PIZ (wavelet + Huffman), which the JAX package decodes with
-    its C++ module for the relighting env maps, raises NotImplementedError:
-    it comes with the relighting entry points (ROADMAP queue 1 item 3).
+    its C++ module, raises NotImplementedError: its decoder is the last,
+    droppable part of ROADMAP queue 1 item 3. `write_exr_zip` writes FLOAT
+    channels ZIP-compressed, byte for byte as the JAX package does (the
+    env maps of the relighting tests and chip_smoke.py).
   * Radiance .hdr: RGBE with adaptive RLE (the reference's composition /
     teaser maps).
 """
@@ -116,7 +118,8 @@ def read_exr(path: str) -> dict[str, np.ndarray]:
             if comp == 4:
                 raise NotImplementedError(
                     f"{path}: PIZ-compressed EXR is not read by the port yet "
-                    "(ROADMAP queue 1 item 3, the relighting entry points)")
+                    "(ROADMAP queue 1 item 3, the PIZ decoder); store the "
+                    "map with ZIP, RLE or no compression")
             if comp == 0 or size == expected:
                 # uncompressed (or stored raw because compression didn't help)
                 raw = data
@@ -161,6 +164,61 @@ def read_exr_rgb(path: str) -> np.ndarray:
     if len(names) < 3:
         raise ValueError(f"{path}: no RGB channels (has {list(ch)})")
     return np.stack([ch[n] for n in names], axis=-1)
+
+
+def write_exr_zip(path: str, img: np.ndarray,
+                  channel_names: tuple[str, ...] | None = None) -> None:
+    """Write [H, W, C] float32 as a ZIP-compressed (16 lines a block)
+    scanline EXR of FLOAT channels, R, G, B, A by default."""
+    img = np.asarray(img, np.float32)
+    H, W, C = img.shape
+    if channel_names is None:
+        channel_names = ("R", "G", "B", "A")[:C] if C <= 4 else tuple(
+            f"c{i}" for i in range(C))
+    order = sorted(range(C), key=lambda i: channel_names[i])
+
+    def attr(name: str, atype: str, data: bytes) -> bytes:
+        return (name.encode() + b"\x00" + atype.encode() + b"\x00"
+                + struct.pack("<i", len(data)) + data)
+
+    chan_data = b"".join(channel_names[i].encode() + b"\x00"
+                         + struct.pack("<i", 2)           # FLOAT
+                         + b"\x00\x00\x00\x00" + struct.pack("<ii", 1, 1)
+                         for i in order) + b"\x00"
+    dw = struct.pack("<4i", 0, 0, W - 1, H - 1)
+    header = (struct.pack("<iI", _MAGIC, 2)
+              + attr("channels", "chlist", chan_data)
+              + attr("compression", "compression", b"\x03")
+              + attr("dataWindow", "box2i", dw)
+              + attr("displayWindow", "box2i", dw)
+              + attr("lineOrder", "lineOrder", b"\x00")
+              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + b"\x00")
+
+    lpb = _LINES_PER_BLOCK[3]
+    blocks = []
+    for y0 in range(0, H, lpb):
+        raw = b"".join(img[y, :, i].tobytes()
+                       for y in range(y0, min(y0 + lpb, H)) for i in order)
+        # the reader's postprocess undone: byte-split, then delta-encode
+        b8 = np.frombuffer(raw, np.uint8)
+        split = np.concatenate([b8[0::2], b8[1::2]]).astype(np.int32)
+        deltas = np.concatenate([split[:1], (split[1:] - split[:-1] + 128)
+                                 % 256]).astype(np.uint8)
+        comp = zlib.compress(deltas.tobytes())
+        blocks.append((y0, comp if len(comp) < len(b8) else raw))
+
+    with open(path, "wb") as f:
+        f.write(header)
+        offsets, pos = [], len(header) + 8 * len(blocks)
+        for _, comp in blocks:
+            offsets.append(pos)
+            pos += 8 + len(comp)
+        f.write(struct.pack(f"<{len(blocks)}Q", *offsets))
+        for y0, comp in blocks:
+            f.write(struct.pack("<ii", y0, len(comp)) + comp)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,9 @@ env map's Adam, then the densification statistics. Every field steps, as
 the JAX package's `adam_step` steps every leaf: a field no loss reached
 (the normals, the visibility SH) gets a zero gradient, not none.
 `run_training_schedule` is the JAX host loop, continuing the iteration
-count from `first_iter`. `finetune_visibility` comes with the CLI path that
-calls it.
+count from `first_iter`. `finetune_visibility` distills traced visibility
+into the visibility SH (one K3 launch an iteration on the card); as in the
+JAX package, no config flag calls it.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from ..models.render import ViewInputs
 from ..models.render_neilf import (VisibilityCache, render_neilf,
                                    update_visibility)
 from ..ops.config import RasterConfig
+from ..ops.ray_trace import build_bvh, trace_visibility
+from ..utils.sh import eval_sh
 from .config import OptimizationConfig
 from .optim import learning_rates, set_learning_rates
 from .stage1 import (StepTimer, backward_or_zero_grads, densify_step,
@@ -44,6 +47,59 @@ def setup_stage2(model: G.GaussianModel, sample_num: int,
     env = DirectLightMap(env_resolution, light_init, generator,
                          device=model.xyz.device)
     return vis, env
+
+
+def finetune_visibility(model: G.GaussianModel, iterations: int = 1000,
+                        lr: float = 1e-2,
+                        generator: torch.Generator | None = None,
+                        directions: torch.Tensor | None = None
+                        ) -> tuple[G.GaussianModel, torch.Tensor]:
+    """Distill ray-traced visibility into the model's degree-3 visibility SH
+    (gaussian_model.py:275-310), in place, on the model's device. Each
+    iteration takes one random direction per point, flipped into the
+    normal's hemisphere, traces the P rays from the points' centres (one K3
+    launch on the card), and takes an Adam step (β 0.9, 0.999, ε 1e-8, the
+    JAX package's hand-rolled one) on the mean L1 between
+    clip(SH(d) + 0.5, 0, 1) and the traced value. The directions are
+    standard normal [P, 3] draws from `generator`, or `directions`
+    [iterations, P, 3] when given (a JAX key's draws, replayed). Returns
+    (model, the losses [iterations])."""
+    dev = model.xyz.device
+    P = model.num_points
+    with torch.no_grad():
+        xyz = model.xyz.detach()
+        normal = model.get_normal
+        bvh = build_bvh(xyz, model.get_scaling, model.get_rotation,
+                        model.get_opacity[:, 0], normal)
+    params = [model.visibility_dc.detach().clone().requires_grad_(True),
+              model.visibility_rest.detach().clone().requires_grad_(True)]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    losses = []
+    for i in range(iterations):
+        d = (directions[i].to(dev, torch.float32) if directions is not None
+             else torch.randn((P, 3), generator=generator, device=dev))
+        d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True),
+                            min=1e-12)
+        d = torch.where((d * normal).sum(-1, keepdim=True) < 0, -d, d)
+        traced = trace_visibility(bvh, xyz, d)             # [P, 1]
+        shs = torch.cat(params, dim=1)                      # [P, 16, 1]
+        pred = torch.clamp(eval_sh(3, shs.transpose(-1, -2), d) + 0.5,
+                           0.0, 1.0)
+        loss = (pred - traced).abs().sum() / max(P, 1)
+        grads = torch.autograd.grad(loss, params)
+        t = i + 1
+        with torch.no_grad():
+            for p, g, m, v in zip(params, grads, mu, nu):
+                m.mul_(0.9).add_(0.1 * g)
+                v.mul_(0.999).add_(0.001 * g * g)
+                p -= lr * ((m / (1 - 0.9 ** t))
+                           / (torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8))
+        losses.append(loss.detach())
+    with torch.no_grad():
+        model.visibility_dc.copy_(params[0])
+        model.visibility_rest.copy_(params[1])
+    return model, torch.stack(losses) if losses else torch.zeros(0)
 
 
 def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,

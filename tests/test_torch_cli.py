@@ -16,7 +16,9 @@ import torch
 
 from relightable3dgaussian_tpu.cli import train as jax_train_cli
 from relightable3dgaussian_tpu.train import config as jax_config
-from relightable3dgaussian_tpu_torch.cli import eval_nvs
+from relightable3dgaussian_tpu_torch.cli import (eval_nvs,
+                                                 eval_relighting_syn4,
+                                                 relighting)
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
 from relightable3dgaussian_tpu_torch.models import lights
 from relightable3dgaussian_tpu_torch.models.gaussians import GaussianModel
@@ -303,13 +305,22 @@ def entry_point_calls(dataset, stage1):
                                              str(stage1 / "never")]),
         "cli.eval_nvs": lambda: eval_nvs.main(["-s", str(dataset), "-m",
                                                str(stage1)]),
+        "load_env_light": lambda: lights.load_env_light(
+            str(dataset / "train" / "r_0.png")),
+        "cli.relighting": lambda: relighting.main(["-co", str(stage1),
+                                                   "--output",
+                                                   str(stage1 / "never")]),
+        "cli.eval_relighting_syn4": lambda: eval_relighting_syn4.main(
+            ["-s", str(dataset), "-m", str(stage1)]),
     }
 
 
 @pytest.mark.parametrize("name", ["load_checkpoint", "load_train_state",
                                   "from_numpy", "DirectLightMap",
                                   "make_camera_params", "view_inputs",
-                                  "cli.train", "cli.eval_nvs"])
+                                  "cli.train", "cli.eval_nvs",
+                                  "load_env_light", "cli.relighting",
+                                  "cli.eval_relighting_syn4"])
 def test_entry_points_default_to_the_card(dataset, stage1, name):
     """Without a device argument every entry point asks for the card; this
     torch has none, so each raises and none carries on on the CPU."""

@@ -1147,3 +1147,166 @@ def test_cli_stages_and_eval_on_the_card(cuda, tmp_path, monkeypatch):
         psnr = [(r["step"], r["test_psnr"]) for r in map(json.loads, f)
                 if "test_psnr" in r]
     assert [i for i, _ in psnr] == [10] and np.isfinite(psnr[0][1])
+
+
+# ---------------------------------------------------------------------------
+# relighting on the card
+# ---------------------------------------------------------------------------
+
+def pbr_cloud(seed: int, n: int) -> dict:
+    """`scene(seed, n)` with seeded PBR fields: opaque enough to shadow."""
+    d = scene(seed, n)
+    rng = np.random.default_rng(seed + 100)
+    f32 = np.float32
+    d["opacity"] = np.abs(d["opacity"]) + 1.0
+    d.update(base_color=rng.normal(size=(n, 3)).astype(f32),
+             roughness=rng.normal(size=(n, 1)).astype(f32),
+             incidents_dc=rng.normal(size=(n, 1, 3)).astype(f32),
+             incidents_rest=(rng.normal(size=(n, 15, 3)) * 0.1).astype(f32),
+             visibility_dc=rng.normal(size=(n, 1, 1)).astype(f32),
+             visibility_rest=rng.normal(size=(n, 15, 1)).astype(f32))
+    return d
+
+
+def side_by_side(offset: float, turn: float) -> np.ndarray:
+    """Scale 0.5, a turn about the vertical, a shift along x."""
+    c, s = np.cos(turn), np.sin(turn)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = 0.5 * np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    T[0, 3] = offset
+    return T
+
+
+@torch.no_grad()
+def test_update_visibility_of_a_composite_matches_plain(cuda):
+    """Two transformed clouds concatenated: update_visibility on the card
+    (one K3 launch) is K3's T under the 0.9 rule, K3's T is the plain
+    tracer's on the CPU under K3's gate, and on cloud A's rays the
+    composite's visibility is nowhere above A's alone (a 1e-5 share may
+    cross 0.9 by float order) and lower on some. A alone is the composite
+    with B's opacities below the tested 1/255, so both traces test the same
+    clusters (a trace of A under a BVH of its own groups its gaussians into
+    other clusters, and a gaussian outside its 3-sigma box but in a hit
+    cluster then counts in one trace only)."""
+    from relightable3dgaussian_tpu_torch.models import gaussians as G
+
+    def composite(device):
+        clouds = [G.set_transform(GaussianModel.from_numpy(
+            pbr_cloud(seed, 2000), device=device), torch.from_numpy(
+                side_by_side(x, turn)))
+            for seed, x, turn in ((1, -0.6, 0.0), (2, 0.6, np.pi / 2))]
+        comp = G.concatenate(clouds)
+        values = {k: getattr(comp, k).detach().clone() for k in comp.fields}
+        values["opacity"][clouds[0].num_points:] = -30.0
+        return GaussianModel(**values), comp
+
+    alone, comp = composite(cuda)
+    before = ray_trace_cuda.LAUNCHES
+    vis = render_neilf.update_visibility(comp, 16)
+    torch.cuda.synchronize()
+    assert ray_trace_cuda.LAUNCHES == before + 1
+    bvh, rays_o, rays_d = render_neilf.visibility_rays(comp, vis.incident_dirs)
+    o = rays_o + ray_trace.RAY_OFFSET * rays_d
+    T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
+    got = torch.empty_like(T)
+    got.view(comp.num_points, 16)[bvh.order] = torch.where(
+        T >= ray_trace.T_MIN, T, 0.0).view(-1, 16)
+    assert torch.equal(vis.visibility.reshape(-1), got)
+    want = ray_trace.trace_transmittance_plain(
+        ray_trace.GaussianBVH(*(x.cpu() for x in bvh)), o.cpu(),
+        rays_d.cpu())
+    assert_visibility_close(T.cpu(), want)
+    vis_alone = render_neilf.update_visibility(alone, 16).visibility[:2000]
+    on_a = vis.visibility[:2000]
+    above = (on_a > vis_alone + 1e-6).float().mean()
+    lower = (on_a < vis_alone - 1e-6).float().mean()
+    assert float(above) <= 1e-5 and float(lower) >= 1e-3, (above, lower)
+
+
+def test_relighting_frame_on_the_card_matches_cpu(cuda, tmp_path):
+    """cli.relighting.main on the card (K3 once, K1 once a frame) and on the
+    CPU, one 64x64 frame of two composed clouds under a rotated light:
+    every capture within 2/255 outside split pixels (those where the card's
+    and the CPU's blended counts differ)."""
+    import json
+    from relightable3dgaussian_tpu_torch.cli import relighting
+    from relightable3dgaussian_tpu_torch.scene import exr, ply_io
+    from relightable3dgaussian_tpu_torch.scene.image_io import read_png
+
+    entries = {}
+    for i, (seed, x, turn) in enumerate(((1, -0.6, 0.0), (2, 0.6, 1.2))):
+        path = tmp_path / f"m{i}.ply"
+        ply_io.save_gaussian_ply(str(path), pbr_cloud(seed, 1500))
+        entries[f"obj{i}"] = {"path": str(path), "transform":
+                              side_by_side(x, turn).reshape(-1).tolist()}
+    w2c = np.eye(4)
+    w2c[2, 3] = 3.0
+    rot = np.array([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]])
+    for name, obj in (
+            ("transform.json", entries),
+            ("trajectory.json", {"camera": {"width": 64, "height": 64},
+                                 "trajectory": {"0": w2c.reshape(-1).tolist()}}),
+            ("light_transform.json", {"transform": {"0": rot.reshape(-1)
+                                                    .tolist()}})):
+        with open(tmp_path / name, "w") as f:
+            json.dump(obj, f)
+    rng = np.random.default_rng(3)
+    exr.write_exr_zip(str(tmp_path / "env.exr"),
+                      (rng.random((16, 32, 3)) * 4).astype(np.float32))
+    captures = ["pbr_env", "base_color", "roughness", "visibility", "normal"]
+    outs = {}
+    for device in (cuda, "cpu"):
+        k1, k3 = composite_cuda.LAUNCHES, ray_trace_cuda.LAUNCHES
+        out_dir = tmp_path / str(device).replace(":", "")
+        relighting.main(["-co", str(tmp_path), "-e", str(tmp_path / "env.exr"),
+                         "--sample_num", "8", "--output", str(out_dir),
+                         "--capture_list", ",".join(captures)], device=device)
+        launched = (composite_cuda.LAUNCHES - k1, ray_trace_cuda.LAUNCHES - k3)
+        assert launched == ((1, 1) if device == cuda else (0, 0)), launched
+        outs[str(device)] = out_dir
+    # the split pixels: the composite rendered on both devices from one
+    # visibility cache
+    from relightable3dgaussian_tpu_torch.models.lights import EnvLight
+    from relightable3dgaussian_tpu_torch.scene.cameras import Camera
+    vis = render_neilf.update_visibility(
+        relighting.scene_composition(entries, cuda), 8)
+    counts = []
+    for dev in (cuda, torch.device("cpu")):
+        view_in = Camera(uid=0, R=w2c[:3, :3].T, T=w2c[:3, 3],
+                         fovx=relighting.CAMERA_ANGLE_X,
+                         fovy=relighting.CAMERA_ANGLE_X, width=64,
+                         height=64).view_inputs(dev)
+        with torch.no_grad():
+            res = render_neilf.render_neilf(
+                view_in, relighting.scene_composition(entries, dev),
+                RasterConfig(64, 64), torch.zeros(3, device=dev),
+                EnvLight(torch.ones((4, 8, 3), device=dev)),
+                render_neilf.VisibilityCache(*(x.to(dev) for x in vis)),
+                is_training=False)
+        counts.append(res["num_contrib"].cpu())
+    ok = (counts[0] == counts[1]).numpy()
+    assert ok.mean() > 0.99
+    for t in captures:
+        got = read_png(str(outs[str(cuda)] / t / "frame_0.png")).astype(int)
+        want = read_png(str(outs["cpu"] / t / "frame_0.png")).astype(int)
+        diff = np.abs(got - want).max(-1)
+        assert diff[ok].max() <= 2, (t, diff[ok].max())
+
+
+def test_lpips_on_the_card_matches_cpu(cuda, monkeypatch):
+    """LPIPS under the random backbone on the card against the CPU, rtol
+    1e-4 (TF32 off on both)."""
+    from relightable3dgaussian_tpu_torch.losses import lpips
+    monkeypatch.setenv("LPIPS_WEIGHTS", "random")
+    lpips._CACHE.clear()
+    try:
+        rng = np.random.default_rng(0)
+        x = torch.tensor(rng.uniform(0, 1, (3, 96, 128)), dtype=torch.float32)
+        y = (x + 0.1 * torch.tensor(rng.normal(size=x.shape),
+                                    dtype=torch.float32)).clamp(0, 1)
+        want = float(lpips.lpips(x, y))
+        got = lpips.lpips(x.to(cuda), y.to(cuda))
+        assert got.device.type == "cuda"
+        assert want > 0 and float(got) == pytest.approx(want, rel=1e-4)
+    finally:
+        lpips._CACHE.clear()

@@ -36,12 +36,18 @@ def test_port_imports_without_jax():
         "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "                ('jax', 'jaxlib', 'flax', 'relightable3dgaussian_tpu'))\n"
         "print('modules', len(names), 'cli' in str(names), 'scene' in str(names))\n"
+        "print('relighting', sorted(n for n in names if n.endswith(\n"
+        "    ('relighting', 'relighting_syn4', 'lpips'))))\n"
         "print('loaded', loaded, 'built', len(_build._LOADED))\n")
     proc = run_python(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr
     assert "modules" in proc.stdout and "True True" in proc.stdout, proc.stdout
     n_modules = int(proc.stdout.split("modules ")[1].split()[0])
-    assert n_modules >= 45, proc.stdout
+    assert n_modules >= 48, proc.stdout
+    assert ("relighting ['relightable3dgaussian_tpu_torch.cli."
+            "eval_relighting_syn4', 'relightable3dgaussian_tpu_torch.cli."
+            "relighting', 'relightable3dgaussian_tpu_torch.losses.lpips']"
+            in proc.stdout), proc.stdout
     assert ("loaded ['jax', 'relightable3dgaussian_tpu'] built 0"
             in proc.stdout), proc.stdout
 
@@ -59,6 +65,16 @@ def test_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)", re.MULTILINE)
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_sources_never_import_imageio():
+    """The card's machine has no imageio: the port's PNG codec and EXR and
+    HDR readers stand in for it, and the relighting CLI keeps its frames as
+    PNGs."""
+    pattern = re.compile(r"^\s*(import imageio|from imageio)", re.MULTILINE)
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []
 
