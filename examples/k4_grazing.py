@@ -7,11 +7,12 @@ direction of the first 200 points is set at V.N = +-eps (alternating signs)
 for eps from 0 to 2e-6, and chip_smoke.check_k4 holds K4 forward and
 backward against the plain shading in float64 (three seeds each), under
 k4-main's gate. The shading turns each normal to the viewer's side by
-sign(V.N): where float32 and float64 disagree on that sign, or float32
-finds V.N exactly 0, the point's shading is another function. Each failure
-prints the worst points: their view-normal cosine in float32 and float64,
-and K4's, the plain and the float64 values there. Needs an NVIDIA GPU and
-nvcc.
+sign(V.N): where K4's float32 sign and float64's disagree, or K4 finds V.N
+exactly 0, the point's shading is another function, and the gate leaves
+such points out; it prints each field that would fail with them in, with
+the worst points (their view-normal cosine in float32 and float64, K4's
+sign, and K4's, the plain and the float64 values there), and fails on a
+disagreement outside them. Needs an NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
 

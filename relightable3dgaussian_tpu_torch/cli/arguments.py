@@ -42,7 +42,7 @@ def add_dataclass_args(parser: ArgumentParser, cls, name: str) -> None:
                                default=field.default)
 
 
-MULTI_GPU_QUEUE = "ROADMAP queue 1 item 4"
+MULTI_GPU_QUEUE = "ROADMAP queue 1 item 4e"
 NO_EFFECT = "accepted for the JAX CLI's flag surface; no effect here"
 
 

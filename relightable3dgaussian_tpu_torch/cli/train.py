@@ -23,9 +23,11 @@ its tracer is exact, so it has no caps. Their flags (--capacity,
 --buffer_multiple, --no_auto_plan, --chunk, --max_chunks_per_tile,
 --max_tiles_per_gaussian, --trace_max_clusters, --trace_max_supers) are
 accepted and have no effect; --max_capacity > 0 is refused, as there is no
-capacity to cap. --n_devices > 1 and --gui are refused: multi-GPU training
-and the viewer are ROADMAP queue 1 item 4. The final metrics add LPIPS
-where it has weights (losses/lpips.py), as the JAX CLI's do.
+capacity to cap. --n_devices > 1 is refused: multi-GPU training is ROADMAP
+queue 1 item 4e. --gui embeds the viewer (cli/gui.py), one frame a step,
+where dearpygui is installed, and goes on without it where it is not, as
+the JAX CLI does. The final metrics add LPIPS where it has weights
+(losses/lpips.py), as the JAX CLI's do.
 """
 from __future__ import annotations
 
@@ -83,9 +85,6 @@ def background(cfg: RasterConfig, device) -> torch.Tensor:
 
 def refuse_unsupported(args) -> None:
     refuse_multi_gpu(args, "training")
-    if getattr(args, "gui", False):
-        raise SystemExit(f"--gui: the viewer is not ported yet "
-                         f"({MULTI_GPU_QUEUE})")
     if getattr(args, "max_capacity", 0):
         raise SystemExit("--max_capacity: the port keeps only the live "
                          "gaussians and has no capacity to cap")
@@ -226,6 +225,8 @@ def training(args, device) -> None:
             best.update(psnr=value, iter=iteration)
             save_best(iteration)
 
+    gui = open_viewer(args, state, cfg, bg, is_pbr, scene.cameras_extent,
+                      device)
     pending: list = []
     # On the card each step's phases are timed with CUDA events and logged
     # beside its metrics (step_ms, forward_ms, backward_ms, optimizer_ms).
@@ -267,6 +268,8 @@ def training(args, device) -> None:
         return last
 
     def callback(iteration, metrics):
+        if gui is not None and not gui.step():
+            raise KeyboardInterrupt("viewer window closed")
         pending.append((iteration, metrics))
         boundary = (iteration % 8 == 0
                     or iteration % args.log_interval == 0
@@ -333,12 +336,41 @@ def training(args, device) -> None:
         raise SystemExit(3)
     finally:
         logger.close()
+        if gui is not None:
+            gui.close_window()
     print(f"Training complete in {time.time() - t0:.0f}s; "
           f"{state['model'].num_points} gaussians")
 
     if model_cfg.eval and scene.get_test_cameras():
         evaluate(scene, state["model"], state["env"], state["vis"],
                  model_cfg, device)
+
+
+def open_viewer(args, state, cfg, bg, is_pbr: bool, extent: float, device):
+    """With --gui, the viewer's window embedded in the loop (reference
+    train.py:81-104), rendering the model as it trains; None without --gui
+    or without dearpygui (with the JAX CLI's message)."""
+    if not getattr(args, "gui", False):
+        return None
+    try:
+        import dearpygui.dearpygui  # noqa: F401
+    except ImportError:
+        print("--gui requested but dearpygui is not installed; "
+              "continuing without the viewer")
+        return None
+    from .gui import GUI
+
+    @torch.no_grad()
+    def gui_render_fn(camera):
+        view = camera.view_inputs(device)
+        if is_pbr:
+            return render_neilf(view, state["model"], cfg, bg, state["env"],
+                                state["vis"], is_training=False)
+        return render(view, state["model"], cfg, bg)
+
+    gui = GUI(cfg.width, cfg.height, gui_render_fn, radius=2.5 * extent)
+    gui.setup_window()
+    return gui
 
 
 def _quarantine_checkpoints(model_path: str, best_iter: int) -> None:
@@ -553,7 +585,9 @@ def build_train_parser():
                              "(progressive refinement, "
                              "direct_light_map.py:85-101)")
     parser.add_argument("--gui", action="store_true",
-                        help=f"refused ({MULTI_GPU_QUEUE})")
+                        help="live dearpygui viewer embedded in the loop "
+                             "(one frame a step; skipped without "
+                             "dearpygui)")
     parser.add_argument("--collapse_min_points", type=int, default=32,
                         help="abort (exit 3) when active gaussians fall "
                              "below this floor, drop >55%% in one densify "

@@ -26,7 +26,14 @@
 //     gradients of NoH and NoV off h and v with cross products
 //     (h x (n x h), v x (n x v)), and masks them, and VoH's, at the lower
 //     clip only: dot products of unit vectors pass 1 only by rounding.
-//     The same quantities, better conditioned.
+//     The same quantities, better conditioned. Likewise the half vector
+//     h0 = (d + V) / 2 adds V's float32 rounding error back (kept per
+//     point from float64): at a sample d near -V it cancels, and V's
+//     rounding alone moved the view-direction gradient by up to ~1.6e-4
+//     of its largest entry on a trained stage-2 model. And where the local
+//     light e is within float32's rounding of 0, the backward takes
+//     max(e, 0)'s branch from e in float64 (light64): float32's sign moved
+//     one point's SH gradient by ~2e-3.
 // The backward recomputes the forward chain, as the TPU kernel does, and
 // returns the analytic VJP for base colour, roughness, view direction, the
 // local-light SH and the per-sample global light (dgl [P, S, 3]); torch chains
@@ -87,6 +94,13 @@
 // is 43,520 bytes a block, under the 48 KB of static shared memory, so no
 // attribute is set: 5 blocks an SM by shared memory; the launch bounds ask
 // ptxas for registers that keep 5 (forward) and 4 (backward) blocks resident.
+//
+// The local light's branch: the backward's lanes mark a sample whose |e_c|
+// is below kSignTol sum_k |shs_kc| (the bound sits in the SH row's padding);
+// a point with one goes on a list (a count and the points, kept by the
+// caller), and shade_bwd_sign_fix_kernel, launched after, corrects those
+// points' SH gradients on a warp each. Marking is a compare a sample; a
+// trained stage-2 model lists few points, so the second launch is short.
 //
 // Plain C interface (built by nvcc into a shared library, bound with ctypes):
 // r3dg_shade_fwd and r3dg_shade_bwd return the first CUDA error, or 0.
@@ -237,26 +251,29 @@ __device__ __forceinline__ Rows point_rows(Stage& st, const Source& src,
           st.area + pt * kRow1 + phase(src.area + s1)};
 }
 
-// Degree-3 real SH basis, in utils/sh.py order and sign convention.
-__device__ __forceinline__ void sh_basis(float x, float y, float z, float* b) {
-  const float xx = x * x, yy = y * y, zz = z * z;
-  const float xy = x * y, yz = y * z, xz = x * z;
-  b[0] = 0.28209479177387814f;
-  b[1] = -0.4886025119029199f * y;
-  b[2] = 0.4886025119029199f * z;
-  b[3] = -0.4886025119029199f * x;
-  b[4] = 1.0925484305920792f * xy;
-  b[5] = -1.0925484305920792f * yz;
-  b[6] = 0.31539156525252005f * (2.f * zz - xx - yy);
-  b[7] = -1.0925484305920792f * xz;
-  b[8] = 0.5462742152960396f * (xx - yy);
-  b[9] = -0.5900435899266435f * y * (3.f * xx - yy);
-  b[10] = 2.890611442640554f * xy * z;
-  b[11] = -0.4570457994644658f * y * (4.f * zz - xx - yy);
-  b[12] = 0.3731763325901154f * z * (2.f * zz - 3.f * xx - 3.f * yy);
-  b[13] = -0.4570457994644658f * x * (4.f * zz - xx - yy);
-  b[14] = 1.445305721320277f * z * (xx - yy);
-  b[15] = -0.5900435899266435f * x * (xx - 3.f * yy);
+// Degree-3 real SH basis, in utils/sh.py order and sign convention. Each
+// constant rounds to the same float whether written as a float or as a
+// double literal.
+template <typename T>
+__device__ __forceinline__ void sh_basis(T x, T y, T z, T* b) {
+  const T xx = x * x, yy = y * y, zz = z * z;
+  const T xy = x * y, yz = y * z, xz = x * z;
+  b[0] = T(0.28209479177387814);
+  b[1] = T(-0.4886025119029199) * y;
+  b[2] = T(0.4886025119029199) * z;
+  b[3] = T(-0.4886025119029199) * x;
+  b[4] = T(1.0925484305920792) * xy;
+  b[5] = T(-1.0925484305920792) * yz;
+  b[6] = T(0.31539156525252005) * (T(2) * zz - xx - yy);
+  b[7] = T(-1.0925484305920792) * xz;
+  b[8] = T(0.5462742152960396) * (xx - yy);
+  b[9] = T(-0.5900435899266435) * y * (T(3) * xx - yy);
+  b[10] = T(2.890611442640554) * xy * z;
+  b[11] = T(-0.4570457994644658) * y * (T(4) * zz - xx - yy);
+  b[12] = T(0.3731763325901154) * z * (T(2) * zz - T(3) * xx - T(3) * yy);
+  b[13] = T(-0.4570457994644658) * x * (T(4) * zz - xx - yy);
+  b[14] = T(1.445305721320277) * z * (xx - yy);
+  b[15] = T(-0.5900435899266435) * x * (xx - T(3) * yy);
 }
 
 // e_c = sum_k basis_k shs[k, c] from a 16-byte aligned SH row (12 float4s).
@@ -281,6 +298,7 @@ struct Point {
   float nx, ny, nz;                 // normal as given (transport)
   float m_v, M_v;                   // length of the view direction
   float vx, vy, vz;                 // unit view direction
+  float vlx, vly, vlz;              // its rounding error (see ggx)
   float nsx, nsy, nsz;              // unit normal flipped towards v
   float r, alpha, alpha2, k;
   float NoV_raw, NoV, nom1;
@@ -296,6 +314,12 @@ __device__ __forceinline__ Point load_point(const float* __restrict__ nrm,
   q.m_v = sqrtf(vdx * vdx + vdy * vdy + vdz * vdz);
   q.M_v = fmaxf(q.m_v, 1e-12f);
   q.vx = vdx / q.M_v; q.vy = vdy / q.M_v; q.vz = vdz / q.M_v;
+  const double M_vd = fmax(sqrt(static_cast<double>(vdx) * vdx
+                                + static_cast<double>(vdy) * vdy
+                                + static_cast<double>(vdz) * vdz), 1e-12);
+  q.vlx = static_cast<float>(vdx / M_vd - q.vx);
+  q.vly = static_cast<float>(vdy / M_vd - q.vy);
+  q.vlz = static_cast<float>(vdz / M_vd - q.vz);
   const float M_n = fmaxf(sqrtf(q.nx * q.nx + q.ny * q.ny + q.nz * q.nz), 1e-12f);
   const float nhx = q.nx / M_n, nhy = q.ny / M_n, nhz = q.nz / M_n;
   const float s = q.vx * nhx + q.vy * nhy + q.vz * nhz;
@@ -322,9 +346,13 @@ struct Ggx {
 __device__ __forceinline__ Ggx ggx(const Point& pt, float dx, float dy,
                                    float dz) {
   Ggx s;
-  const float h0x = (dx + pt.vx) * 0.5f;
-  const float h0y = (dy + pt.vy) * 0.5f;
-  const float h0z = (dz + pt.vz) * 0.5f;
+  // h0 = (d + V) / 2 with V to twice float32's precision. Where d is near
+  // -V, d + V cancels: float32's rounding of V would be all of h0's error,
+  // eps / |h0| of it, and the gradients scale as 1 / |h0|. d + vx is exact
+  // there (Sterbenz), so adding the rounding error keeps h0 to a few eps.
+  const float h0x = ((dx + pt.vx) + pt.vlx) * 0.5f;
+  const float h0y = ((dy + pt.vy) + pt.vly) * 0.5f;
+  const float h0z = ((dz + pt.vz) + pt.vlz) * 0.5f;
   s.m_h = sqrtf(h0x * h0x + h0y * h0y + h0z * h0z);
   s.rM_h = 1.f / fmaxf(s.m_h, 1e-12f);
   s.hx = h0x * s.rM_h; s.hy = h0y * s.rM_h; s.hz = h0z * s.rM_h;
@@ -359,6 +387,26 @@ __device__ __forceinline__ Ggx ggx(const Point& pt, float dx, float dy,
   return s;
 }
 
+// max(e_c, 0) decides the SH gradient's branch: 1, 1/2 at 0, else 0. The
+// float32 basis is within ~10 eps of the exact one per entry, and the sum
+// of 16 products adds ~18 eps sum_k |shs_kc|: below kSignTol sum_k |shs_kc|
+// float32's e_c can have the other sign than the float64 reference's.
+constexpr float kSignTol = 1e-5f;
+
+__device__ __forceinline__ float relu_branch(float e) {
+  return e > 0.f ? 1.f : (e == 0.f ? 0.5f : 0.f);
+}
+
+// e_c in float64 from the float32 direction and SH row.
+__device__ __forceinline__ double light64(float x, float y, float z,
+                                          const float* shs_row, int c) {
+  double basis[kSH];
+  sh_basis<double>(x, y, z, basis);
+  double e = 0.0;
+  for (int k = 0; k < kSH; ++k) e += basis[k] * shs_row[3 * k + c];
+  return e;
+}
+
 // One sample's local light e_c (before the clip) and transport factor
 // an = area max(n . d, 0).
 __device__ __forceinline__ void light_terms(const Point& pt, float dx,
@@ -366,7 +414,7 @@ __device__ __forceinline__ void light_terms(const Point& pt, float dx,
                                             const float* shs_row, float* e,
                                             float& an) {
   float basis[kSH];
-  sh_basis(dx, dy, dz, basis);
+  sh_basis<float>(dx, dy, dz, basis);
   sh_light(basis, shs_row, e);
   an = area * fmaxf(pt.nx * dx + pt.ny * dy + pt.nz * dz, 0.f);
 }
@@ -463,7 +511,8 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
                  float* __restrict__ drough,       // [P]
                  float* __restrict__ dvdir,        // [P, 3]
                  float* __restrict__ dshs,         // [P, 48]
-                 float* __restrict__ dgl) {        // [P, S, 3]
+                 float* __restrict__ dgl,          // [P, S, 3]
+                 int* __restrict__ unsure_list) {  // [1 + P]: count, points
   __shared__ __align__(16) Smem sm;
   const int tid = threadIdx.x, lane = tid & 31;
   const int pt = tid / kGroup, g = tid % kGroup;
@@ -489,7 +538,8 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
       gS[c] = (gspec[3 * p + c] + gpc) * inv_s;
     }
   }
-  const float* shs_row = sm.shs + pt * kRowSH;
+  float* shs_row = sm.shs + pt * kRowSH;   // [48] SH, [48, 51) sign_tol
+  int unsure = 0;               // a sample with |e_c| below sign_tol_c
 
   float acc[kSums];
 #pragma unroll
@@ -501,6 +551,14 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
     stage_ahead(sm, src, p0, n_pts, ch + kStages - 1, tid);
     r3dg::cp_async_wait<kStages - 1>();   // this thread's chunk ch has landed
     __syncthreads();
+    if (ch == 0) {              // the SH rows landed with chunk 0
+      if (active && g < 3) {    // sign_tol_g = kSignTol sum_k |shs_kg|
+        float t = 0.f;
+        for (int k = 0; k < kSH; ++k) t += fabsf(shs_row[3 * k + g]);
+        shs_row[kSHC + g] = kSignTol * t;
+      }
+      __syncthreads();
+    }
     if (active) {
       const Rows rows = point_rows(st, src, p, pt, c0);
       for (int j = g; j < n; j += kGroup) {
@@ -520,8 +578,10 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
           const float glight = gtrans * an;
           rows.light[3 * j + c] = glight * v;      // dgl, over the light read
           // max(e, 0) passes half the gradient at e == 0, as jnp.maximum and
-          // torch.maximum do: the local-light SH start at zero in stage 2.
-          ge[c] = e[c] > 0.f ? glight : (e[c] == 0.f ? 0.5f * glight : 0.f);
+          // torch.maximum do: the local-light SH start at zero in stage 2
+          // (and all-zero SH give sign_tol 0: e is 0 in every precision).
+          ge[c] = relu_branch(e[c]) * glight;
+          unsure |= fabsf(e[c]) < shs_row[kSHC + c];
         }
 
         // GGX backward
@@ -560,7 +620,7 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
 
         // SH gradients, from the basis evaluated again
         float basis[kSH];
-        sh_basis(dx, dy, dz, basis);
+        sh_basis<float>(dx, dy, dz, basis);
 #pragma unroll
         for (int k = 0; k < kSH; ++k) {
 #pragma unroll
@@ -576,6 +636,14 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
     }
     __syncthreads();            // the next stage overwrites this buffer
   }
+
+  // The points with an unsure sample on any lane of their group go on a
+  // list; shade_bwd_sign_fix_kernel takes those samples' branch from
+  // float64.
+  unsure |= __shfl_xor_sync(r3dg::kFullMask, unsure, 1);
+  unsure |= __shfl_xor_sync(r3dg::kFullMask, unsure, 2);
+  if (active && g == 0 && unsure)
+    unsure_list[1 + atomicAdd(unsure_list, 1)] = p;
 
   r3dg::scatter_step<kSums / 2, 2>(acc, lane);
   r3dg::scatter_step<kSums / 4, 1>(acc, lane);
@@ -620,6 +688,109 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
     dbc[3 * p + c] = gpbr[3 * p + c] * (acc[c] / S) / kPi;
 }
 
+// The SH gradients of the points on K4-bwd's unsure list, a warp a point
+// (kFixWarps warps take the list in turn), lane l taking samples l,
+// l + 32, ...: every sample whose |e_c| is below sign_tol_c (as
+// shade_bwd_kernel finds it, in the same order) takes max(e, 0)'s branch
+// from e in float64, and where that branch differs from float32's, dshs
+// moves by the difference times the sample's light gradient, summed over
+// the warp in a fixed order. The list's order does not matter: each point
+// is one warp's.
+constexpr int kFixWarps = 512;
+
+// One point of shade_bwd_sign_fix_kernel, on one warp.
+__device__ __forceinline__ void sign_fix_point(
+    const float* __restrict__ dirs, const float* __restrict__ area,
+    const float* __restrict__ bc, const float* __restrict__ rough,
+    const float* __restrict__ nrm, const float* __restrict__ vdir,
+    const float* __restrict__ shs, const float* __restrict__ gpbr,
+    const float* __restrict__ gdif, const float* __restrict__ gspec, int p,
+    int S, int lane, float* __restrict__ dshs) {
+  const float* row = shs + static_cast<size_t>(p) * kSHC;
+  float tol[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k < kSH; ++k) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) tol[c] += fabsf(row[3 * k + c]);
+  }
+  const Point ptc = load_point(nrm, vdir, rough, p);
+  float gD[3], gS[3];
+  const float inv_s = 1.f / S;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    tol[c] *= kSignTol;
+    const float gpc = gpbr[3 * p + c];
+    gD[c] = (gdif[3 * p + c] + gpc * bc[3 * p + c] / kPi) * inv_s;
+    gS[c] = (gspec[3 * p + c] + gpc) * inv_s;
+  }
+  float fix_sum[kSHC];
+#pragma unroll
+  for (int i = 0; i < kSHC; ++i) fix_sum[i] = 0.f;
+  bool moved_any = false;
+  for (int j = lane; j < S; j += 32) {
+    const size_t at = static_cast<size_t>(p) * S + j;
+    const float dx = dirs[3 * at], dy = dirs[3 * at + 1], dz = dirs[3 * at + 2];
+    float basis[kSH], e[3] = {0.f, 0.f, 0.f};
+    sh_basis<float>(dx, dy, dz, basis);
+#pragma unroll
+    for (int i = 0; i < kSHC; ++i) e[i % 3] += basis[i / 3] * row[i];
+    float fix[3];
+    bool moved = false;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      fix[c] = 0.f;
+      if (fabsf(e[c]) < tol[c]) {
+        const double e64 = light64(dx, dy, dz, row, c);
+        fix[c] = (e64 > 0.0 ? 1.f : (e64 == 0.0 ? 0.5f : 0.f))
+                 - relu_branch(e[c]);
+        moved |= fix[c] != 0.f;
+      }
+    }
+    if (!moved) continue;
+    moved_any = true;
+    const Ggx s = ggx(ptc, dx, dy, dz);
+    const float an = area[at] * fmaxf(ptc.nx * dx + ptc.ny * dy + ptc.nz * dz, 0.f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float gfix = fix[c] * (gD[c] + gS[c] * s.f_s) * an;
+#pragma unroll
+      for (int k = 0; k < kSH; ++k) fix_sum[3 * k + c] += basis[k] * gfix;
+    }
+  }
+  if (!__any_sync(r3dg::kFullMask, moved_any)) return;
+#pragma unroll
+  for (int i = 0; i < kSHC; ++i) {
+#pragma unroll
+    for (int off = 16; off >= 1; off /= 2)
+      fix_sum[i] += __shfl_xor_sync(r3dg::kFullMask, fix_sum[i], off);
+  }
+  if (lane != 0) return;
+  float* out = dshs + static_cast<size_t>(p) * kSHC;
+#pragma unroll
+  for (int i = 0; i < kSHC; ++i) out[i] += fix_sum[i];
+}
+
+__global__ void __launch_bounds__(kThreads)
+shade_bwd_sign_fix_kernel(const float* __restrict__ dirs,
+                          const float* __restrict__ area,
+                          const float* __restrict__ bc,
+                          const float* __restrict__ rough,
+                          const float* __restrict__ nrm,
+                          const float* __restrict__ vdir,
+                          const float* __restrict__ shs,
+                          const float* __restrict__ gpbr,
+                          const float* __restrict__ gdif,
+                          const float* __restrict__ gspec,
+                          const int* __restrict__ unsure_list,
+                          int S, float* __restrict__ dshs) {
+  const int lane = threadIdx.x & 31;
+  const int n = unsure_list[0];
+  for (int w = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; w < n;
+       w += kFixWarps) {
+    sign_fix_point(dirs, area, bc, rough, nrm, vdir, shs, gpbr, gdif, gspec,
+                   unsure_list[1 + w], S, lane, dshs);
+  }
+}
+
 }  // namespace
 
 extern "C" int r3dg_shade_fwd(const void* dirs, const void* vis,
@@ -647,10 +818,13 @@ extern "C" int r3dg_shade_bwd(const void* dirs, const void* vis,
                               const void* gpbr, const void* gdif,
                               const void* gspec, int P, int S, void* dbc,
                               void* drough, void* dvdir, void* dshs, void* dgl,
-                              void* stream) {
+                              void* unsure, void* stream) {
   if (P <= 0) return 0;
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (P + kPoints - 1) / kPoints;
+  cudaError_t err = cudaMemsetAsync(unsure, 0, sizeof(int),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   shade_bwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dirs), static_cast<const float*>(vis),
       static_cast<const float*>(area), static_cast<const float*>(gl),
@@ -660,6 +834,16 @@ extern "C" int r3dg_shade_bwd(const void* dirs, const void* vis,
       static_cast<const float*>(gdif), static_cast<const float*>(gspec), P, S,
       static_cast<float*>(dbc), static_cast<float*>(drough),
       static_cast<float*>(dvdir), static_cast<float*>(dshs),
-      static_cast<float*>(dgl));
+      static_cast<float*>(dgl), static_cast<int*>(unsure));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  shade_bwd_sign_fix_kernel<<<kFixWarps / (kThreads / 32), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(area),
+      static_cast<const float*>(bc), static_cast<const float*>(rough),
+      static_cast<const float*>(nrm), static_cast<const float*>(vdir),
+      static_cast<const float*>(shs), static_cast<const float*>(gpbr),
+      static_cast<const float*>(gdif), static_cast<const float*>(gspec),
+      static_cast<const int*>(unsure), S, static_cast<float*>(dshs));
   return static_cast<int>(cudaGetLastError());
 }

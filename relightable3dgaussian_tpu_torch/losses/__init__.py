@@ -6,7 +6,7 @@ second order, zero padding), edge-aware, bilateral and total-variation
 smoothness, l1, mse and mask entropy. All functions take channel-first
 images [C, H, W]. The filters are depthwise `F.conv2d` calls: the JAX
 package computes them outside any Pallas kernel, and the package keeps cuDNN
-out of TF32 (`__init__.py`), so they stay float32. `lpips.py` is not ported.
+out of TF32 (`__init__.py`), so they stay float32. LPIPS is `lpips.py`.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ returns (pbr, diffuse_light, specular), each [P, 3]:
     backward is K4-bwd, or an exception. Nothing falls back.
 As in the train step, normals, visibility, directions and areas are
 constants: K4 gives them no gradient. `LAUNCHES` counts K4-fwd's launches
-and `BWD_LAUNCHES` K4-bwd's.
+and `BWD_LAUNCHES` K4-bwd's (a call of `shade_bwd`: the backward kernel and
+its local-light sign fix-up, one launch each).
 """
 from __future__ import annotations
 
@@ -83,6 +84,40 @@ class ShadeFunction(torch.autograd.Function):
                 (ctx.shs_shape[0], ctx.shs_shape[1] - N_SH, 3))), 1)
         return (dbc, drough[:, None], None, dvdir, d_incidents, dgl, None,
                 None, None)
+
+
+def view_side(normals: torch.Tensor, viewdirs: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """sign(V·N) a point [P] as K4 rounds it in float32, and in float64.
+
+    K4 (csrc/shading.cu::load_point) normalises V and N by IEEE sqrt and
+    division and sums the products with FMAs, as nvcc contracts them:
+    ((vx nx + vy ny) + vz nz) is fma(vz, nz, fma(vy, ny, vx·nx)). Each
+    FMA is one float64 product and sum of float32 values rounded once to
+    float32 here (a double rounding, which can differ from the FMA only at
+    a tie). K4 turns N to the viewer by this sign and zeroes N where it is
+    0; where it is 0 or differs from the float64 sign, K4 shades another
+    function than the float64 reference."""
+    def f32(t):
+        return t.float().double()
+
+    def unit(a):
+        a = a.double()
+        sq = f32(a[:, 0] * a[:, 0])
+        sq = f32(a[:, 1] * a[:, 1] + sq)
+        sq = f32(a[:, 2] * a[:, 2] + sq)
+        m = torch.clamp(f32(torch.sqrt(sq)),
+                        min=float(torch.tensor(1e-12, dtype=torch.float32)))
+        return f32(a / m[:, None])
+
+    v, n = unit(viewdirs), unit(normals)
+    s = f32(v[:, 0] * n[:, 0])
+    s = f32(v[:, 1] * n[:, 1] + s)
+    s = f32(v[:, 2] * n[:, 2] + s)
+    n64, v64 = normals.double(), viewdirs.double()
+    exact = ((v64 / v64.norm(dim=-1, keepdim=True))
+             * (n64 / n64.norm(dim=-1, keepdim=True))).sum(-1)
+    return torch.sign(s), torch.sign(exact)
 
 
 def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,
@@ -170,13 +205,16 @@ def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
     outs = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
     if P == 0:
         return tuple(outs)             # no point, no launch
-    lib = _library("r3dg_shade_bwd", 12, 5)
+    # the points with a sample's local light near 0: count, then the points
+    unsure = torch.empty((P + 1,), dtype=torch.int32, device=device)
+    lib = _library("r3dg_shade_bwd", 12, 6)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.r3dg_shade_bwd(*(t.data_ptr() for t in inputs),
                                 g_pbr.data_ptr(), g_dif.data_ptr(),
                                 g_spec.data_ptr(), P, S,
-                                *(t.data_ptr() for t in outs), stream)
+                                *(t.data_ptr() for t in outs),
+                                unsure.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K4-bwd launch failed: cudaError_t {rc}")
     BWD_LAUNCHES += 1

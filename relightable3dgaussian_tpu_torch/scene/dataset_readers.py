@@ -7,9 +7,9 @@ conventions:
   * COLMAP: PINHOLE / SIMPLE_PINHOLE only, optional masks/ dir, DTU fixed
     test split [2,12,17,30,34], llffhold=8 otherwise (lines 150-190).
   * Blender: transforms_{train,test}.json, OpenGL→COLMAP axis flip, alpha
-    composite over bg; an extra/ MVS directory (depth + normal for the
-    test-time geometry losses) raises NotImplementedError in
-    `image_io.load_depth` until the MVS step is ported.
+    composite over bg; the test views take depth and normal maps from an
+    extra/ MVS directory where there is one (`extra/depths/*.tiff` and
+    `extra/normals/*.pfm`, written by cli/mvs.py or the JAX package's).
   * NeILF: inputs/sfm_scene.json with bbox rescale + pmasks (lines 315-432).
   * Synthetic4Relight: EXR train / RGBA png test with _mask companions.
   * StanfordORB: 512x512 resize, EXR images.

@@ -6,11 +6,14 @@ code). The formats are read from their specs:
 
   * EXR: version-2 scanline files; NONE/RLE/ZIPS/ZIP decoded in numpy
     (zlib + delta predictor + byte de-interleave); HALF/FLOAT/UINT
-    channels. PIZ (wavelet + Huffman), which the JAX package decodes with
-    its C++ module, raises NotImplementedError: its decoder is the last,
-    droppable part of ROADMAP queue 1 item 3. `write_exr_zip` writes FLOAT
-    channels ZIP-compressed, byte for byte as the JAX package does (the
-    env maps of the relighting tests and chip_smoke.py).
+    channels. PIZ (bitmap LUT, canonical Huffman with its run-length code,
+    the 14-bit or 16-bit-modulo 2D wavelet; HALF channels), which the JAX
+    package decodes with its C++ module, is decoded in numpy to the same
+    uint16 patterns (`piz_decode`): the Huffman codes by a 14-bit lookup
+    table over every bit position at once and a walk of one step a code,
+    the wavelet a level at a time. `write_exr_zip` writes FLOAT channels
+    ZIP-compressed, byte for byte as the JAX package does (the env maps of
+    the relighting tests and chip_smoke.py).
   * Radiance .hdr: RGBE with adaptive RLE (the reference's composition /
     teaser maps).
 """
@@ -115,11 +118,17 @@ def read_exr(path: str) -> dict[str, np.ndarray]:
             y0 = y - ymin
             rows = min(lpb, height - y0)
             expected = row_bytes * rows
-            if comp == 4:
-                raise NotImplementedError(
-                    f"{path}: PIZ-compressed EXR is not read by the port yet "
-                    "(ROADMAP queue 1 item 3, the PIZ decoder); store the "
-                    "map with ZIP, RLE or no compression")
+            if comp == 4 and size < expected:
+                if any(t != "half" for _, t in chans):
+                    raise ValueError(
+                        "PIZ with non-HALF channels not supported")
+                planar = piz_decode(data, [width] * len(chans),
+                                    [rows] * len(chans))
+                for i, (name, _) in enumerate(chans):
+                    block = planar[i * width * rows:(i + 1) * width * rows]
+                    out[name][y0:y0 + rows] = block.view(
+                        np.float16).reshape(rows, width)
+                continue
             if comp == 0 or size == expected:
                 # uncompressed (or stored raw because compression didn't help)
                 raw = data
@@ -155,6 +164,251 @@ def _undo_zip_predictor_bytes(raw: bytes) -> np.ndarray:
     out[0::2] = d[:half]
     out[1::2] = d[half:]
     return out
+
+
+# ---------------------------------------------------------------------------
+# PIZ: bitmap LUT + canonical Huffman + 2D Haar-like integer wavelet
+# ---------------------------------------------------------------------------
+
+_BITMAP_SIZE = (1 << 16) >> 3
+_HUF_ENCSIZE = (1 << 16) + 1
+_HUF_DECBITS = 14
+_SHORT_ZEROCODE_RUN, _LONG_ZEROCODE_RUN = 59, 63
+_SHORTEST_LONG_RUN = 2 + _LONG_ZEROCODE_RUN - _SHORT_ZEROCODE_RUN
+
+
+def _windows(data: bytes) -> np.ndarray:
+    """At every bit position p of the stream (bits MSB first), the 64 bits
+    from p on (zero past the end) as a uint64."""
+    b = np.frombuffer(data, np.uint8)
+    pad = np.concatenate([b, np.zeros(9, np.uint8)])
+    shifts = np.arange(56, -8, -8, dtype=np.uint64)
+    words = np.zeros(len(b) + 1, np.uint64)
+    for i, sh in enumerate(shifts):
+        words |= pad[i:i + len(b) + 1].astype(np.uint64) << sh
+    p = np.arange(8 * len(b), dtype=np.int64)
+    byte, s = p >> 3, (p & 7).astype(np.uint64)
+    nxt = pad[byte + 8].astype(np.uint64)
+    return (words[byte] << s) | (nxt >> (np.uint64(8) - s))
+
+
+def _huf_code_lengths(data: bytes, pos: int, im: int, iM: int):
+    """The packed table of 6-bit code lengths for symbols im..iM (59-62: a
+    short run of zeros, 63 and 8 bits: a long one) → (lengths [ENCSIZE],
+    the byte where the table ends)."""
+    need = min(len(data) - pos, (iM - im + 1) * 14 // 8 + 2)
+    win = _windows(data[pos:pos + need])
+    n_bits = 8 * need
+    # every 6-bit field, read at each of the 6 phases of the position
+    field = (win >> np.uint64(58)).astype(np.int64)
+    lengths = np.zeros(_HUF_ENCSIZE, np.int64)
+    is_run = field >= _SHORT_ZEROCODE_RUN
+    next_run = np.full(n_bits + 7, n_bits + 6, np.int64)
+    for r in range(6):
+        idx = np.arange(r, n_bits, 6)
+        runs = np.flatnonzero(is_run[idx])
+        # for each position of this phase, the position of the next run
+        nr = np.full(len(idx), n_bits + 6, np.int64)
+        if len(runs):
+            k = np.searchsorted(runs, np.arange(len(idx)))
+            ok = k < len(runs)
+            nr[ok] = idx[runs[k[ok]]]
+        next_run[idx] = nr
+    p, sym = 0, im
+    while sym <= iM:
+        if p >= n_bits:
+            raise ValueError("PIZ: truncated Huffman table")
+        stop = next_run[p]
+        n = min((stop - p) // 6, iM + 1 - sym)
+        if n:
+            lengths[sym:sym + n] = field[p:p + 6 * n:6]
+            sym += n
+            p += 6 * n
+            continue
+        code = int(field[p])
+        if p + (14 if code == _LONG_ZEROCODE_RUN else 6) > n_bits:
+            raise ValueError("PIZ: truncated Huffman table")
+        if code == _LONG_ZEROCODE_RUN:
+            zerun = int(win[p + 6] >> np.uint64(56)) + _SHORTEST_LONG_RUN
+            p += 14
+        else:
+            zerun = code - _SHORT_ZEROCODE_RUN + 2
+            p += 6
+        if sym + zerun > iM + 1 or p > n_bits:
+            raise ValueError("PIZ: Huffman table run past its end")
+        sym += zerun          # lengths stay 0
+    if p > n_bits:
+        raise ValueError("PIZ: truncated Huffman table")
+    return lengths, pos + (p + 7) // 8
+
+
+def _huf_uncompress(data: bytes, n_out: int) -> np.ndarray:
+    """OpenEXR's hufUncompress: canonical Huffman with a run-length symbol
+    (the largest, iM: the previous symbol repeated 8 bits' count times) →
+    [n_out] uint16."""
+    if len(data) < 20:
+        if n_out == 0:
+            return np.zeros(0, np.uint16)
+        raise ValueError("PIZ: Huffman block too short")
+    im, iM, _, n_bits = struct.unpack_from("<4I", data, 0)
+    if im >= _HUF_ENCSIZE or iM >= _HUF_ENCSIZE or im > iM:
+        raise ValueError("PIZ: bad Huffman symbol range")
+    lengths, start = _huf_code_lengths(data, 20, im, iM)
+    if n_bits > 8 * (len(data) - start):
+        raise ValueError("PIZ: Huffman bit count past the data")
+    # canonical codes: each length's codes are consecutive, from first[l],
+    # in symbol order; longer codes take the smaller values
+    count = np.bincount(lengths, minlength=59)[:59]
+    first = np.zeros(59, np.int64)
+    c = 0
+    for ln in range(58, 0, -1):
+        first[ln] = c
+        c = (c + int(count[ln])) >> 1
+    order = np.argsort(lengths, kind="stable")
+    by_length = np.split(order, np.cumsum(count))[:59]
+    # a 14-bit table for codes up to 14 bits; longer ones are matched by
+    # their length below
+    table_len = np.zeros(1 << _HUF_DECBITS, np.int64)
+    table_sym = np.zeros(1 << _HUF_DECBITS, np.int64)
+    long_lengths = []
+    for ln in range(1, 59):
+        syms = by_length[ln]
+        if not len(syms):
+            continue
+        if first[ln] + len(syms) > (1 << ln):
+            raise ValueError("PIZ: Huffman code does not fit its length")
+        if ln > _HUF_DECBITS:
+            long_lengths.append(ln)
+            continue
+        span = 1 << (_HUF_DECBITS - ln)
+        slots = ((first[ln] + np.arange(len(syms)))[:, None] * span
+                 + np.arange(span)[None]).ravel()
+        if table_len[slots].any():
+            raise ValueError("PIZ: Huffman codes overlap")
+        table_len[slots] = ln
+        table_sym[slots] = np.repeat(syms, span)
+
+    stream = data[start:start + (n_bits + 7) // 8]
+    win = _windows(stream)
+    win = win[:n_bits]
+    head = (win >> np.uint64(64 - _HUF_DECBITS)).astype(np.int64)
+    code_len = table_len[head]
+    code_sym = table_sym[head]
+    for ln in long_lengths:
+        todo = code_len == 0
+        v = (win[todo] >> np.uint64(64 - ln)).astype(np.int64) - first[ln]
+        hit = (v >= 0) & (v < len(by_length[ln]))
+        at = np.flatnonzero(todo)[hit]
+        code_len[at] = ln
+        code_sym[at] = by_length[ln][v[hit]]
+    rlc = iM
+    is_run = code_sym == rlc
+    run_at = np.flatnonzero(is_run)
+    after = run_at + code_len[run_at]
+    run_len = np.zeros(n_bits, np.int64)
+    ok = after + 8 <= n_bits
+    run_len[run_at[ok]] = (win[after[ok]] >> np.uint64(56)).astype(np.int64)
+    step = code_len + np.where(is_run, 8, 0)
+
+    # walk the codes from bit 0, one step a code
+    steps, at, p = step.tolist(), [], 0
+    while p < n_bits:
+        at.append(p)
+        s = steps[p]
+        if s == 0 or p + s > n_bits:
+            raise ValueError("PIZ: invalid Huffman code")
+        p += s
+    at = np.asarray(at, np.int64)
+    runs = is_run[at]
+    if len(at) and runs[0]:
+        raise ValueError("PIZ: run-length code before any symbol")
+    # a run code repeats the symbol before it run_len more times
+    keep = at[~runs]
+    owner = np.cumsum(~runs) - 1
+    reps = np.ones(len(keep), np.int64)
+    np.add.at(reps, owner[runs], run_len[at[runs]])
+    if int(reps.sum()) != n_out:
+        raise ValueError(f"PIZ: decoded {int(reps.sum())} values, expected "
+                         f"{n_out}")
+    return np.repeat(code_sym[keep].astype(np.uint16), reps)
+
+
+def _wdec14(lo: np.ndarray, hi: np.ndarray):
+    ls = lo.view(np.int16).astype(np.int32)
+    hs = hi.view(np.int16).astype(np.int32)
+    a = ls + (hs & 1) + (hs >> 1)
+    return (a & 0xFFFF).astype(np.uint16), ((a - hs) & 0xFFFF).astype(np.uint16)
+
+
+def _wdec16(lo: np.ndarray, hi: np.ndarray):
+    m, d = lo.astype(np.int32), hi.astype(np.int32)
+    b = (m - (d >> 1)) & 0xFFFF
+    a = (d + b - (1 << 15)) & 0xFFFF
+    return a.astype(np.uint16), b.astype(np.uint16)
+
+
+def _wav2_decode(a: np.ndarray, max_value: int) -> None:
+    """OpenEXR's wav2Decode on the [ny, nx] uint16 array a, in place: the
+    levels from the coarsest, each level's 2x2 blocks at once."""
+    dec = _wdec14 if max_value < (1 << 14) else _wdec16
+    ny, nx = a.shape
+    n, p = min(nx, ny), 1
+    while p <= n:
+        p <<= 1
+    p >>= 1
+    p2, p = p, p >> 1
+    while p >= 1:
+        ry, rx = (ny - p2) // p2 + 1, (nx - p2) // p2 + 1
+        y0, y1 = slice(0, ry * p2, p2), slice(p, ry * p2, p2)
+        x0, x1 = slice(0, rx * p2, p2), slice(p, rx * p2, p2)
+        i00, i10 = dec(a[y0, x0], a[y1, x0])
+        i01, i11 = dec(a[y0, x1], a[y1, x1])
+        a[y0, x0], a[y0, x1] = dec(i00, i01)
+        a[y1, x0], a[y1, x1] = dec(i10, i11)
+        if nx & p:
+            xe = rx * p2
+            a[y0, xe], a[y1, xe] = dec(a[y0, xe], a[y1, xe])
+        if ny & p:
+            ye = ry * p2
+            a[ye, x0], a[ye, x1] = dec(a[ye, x0], a[ye, x1])
+        p2, p = p, p >> 1
+
+
+def piz_decode(data: bytes, nx: list[int], ny: list[int]) -> np.ndarray:
+    """One PIZ-compressed scanline chunk of HALF channels → the planar
+    uint16 half bit patterns (channels in file order, each ny[i] rows of
+    nx[i] values), the JAX package's native decoder's output."""
+    total = sum(w * h for w, h in zip(nx, ny))
+    if len(data) < 4:
+        raise ValueError("PIZ: chunk too short")
+    min_nz, max_nz = struct.unpack_from("<HH", data, 0)
+    if max_nz >= _BITMAP_SIZE:
+        raise ValueError("PIZ: bad bitmap range")
+    pos = 4
+    bitmap = np.zeros(_BITMAP_SIZE, np.uint8)
+    if min_nz <= max_nz:
+        n = max_nz - min_nz + 1
+        if pos + n > len(data):
+            raise ValueError("PIZ: truncated bitmap")
+        bitmap[min_nz:max_nz + 1] = np.frombuffer(data, np.uint8, n, pos)
+        pos += n
+    present = np.unpackbits(bitmap, bitorder="little").astype(bool)
+    present[0] = True
+    lut = np.zeros(1 << 16, np.uint16)
+    values = np.flatnonzero(present)
+    lut[:len(values)] = values
+    if pos + 4 > len(data):
+        raise ValueError("PIZ: truncated chunk")
+    (huf_len,) = struct.unpack_from("<I", data, pos)
+    pos += 4
+    if pos + huf_len > len(data):
+        raise ValueError("PIZ: truncated Huffman block")
+    out = _huf_uncompress(data[pos:pos + huf_len], total)
+    off = 0
+    for w, h in zip(nx, ny):
+        _wav2_decode(out[off:off + w * h].reshape(h, w), len(values) - 1)
+        off += w * h
+    return lut[out]
 
 
 def read_exr_rgb(path: str) -> np.ndarray:

@@ -5,12 +5,17 @@ runs on has neither imageio nor Pillow, so the port carries its own PNG codec
 on numpy and `zlib`: it reads 8-bit greyscale, grey+alpha, RGB and RGBA
 files with any of the five row filters (not interlaced, not palette, not 16
 bits), and writes the same four kinds. The arrays are imageio's:
-[H, W] for grey, [H, W, C] otherwise, uint8. PFM is parsed as the JAX
-package parses it; EXR and Radiance HDR go through `scene/exr.py`.
+[H, W] for grey, [H, W, C] otherwise, uint8. The MVS depth maps
+(`extra/depths/*.tiff`) are baseline TIFFs of one float32 channel, which
+the JAX package writes through imageio: the port reads and writes
+them with its own numpy codec (uncompressed, any number of strips, either
+byte order). PFM is parsed and written as the JAX package does; EXR and
+Radiance HDR go through `scene/exr.py`.
 
 `resize_image` is the JAX package's `jax.image.resize(..., "bilinear")`:
 a triangle filter whose support widens by the scale factor when it shrinks
-an image (antialiased), which `F.interpolate(..., antialias=True)` computes.
+an image (antialiased), which `F.interpolate(..., antialias=True)` computes;
+`resize2d` is the same on tensors, on any device.
 """
 from __future__ import annotations
 
@@ -203,13 +208,80 @@ def load_mask_bool(path: str) -> np.ndarray:
     return (mask > 0.5 * mask.max()).astype(np.float32) * 255.0
 
 
+def save_pfm(path: str, data: np.ndarray) -> None:
+    """[H, W] or [H, W, 3] → a little-endian PFM, bottom row first."""
+    data = np.asarray(data, np.float32)
+    color = data.ndim == 3 and data.shape[2] == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{data.shape[1]} {data.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        data[::-1].tofile(f)
+
+
+# ---------------------------------------------------------------------------
+# TIFF: one float32 channel, uncompressed (the MVS depth maps)
+# ---------------------------------------------------------------------------
+
+_TIFF_TYPES = {1: "B", 3: "H", 4: "I"}   # BYTE, SHORT, LONG
+
+
+def read_tiff_float(path: str) -> np.ndarray:
+    """A baseline TIFF of one uncompressed float32 channel → [H, W] float32:
+    the first image, in as many strips as the file has."""
+    with open(path, "rb") as f:
+        data = f.read()
+    order = {b"II": "<", b"MM": ">"}.get(data[:2])
+    if order is None or struct.unpack(order + "H", data[2:4])[0] != 42:
+        raise ValueError(f"{path}: not a classic TIFF file")
+    (ifd,) = struct.unpack(order + "I", data[4:8])
+    (n,) = struct.unpack(order + "H", data[ifd:ifd + 2])
+    tags = {}
+    for i in range(n):
+        entry = data[ifd + 2 + 12 * i:ifd + 14 + 12 * i]
+        tag, kind, count = struct.unpack(order + "HHI", entry[:8])
+        if kind not in _TIFF_TYPES:
+            continue
+        fmt = order + _TIFF_TYPES[kind] * count
+        size = struct.calcsize(fmt)
+        raw = (entry[8:8 + size] if size <= 4 else data[
+            struct.unpack(order + "I", entry[8:])[0]:][:size])
+        tags[tag] = struct.unpack(fmt, raw)
+    width, height = tags[256][0], tags[257][0]
+    layout = (tags.get(258, (1,))[0], tags.get(259, (1,))[0],
+              tags.get(277, (1,))[0], tags.get(339, (1,))[0])
+    if layout != (32, 1, 1, 3):
+        raise NotImplementedError(
+            f"{path}: TIFF with (bits, compression, samples, sample format) "
+            f"{layout}; the port reads one uncompressed float32 channel "
+            "(32, 1, 1, 3), as the MVS step writes its depth maps")
+    body = b"".join(data[o:o + c] for o, c in zip(tags[273], tags[279]))
+    img = np.frombuffer(body, order + "f4", width * height)
+    return img.reshape(height, width).astype(np.float32)
+
+
+def write_tiff_float(path: str, img: np.ndarray) -> None:
+    """[H, W] → a little-endian baseline TIFF of one uncompressed float32
+    channel (BlackIsZero) in one strip."""
+    img = np.ascontiguousarray(img, "<f4")
+    if img.ndim != 2:
+        raise ValueError(f"write_tiff_float takes [H, W], got {img.shape}")
+    h, w = img.shape
+    tags = ((256, 4, w), (257, 4, h), (258, 3, 32), (259, 3, 1), (262, 3, 1),
+            (273, 4, 8 + 2 + 12 * 10 + 4), (277, 3, 1), (278, 4, h),
+            (279, 4, img.nbytes), (339, 3, 3))
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHI", tag, kind, 1)
+        + struct.pack("<" + _TIFF_TYPES[kind], value).ljust(4, b"\0")
+        for tag, kind, value in tags) + struct.pack("<I", 0)
+    with open(path, "wb") as f:
+        f.write(b"II*\0" + struct.pack("<I", 8) + ifd + img.tobytes())
+
+
 def load_depth(path: str) -> np.ndarray:
-    """MVS depth maps are TIFFs written by the MVS step, which the port does
-    not have yet."""
-    raise NotImplementedError(
-        f"{path}: MVS depth maps (extra/depths/*.tiff) come with the port of "
-        "the MVS step (ROADMAP queue 1 item 4); the port reads scenes "
-        "without an extra/ directory")
+    """An MVS depth map (`extra/depths/*.tiff`, written by the MVS step) →
+    [H, W] float32."""
+    return read_tiff_float(path)
 
 
 def save_image_u8(path: str, img: np.ndarray) -> None:
@@ -218,14 +290,23 @@ def save_image_u8(path: str, img: np.ndarray) -> None:
     write_png(path, (np.clip(np.asarray(img), 0, 1) * 255).astype(np.uint8))
 
 
+def resize2d(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[..., H, W] float → [..., height, width] on x's device, the JAX
+    package's `jax.image.resize(x, x.shape[:-2] + (height, width),
+    "bilinear")` (antialiased when it shrinks)."""
+    lead = x.shape[:-2]
+    flat = x.reshape(1, -1, *x.shape[-2:])
+    out = F.interpolate(flat, size=(height, width), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.reshape(*lead, height, width)
+
+
 def resize_image(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """[H, W] or [H, W, C] float → [height, width(, C)] float32, the JAX
     package's `jax.image.resize(..., "bilinear")` (antialiased when it
     shrinks)."""
-    squeeze = img.ndim == 2
     x = torch.as_tensor(np.asarray(img, np.float32))
-    x = x[None, None] if squeeze else x.permute(2, 0, 1)[None]
-    out = F.interpolate(x, size=(height, width), mode="bilinear",
-                        align_corners=False, antialias=True)[0]
-    out = out[0] if squeeze else out.permute(1, 2, 0)
+    if x.ndim == 2:
+        return np.ascontiguousarray(resize2d(x, height, width).numpy())
+    out = resize2d(x.permute(2, 0, 1), height, width).permute(1, 2, 0)
     return np.ascontiguousarray(out.numpy())

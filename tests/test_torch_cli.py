@@ -267,7 +267,8 @@ def test_restore_refuses_a_collapsed_checkpoint(dataset, stage1, tmp_path):
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--n_devices", "2"], "queue 1 item 4"), (["--gui"], "queue 1 item 4"),
+    (["--n_devices", "2"], "queue 1 item 4"),
+    (["--n_devices", "4"], "queue 1 item 4"),
     (["--max_capacity", "4096"], "no capacity")])
 def test_unported_flags_are_refused(dataset, tmp_path, flags, message):
     with pytest.raises(SystemExit, match=message):

@@ -52,6 +52,27 @@ def test_port_imports_without_jax():
             in proc.stdout), proc.stdout
 
 
+def test_viewer_and_mvs_modules_import_without_jax_or_dearpygui():
+    """cli.gui, cli.mvs, cli.convert and mvs/ import with jax, the JAX
+    package and dearpygui blocked (the viewer imports dearpygui only in its
+    window code), and build nothing."""
+    code = (
+        "import sys, importlib\n"
+        "for blocked in ('jax', 'relightable3dgaussian_tpu', 'dearpygui',\n"
+        "                'imageio'):\n"
+        "    sys.modules[blocked] = None\n"
+        "names = ['cli.gui', 'cli.mvs', 'cli.convert', 'mvs',\n"
+        "         'mvs.formats', 'mvs.colmap_to_mvs', 'mvs.plane_sweep',\n"
+        "         'mvs.filter_fuse', 'mvs.prepare']\n"
+        "for name in names:\n"
+        "    importlib.import_module('relightable3dgaussian_tpu_torch.' + name)\n"
+        "from relightable3dgaussian_tpu_torch.ops import _build\n"
+        "print('imported', len(names), 'built', len(_build._LOADED))\n")
+    proc = run_python(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported 9 built 0" in proc.stdout, proc.stdout
+
+
 def test_sources_never_import_the_jax_package():
     pattern = re.compile(r"^\s*(import relightable3dgaussian_tpu\b(?!_torch)"
                          r"|from relightable3dgaussian_tpu\b(?!_torch))",

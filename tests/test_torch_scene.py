@@ -160,14 +160,35 @@ def test_blender_scene_matches_jax(tmp_path):
             tmp_path / "out_j" / name).read_bytes()
 
 
-def test_blender_mvs_extra_dir_is_not_read_yet(tmp_path):
-    """Test views with an extra/ MVS directory need its TIFF depths, which
-    come with the MVS step (ROADMAP queue 1 item 4): the reader says so."""
-    write_blender_dataset(tmp_path, n_frames=2, size=16)
-    with_test_split(tmp_path)
-    os.makedirs(tmp_path / "extra" / "depths")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        Scene(str(tmp_path), "", eval_split=True, shuffle=False)
+def test_blender_reader_loads_the_mvs_extra_dir(tmp_path):
+    """Test views with an extra/ MVS directory (TIFF depths written by the
+    JAX package's prepare_blender_extra through imageio, PFM normals): the
+    port's test cameras carry the JAX reader's depth and normal maps
+    exactly."""
+    from relightable3dgaussian_tpu.mvs.formats import MVSCamera
+    from relightable3dgaussian_tpu.mvs.prepare import prepare_blender_extra
+    data_j, data_t = tmp_path / "jax", tmp_path / "port"
+    write_blender_dataset(data_j, n_frames=2, size=16)
+    with_test_split(data_j)
+    rng = np.random.default_rng(9)
+    names = ["r_0", "r_1"]
+    K = np.array([[20.0, 0, 8], [0, 20.0, 8], [0, 0, 1]])
+    prepare_blender_extra(
+        str(data_j), names,
+        {n: rng.uniform(1, 3, (16, 16)).astype(np.float32) for n in names},
+        {n: rng.uniform(size=(16, 16)) < 0.8 for n in names},
+        {n: MVSCamera(np.eye(4), K, 1.0, 0.1, 32.0, 4.0) for n in names})
+    shutil.copytree(data_j, data_t)
+    js = JaxScene(str(data_j), "", eval_split=True, shuffle=False)
+    ts = Scene(str(data_t), "", eval_split=True, shuffle=False)
+    jcams, tcams = js.get_test_cameras(), ts.get_test_cameras()
+    assert len(tcams) == 2
+    for a, b in zip(jcams, tcams):
+        assert b.depth.shape == (16, 16) and b.normal.shape == (16, 16, 3)
+        np.testing.assert_array_equal(b.depth, a.depth)
+        np.testing.assert_array_equal(b.normal, a.normal)
+        assert (b.depth > 0).mean() > 0.5
+    assert all(c.depth is None for c in ts.get_train_cameras())
 
 
 def write_colmap_dataset(root, n_images: int = 9, size: int = 24):
