@@ -149,6 +149,44 @@ no result line is printed):
               with those points in are printed with their worst points,
               and each seed's view-direction error, K4's and the plain
               version's.
+ 26. dense    ops.rasterize (K1 forward, K2 backward) against the dense
+              oracle ops.rasterize_dense on the card in float32, on
+              tests/test_rasterizer_parity.py's scene (300 gaussians, 64x64)
+              and a larger one (2000, 128x128), under that test's bounds
+              (colour and opacity 2e-5, depth 1e-4, features 5e-5, weights
+              1e-3, n_contrib on 99.9% of pixels, radii equal, gradients 2e-3
+              of each field's largest entry); K1's and the float32 oracle's
+              error from the float64 oracle printed;
+ 27. facade   raster.GaussianRasterizer on the slice phase's scene and view
+              0 against ops.rasterize on the same inputs: the 10-tuple
+              bitwise but the weights (K1's atomics, k1-main's weights
+              bounds); again with the SH colour and the packed covariance
+              given precomputed (the covariance under k1-main's gate: its
+              packing may move a last bit); mark_visible against view z >
+              0.2;
+ 28. dp-stage1  two ranks on the one card (gloo), started by
+              parallel.spawn: DP1_STEPS data-parallel stage-1 steps
+              (parallel.make_dp_train_step) from the train phase's model and
+              views, two cameras a step, a densify and an opacity reset
+              inside; both replicas bitwise equal after every step (sha256
+              of the model, statistics and Adam state), K1 and K2 once per
+              rank per step, the first step against a hand combination in
+              this process (each view's gradients and statistics alone,
+              gradients averaged, statistics summed, radii maxed, one Adam
+              step) under tests/test_torch_train.py's tolerances; ms per
+              data-parallel step (utils.timing). Two ranks sharing one card
+              measure no scaling;
+ 29. dp-stage2  the same for DP2_STEPS steps of make_dp_train_step_stage2
+              from the stage2 phase's state, its visibility traced anew
+              through the ray-sharded trace; K4-fwd and K4-bwd once per rank
+              per step, the env maps bitwise equal;
+ 30. sharded  make_sharded_trace over the two ranks on the stage-2 model's
+              rays (~6.5M): each ray's visibility bitwise equal to one K3
+              launch on all rays; make_sharded_shading(full_extras=True)
+              through render_neilf._shade_points against the unsharded
+              shading within 1e-6; a render_neilf(is_training=False) view
+              with both hooks against the unsharded view under k1-main's
+              gate. Phases 28 to 30 share one spawn.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -166,6 +204,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -184,8 +223,10 @@ from relightable3dgaussian_tpu_torch.cli import (eval_nvs,
                                                  eval_relighting_syn4,
                                                  relighting)
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
-from relightable3dgaussian_tpu_torch.models.gaussians import (GaussianModel,
-                                                              create_from_pcd)
+from relightable3dgaussian_tpu_torch.models.gaussians import STATS as G_STATS
+from relightable3dgaussian_tpu_torch.models.gaussians import (
+    GaussianModel, StatContribs, apply_stat_contribs, create_from_pcd,
+    densification_contribs)
 from relightable3dgaussian_tpu_torch.losses import lpips
 from relightable3dgaussian_tpu_torch.models import render_neilf as neilf
 from relightable3dgaussian_tpu_torch.models.lights import (load_env_light,
@@ -197,33 +238,49 @@ from relightable3dgaussian_tpu_torch.models.render_neilf import (
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                  ray_trace, ray_trace_cuda,
                                                  shading_cuda)
-from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
+from relightable3dgaussian_tpu_torch.ops.camera import (CameraParams,
+                                                        make_camera_params)
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
 from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
                                                           split_pixels,
                                                           walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
-from relightable3dgaussian_tpu_torch.ops.rasterize import prepare
+from relightable3dgaussian_tpu_torch.ops.projection import (
+    Preprocessed, covariance3d_packed, preprocess)
+from relightable3dgaussian_tpu_torch.ops.rasterize import prepare, rasterize
+from relightable3dgaussian_tpu_torch.ops.rasterize_dense import (
+    _alpha_at, rasterize_dense)
+from relightable3dgaussian_tpu_torch.parallel import (make_dp_train_step,
+                                                      make_dp_train_step_stage2,
+                                                      replicate, spawn)
+from relightable3dgaussian_tpu_torch.parallel.data_parallel import \
+    choose_backend
+from relightable3dgaussian_tpu_torch.parallel.point_sharded import (
+    make_sharded_shading, make_sharded_trace)
+from relightable3dgaussian_tpu_torch.raster import (
+    GaussianRasterizationSettings, GaussianRasterizer, mark_visible)
 from relightable3dgaussian_tpu_torch.scene.cameras import Camera
 from relightable3dgaussian_tpu_torch.scene.dataset_readers import _blender_pose
 from relightable3dgaussian_tpu_torch.scene.exr import write_exr_zip
 from relightable3dgaussian_tpu_torch.scene.image_io import read_png, write_png
 from relightable3dgaussian_tpu_torch.scene.ply_io import save_gaussian_ply
-from relightable3dgaussian_tpu_torch.train.checkpoint import (load_checkpoint,
-                                                              save_checkpoint)
+from relightable3dgaussian_tpu_torch.train.checkpoint import (
+    load_checkpoint, load_env_checkpoint, load_train_state, save_checkpoint,
+    save_env_checkpoint)
 from relightable3dgaussian_tpu_torch.train import stage2
 from relightable3dgaussian_tpu_torch.train.config import (
     STAGE1_NERF_SYNTHETIC, STAGE2_NERF_SYNTHETIC, ModelConfig,
     OptimizationConfig, PipelineConfig)
-from relightable3dgaussian_tpu_torch.train.optim import (make_env_optimizer,
-                                                         make_optimizer,
-                                                         start_state)
-from relightable3dgaussian_tpu_torch.train.stage1 import (StepTimer,
-                                                          run_training_schedule,
-                                                          train_step)
+from relightable3dgaussian_tpu_torch.train.optim import (
+    learning_rates, make_env_optimizer, make_optimizer, set_learning_rates,
+    start_state)
+from relightable3dgaussian_tpu_torch.train.stage1 import (
+    StepTimer, backward_or_zero_grads, densify_step, reset_opacity_step,
+    run_training_schedule, train_step)
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
 from relightable3dgaussian_tpu_torch.utils.sh import C0, rgb_to_sh
+from relightable3dgaussian_tpu_torch.utils.timing import Timing
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -2437,6 +2494,656 @@ def k4_seeds_phase(s2: dict, seeds: int = K4_SEEDS) -> None:
             if r["fails_without_exemption"]])
 
 
+# ---------------------------------------------------------------------------
+# The dense oracle, the facade, multi-GPU training and the sharded eval
+# ---------------------------------------------------------------------------
+
+# (gaussians, image size, seed): tests/test_rasterizer_parity.py's scene and
+# a larger one.
+DENSE_SCENES = ((300, 64, 0), (2000, 128, 1))
+DENSE_BG = (0.1, 0.2, 0.3)
+# tests/test_rasterizer_parity.py's bounds, the tiled rasterizer (K1, K2)
+# against the dense oracle in float32. They hold outside the crossing
+# pixels. The two round alpha and T in float32 in other orders (the oracle's
+# T is a cumulative product), so where a pair's alpha lies at 1/255 or its
+# incoming T at 1e-4 within rounding, one side may blend it and the other
+# not (as between K1 and the plain compositor: split pixels), which moves
+# the pixel by up to 2/255 and may leave the counts equal. Crossing pixels:
+# the counts differ, or a pair lies within DENSE_NEAR (relative) of either
+# threshold in the float64 oracle and a field is past its bound there. The
+# count bound caps their share: at most 1 - DENSE_COUNT_AGREE of pixels.
+DENSE_NEAR = 1e-4
+DENSE_TOL = {"color": 2e-5, "opacity": 2e-5, "depth": 1e-4, "feature": 5e-5}
+DENSE_W_TOL, DENSE_COUNT_AGREE, DENSE_GRAD_TOL = 1e-3, 0.999, 2e-3
+# Two ranks on the one card (gloo): parallel.spawn's own processes.
+DP_DEVICES = ("cuda:0", "cuda:0")
+DP1_STEPS, DP1_DENSIFY_AT, DP1_RESET_AT = 20, 8, 14
+DP2_STEPS = 10
+# One data-parallel step against the hand combination: tests/
+# test_torch_train.py's tolerances (parameters 0.01 of each learning rate,
+# gradients 1e-3 and statistics 1e-4 of each field's largest entry).
+DP_PARAM_LR, DP_GRAD_TOL, DP_STAT_TOL = 0.01, 1e-3, 1e-4
+SHARDED_SHADE_ATOL = 1e-6
+
+
+def dense_scene(n: int, seed: int, device) -> list[torch.Tensor]:
+    """tests/test_rasterizer_parity.py's random_scene in numpy: means in
+    [-1.2, 1.2]^3, scales in [0.02, 0.15], unit quaternions, opacity in
+    [0.2, 0.95], SH degree 0 of uniform colours, 5 features N(0, 0.5²)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    rots = rng.normal(size=(n, 4))
+    colors = rng.uniform(size=(n, 3))
+    arrays = (rng.uniform(-1.2, 1.2, (n, 3)), rng.uniform(0.02, 0.15, (n, 3)),
+              rots / np.linalg.norm(rots, axis=-1, keepdims=True),
+              rng.uniform(0.2, 0.95, (n, 1)), ((colors - 0.5) / C0)[:, None],
+              rng.normal(size=(n, 5)) * 0.5)
+    return [torch.as_tensor(a.astype(f32), device=device) for a in arrays]
+
+
+def near_threshold_pixels(x, cam, cfg: RasterConfig) -> torch.Tensor:
+    """[H, W] bool: the pixels where, in float64, a pair's alpha lies within
+    DENSE_NEAR (relative) of 1/255 while its incoming T is at least 1e-4, or
+    a blended pair's incoming T lies within DENSE_NEAR of 1e-4."""
+    means, scales, rots, opacity, shs, _ = (t.detach().double() for t in x)
+    cam = CameraParams(*(t.double() for t in cam))
+    prep = preprocess(means, scales, rots, shs, cam, cfg)
+    order = torch.argsort(prep.depth, stable=True)
+    sp = Preprocessed(*(t[order] for t in prep))
+    H, W = cfg.height, cfg.width
+    px = torch.arange(W, dtype=torch.float64, device=means.device).repeat(H)
+    py = torch.arange(H, dtype=torch.float64,
+                      device=means.device).repeat_interleave(W)
+    op = opacity[order, 0]
+    lo, mid, hi = (_alpha_at(sp, px, py, op * f, cfg)
+                   for f in (1 - DENSE_NEAR, 1.0, 1 + DENSE_NEAR))
+    through = torch.cumprod(1.0 - mid, dim=0)
+    T = torch.cat([torch.ones_like(through[:1]), through[:-1]])
+    reached = T >= 1e-4 * (1 - DENSE_NEAR)
+    near = ((lo == 0) & (hi > 0) & reached) | (
+        (mid > 0) & ((T - 1e-4).abs() <= DENSE_NEAR * 1e-4))
+    return near.any(0).reshape(H, W)
+
+
+def dense_loss(out):
+    """The parity test's loss: colour MSE plus the features' variance."""
+    return (out.color ** 2).mean() + out.feature.var()
+
+
+def dense_phase(device) -> dict:
+    """The tiled rasterizer (K1 forward, K2 backward) against the dense
+    oracle on the card in float32 under tests/test_rasterizer_parity.py's
+    bounds, values and gradients, on its scene and a larger one, the colour
+    before the background; K1's and the float32 oracle's error from the
+    float64 oracle printed. Returns K1's and K2's launches."""
+    launches = {"K1": 0, "K2": 0}
+    for n, size, seed in DENSE_SCENES:
+        x = dense_scene(n, seed, device)
+        cam = make_camera_params(np.eye(3), np.array([0.0, 0.0, 4.0]), size,
+                                 size, fovx=0.9, fovy=0.9, device=device)
+        cfg = RasterConfig(size, size, sh_degree=0)
+        bg = torch.tensor(DENSE_BG, device=device)
+        outs, grads, ms = {}, {}, {}
+        for name, raster in (("tiled", rasterize), ("dense", rasterize_dense)):
+            xs = [t.clone().requires_grad_(i != 2) for i, t in enumerate(x)]
+            reset_launches()
+            with Timing(device=device) as tm:
+                out = raster(*xs, cam=cam, cfg=cfg, bg_color=bg)
+                dense_loss(out).backward()
+            if name == "tiled":
+                for k in launches:
+                    launches[k] += read_launches()[k]
+                if read_launches()["K1"] != 1 or read_launches()["K2"] != 1:
+                    raise AssertionError(f"dense: the tiled rasterizer "
+                                         f"launched {read_launches()}")
+            outs[name], ms[name] = out, tm.elapsed_ms
+            grads[name] = [t.grad for i, t in enumerate(xs) if i != 2]
+        with torch.no_grad():
+            exact = rasterize_dense(*(t.double() for t in x), cam=cam,
+                                    cfg=cfg, bg_color=bg)
+        tiled, dense = (type(o)(*(t.detach() if isinstance(t, torch.Tensor)
+                                  else t for t in o))
+                        for o in (outs["tiled"], outs["dense"]))
+        # The colour before the background: the oracle composites the
+        # background by the product of every (1 - alpha), the tiled
+        # rasterizer by 1 - opacity, its T at the 1e-4 cut (as the JAX
+        # package's two do), which differ where a pixel reaches the cut.
+        fields = {f: (getattr(tiled, f), getattr(dense, f)) for f in DENSE_TOL}
+        fields["color"] = tuple(o.color - o.final_T[None] * bg[:, None, None]
+                                for o in (tiled, dense))
+        bg_term = float(((tiled.final_T - dense.final_T).abs()).max())
+        op_diff = (tiled.opacity - dense.opacity).abs()[0]
+        past = torch.zeros_like(op_diff, dtype=torch.bool)
+        for field, tol in DENSE_TOL.items():
+            a, b = fields[field]
+            past |= ((a - b).abs() > tol).any(0)
+        near = near_threshold_pixels(x, cam, cfg)
+        crossing = (tiled.n_contrib != dense.n_contrib) | (near & past)
+        n_crossing = int(crossing.sum())
+        if (n_crossing > (1 - DENSE_COUNT_AGREE) * size * size
+                or float(op_diff.max()) > 2 / 255):
+            raise AssertionError(f"dense {n}: {n_crossing} crossing pixels, "
+                                 f"opacity apart by {float(op_diff.max())}")
+        errs = {}
+        for field, tol in DENSE_TOL.items():
+            a, b = fields[field]
+            err = float((a - b)[:, ~crossing].abs().max())
+            if not err <= tol:
+                raise AssertionError(f"dense {n}: {field} {err} > {tol}")
+            errs[field] = f"{err:.3e}"
+        torch.testing.assert_close(tiled.weights, dense.weights,
+                                   rtol=DENSE_W_TOL, atol=DENSE_W_TOL)
+        agree = float((tiled.n_contrib == dense.n_contrib).float().mean())
+        if agree < DENSE_COUNT_AGREE or not torch.equal(tiled.radii,
+                                                        dense.radii):
+            raise AssertionError(f"dense {n}: n_contrib equal on {agree}, "
+                                 "or the radii differ")
+        grad_err = {}
+        for name, g, w in zip(("means", "scales", "opacity", "shs",
+                               "features"), grads["tiled"], grads["dense"]):
+            rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+            if not (rel <= DENSE_GRAD_TOL and bool(torch.isfinite(g).all())):
+                raise AssertionError(f"dense {n}: d{name} {rel} of its "
+                                     f"largest entry > {DENSE_GRAD_TOL}")
+            grad_err[name] = f"{rel:.3e}"
+        exact_color = exact.color - exact.final_T[None] * bg[:, None, None]
+        from64 = {
+            who: {**{f: f"{float((getattr(o, f).double() - getattr(exact, f)).abs().max()):.3e}"
+                     for f in ("opacity", "depth", "feature")},
+                  "color": f"{float((c.double() - exact_color).abs().max()):.3e}"}
+            for who, o, c in (("k1", tiled, fields["color"][0]),
+                              ("dense32", dense, fields["color"][1]))}
+        say("dense", gaussians=n, size=f"{size}x{size}", pairs=tiled.num_rendered,
+            n_contrib_equal=f"{agree:.6f}", crossing_pixels=n_crossing,
+            near_threshold_pixels=int(near.sum()),
+            crossing_opacity_max=f"{float(op_diff.max()):.3e}",
+            tiled_vs_dense=errs, background_T_apart_max=f"{bg_term:.3e}",
+            grad_rel_err=grad_err, k1_from_float64=from64["k1"],
+            dense32_from_float64=from64["dense32"],
+            tiled_fwd_bwd_ms=f"{ms['tiled']:.3f}",
+            dense_fwd_bwd_ms=f"{ms['dense']:.3f}")
+    return launches
+
+
+@torch.no_grad()
+def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
+    """raster.GaussianRasterizer on the card against ops.rasterize on the
+    same inputs (the 10-tuple; the weights, summed by K1's atomics, under
+    k1-main's weights bounds, the rest bitwise), with the SH colour and the
+    covariance given precomputed (k1-main's gate: the covariance's packing
+    may move a last bit), and mark_visible against view z > 0.2. Returns
+    K1's launches by the facade."""
+    cam = view.cam
+    size = SIZE_MAIN
+    settings = GaussianRasterizationSettings(
+        image_height=size, image_width=size,
+        tanfovx=float(cam.tan_fov[0]), tanfovy=float(cam.tan_fov[1]),
+        cx=float(cam.center[0]), cy=float(cam.center[1]),
+        bg=torch.zeros(3, device=cam.world_view.device), scale_modifier=1.0,
+        viewmatrix=cam.world_view, projmatrix=cam.full_proj, sh_degree=3,
+        campos=cam.campos)
+    r = GaussianRasterizer(settings, buffer_multiple=16, chunk=128,
+                           max_chunks_per_tile=64, use_pallas=True)
+    feats = view_features(model, cam)
+    common = dict(means3D=model.xyz, opacities=model.get_opacity,
+                  features=feats)
+    inputs = dict(shs=model.get_shs, scales=model.get_scaling,
+                  rotations=model.get_rotation)
+    cfg = RasterConfig(size, size)
+    want = rasterize(model.xyz, model.get_scaling, model.get_rotation,
+                     model.get_opacity, model.get_shs, feats, cam=r.cam,
+                     cfg=cfg, bg_color=settings.bg)
+    want = (want.num_rendered, want.n_contrib, want.color, want.opacity,
+            want.depth, want.feature, want.pseudo_normal, want.surface_xyz,
+            want.weights, want.radii)
+    prep = preprocess(model.xyz, model.get_scaling, model.get_rotation,
+                      model.get_shs, r.cam, cfg)
+    cases = {"shs": inputs,
+             "colors_precomp": {**inputs, "shs": None,
+                                "colors_precomp": prep.rgb},
+             "cov3d_precomp": {**inputs, "scales": None, "rotations": None,
+                               "cov3D_precomp": covariance3d_packed(
+                                   model.get_scaling, model.get_rotation)}}
+    launches, report = [], {}
+    for name, kw in cases.items():
+        reset_launches()
+        got, ms = timed_ms(lambda: r(**common, **kw))
+        launches.append(composite_cuda.LAUNCHES)
+        if len(got) != 10 or got[0] != want[0] or launches[-1] != 1:
+            raise AssertionError(f"facade {name}: {len(got)} outputs, "
+                                 f"{got[0]} pairs ({want[0]}), K1 launched "
+                                 f"{launches[-1]} times")
+        bitwise = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
+        torch.testing.assert_close(got[8], want[8], rtol=W_RTOL, atol=W_ATOL)
+        if name == "cov3d_precomp":
+            agree = got[1] == want[1]
+            if float(agree.float().mean()) < COUNT_AGREE:
+                raise AssertionError("facade cov3d_precomp: n_contrib")
+            for i in (2, 3, 4, 5):
+                torch.testing.assert_close(got[i][:, agree], want[i][:, agree],
+                                           atol=IMG_ATOL, rtol=IMG_RTOL)
+        elif not all(bitwise[:7] + bitwise[8:]):
+            raise AssertionError(f"facade {name}: outputs apart from "
+                                 f"rasterize's: bitwise {bitwise}")
+        report[name] = {"bitwise": "".join("1" if b else "0"
+                                           for b in bitwise),
+                        "max_abs_err": f"{float((got[2] - want[2]).abs().max()):.3e}",
+                        "ms": f"{ms:.3f}"}
+    xyz1 = torch.cat([model.xyz, torch.ones_like(model.xyz[:, :1])], -1)
+    visible = (xyz1 @ cam.world_view)[:, 2] > 0.2
+    far = torch.cat([model.xyz, model.xyz * -20.0 - torch.tensor(
+        [0.0, 0.0, 70.0], device=model.xyz.device)])
+    far_visible = (torch.cat([far, torch.ones_like(far[:, :1])], -1)
+                   @ cam.world_view)[:, 2] > 0.2
+    marks = (r.markVisible(model.xyz), mark_visible(far, cam.world_view,
+                                                    cam.full_proj))
+    if not (torch.equal(marks[0], visible) and torch.equal(marks[1],
+                                                          far_visible)):
+        raise AssertionError("facade: mark_visible apart from view z > 0.2")
+    say("facade", size=f"{size}x{size}", pairs=want[0], cases=report,
+        k1_launches=launches,
+        mark_visible=f"{int(marks[1].sum())}/{far.shape[0]}")
+    return {"K1": sum(launches)}
+
+
+def state_digest(model: GaussianModel, optimizers, env=None) -> str:
+    """sha256 of a replica: the model's fields and statistics, the Adam
+    state of each of `optimizers` and the env map."""
+    h = hashlib.sha256()
+    tensors = [getattr(model, k) for k in model.fields + G_STATS]
+    if env is not None:
+        tensors.append(env.env)
+    for opt in optimizers:
+        for group in opt.param_groups:
+            state = opt.state[group["params"][0]]
+            tensors += [state[k] for k in sorted(state)]
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_state(model: GaussianModel, env=None) -> dict:
+    """The fields, their gradients and the statistics as numpy arrays."""
+    out = {f"params.{k}": getattr(model, k).detach().cpu().numpy()
+           for k in model.fields}
+    out.update({f"grad.{k}": getattr(model, k).grad.cpu().numpy()
+                for k in model.fields})
+    out.update({f"stats.{k}": getattr(model, k).cpu().numpy()
+                for k in G_STATS})
+    if env is not None:
+        out["params.env"] = env.env.detach().cpu().numpy()
+        out["grad.env"] = env.env.grad.cpu().numpy()
+    return out
+
+
+def dp_views(views_file: Path, device) -> list[ViewInputs]:
+    with np.load(views_file) as data:
+        return [orbit_view(i, VIEWS, SIZE_MAIN, device)._replace(
+            image=torch.as_tensor(data["image"][i], device=device),
+            image_mask=torch.as_tensor(data["mask"][i], device=device))
+            for i in range(VIEWS)]
+
+
+def dp_batch(i: int, size: int) -> list[int]:
+    """The views of step i, one a rank."""
+    return [(size * i + r) % VIEWS for r in range(size)]
+
+
+def dp_stage1_rank(group, ckpt: str, views_file: str, step1_file: str
+                   ) -> dict:
+    """A rank of dp-stage1: DP1_STEPS data-parallel steps from the train
+    phase's checkpoint, a densify after step DP1_DENSIFY_AT and an opacity
+    reset after DP1_RESET_AT; the state after step 1 (rank 0 writes it),
+    each step's digest, ms (utils.timing) and K1/K2 launches."""
+    device = group.device
+    it0, model, optimizer = load_train_state(ckpt, TRAIN_OPT,
+                                             1.1 * CAM_RADIUS, device=device)
+    replicate(group, model, optimizer)
+    views = dp_views(Path(views_file), device)
+    step = make_dp_train_step(group, cfg=RasterConfig(SIZE_MAIN, SIZE_MAIN),
+                              opt=TRAIN_OPT, spatial_lr_scale=1.1 * CAM_RADIUS)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    digests, ms, losses, points = [], [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(DP1_STEPS):
+        batch = [views[v] for v in dp_batch(i, group.size)]
+        with Timing(device=device) as tm:
+            metrics = step(model, optimizer, batch, it0 + 1 + i)
+        ms.append(tm.elapsed_ms)
+        losses.append(float(metrics["loss"]))
+        if i == 0 and group.rank == 0:
+            np.savez(step1_file, **step_state(model))
+        if i + 1 == DP1_DENSIFY_AT:
+            densify_step(model, optimizer, generator,
+                         TRAIN_OPT.densify_grad_normal_threshold, 20.0,
+                         1.1 * CAM_RADIUS, opt=TRAIN_OPT)
+        if i + 1 == DP1_RESET_AT:
+            reset_opacity_step(model, optimizer)
+        points.append(model.num_points)
+        digests.append(state_digest(model, (optimizer,)))
+    return {"launches": read_launches(), "digests": digests, "ms": ms,
+            "loss": losses, "points": points, "it0": it0}
+
+
+def dp_stage2_rank(group, ckpt: str, env_ckpt: str, views_file: str,
+                   step1_file: str) -> dict:
+    """A rank of dp-stage2: the stage-2 phase's state, its visibility traced
+    anew through the ray-sharded trace, DP2_STEPS data-parallel stage-2
+    steps; as dp_stage1_rank, with the env map."""
+    device = group.device
+    it0, model, optimizer = load_train_state(ckpt, STAGE2_OPT,
+                                             1.1 * CAM_RADIUS, device=device)
+    _, env, env_optimizer = load_env_checkpoint(env_ckpt, STAGE2_OPT,
+                                                device=device)
+    replicate(group, model, optimizer, env, env_optimizer)
+    vis = update_visibility(model, SAMPLE_NUM,
+                            sharded_trace=make_sharded_trace(group))
+    views = dp_views(Path(views_file), device)
+    step = make_dp_train_step_stage2(
+        group, cfg=RasterConfig(SIZE_MAIN, SIZE_MAIN), opt=STAGE2_OPT,
+        spatial_lr_scale=1.1 * CAM_RADIUS)
+    digests, ms, losses = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for i in range(DP2_STEPS):
+        batch = [views[v] for v in dp_batch(i, group.size)]
+        with Timing(device=device) as tm:
+            metrics = step(model, optimizer, env, env_optimizer, vis, batch,
+                           it0 + 1 + i)
+        ms.append(tm.elapsed_ms)
+        losses.append(float(metrics["loss"]))
+        if i == 0 and group.rank == 0:
+            np.savez(step1_file, **step_state(model, env))
+        digests.append(state_digest(model, (optimizer, env_optimizer), env))
+    return {"launches": read_launches(), "digests": digests, "ms": ms,
+            "loss": losses, "it0": it0,
+            "env_digest": hashlib.sha256(
+                env.env.detach().cpu().numpy().tobytes()).hexdigest()}
+
+
+@torch.no_grad()
+def sharded_rank(group, ckpt: str, env_ckpt: str, out_file: str) -> dict:
+    """A rank of the sharded phase: the stage-2 model's visibility rays
+    through make_sharded_trace, its eval shading through
+    make_sharded_shading(full_extras=True) on view 0's directions, and
+    render_neilf(is_training=False) of view 0 with both hooks; rank 0 writes
+    them. Returns the launches of each part and their ms."""
+    device = group.device
+    _, model = load_checkpoint(ckpt, device=device)
+    _, env, _ = load_env_checkpoint(env_ckpt, STAGE2_OPT, device=device)
+    out, ms, launches = {}, {}, {}
+    dirs, _ = fibonacci_sphere_sampling(model.get_normal, SAMPLE_NUM)
+    bvh, rays_o, rays_d = visibility_rays(model, dirs)
+    tracer = make_sharded_trace(group)
+    reset_launches()
+    with Timing(device=device) as tm:
+        out["trace"] = tracer(bvh, rays_o, rays_d)
+    ms["trace"], launches["trace"] = tm.elapsed_ms, read_launches()
+    vis = update_visibility(model, SAMPLE_NUM, sharded_trace=tracer)
+    shading = make_sharded_shading(group, full_extras=True)
+    args = sharded_shading_args(model, env, vis, orbit_view(0, VIEWS,
+                                                            SIZE_MAIN, device))
+    reset_launches()
+    with Timing(device=device) as tm:
+        out["pbr"], extras = neilf._shade_points(*args,
+                                                 sharded_shading=shading)
+    ms["shading"], launches["shading"] = tm.elapsed_ms, read_launches()
+    out.update({f"extra.{k}": v for k, v in extras.items()})
+    reset_launches()
+    with Timing(device=device) as tm:
+        res = render_neilf(orbit_view(0, VIEWS, SIZE_MAIN, device), model,
+                           RasterConfig(SIZE_MAIN, SIZE_MAIN),
+                           torch.zeros(3, device=device), env, vis,
+                           is_training=False, sharded_shading=shading)
+    ms["render"], launches["render"] = tm.elapsed_ms, read_launches()
+    out.update({f"render.{k}": res[k] for k in SHARDED_RENDER_KEYS})
+    if group.rank == 0:
+        np.savez(out_file, **{k: v.cpu().numpy() for k, v in out.items()})
+    return {"launches": launches, "ms": ms}
+
+
+SHARDED_RENDER_KEYS = ("render", "pbr", "base_color", "roughness",
+                       "visibility", "specular", "lights", "opacity",
+                       "num_contrib")
+
+
+def sharded_shading_args(model, env, vis, view) -> tuple:
+    """_shade_points' inputs as render_neilf's eval hands them over."""
+    viewdirs = view.cam.campos[None, :] - model.xyz
+    viewdirs = viewdirs / torch.clamp(
+        torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
+    return (model.get_base_color, model.get_roughness, model.get_normal,
+            viewdirs, model.get_incidents, env, vis)
+
+
+def run_rank_jobs(group, jobs: list) -> list:
+    """One spawn for the dp-stage1, dp-stage2 and sharded ranks: each job
+    (function name, arguments) in turn."""
+    return [globals()[name](group, *args) for name, args in jobs]
+
+
+def hand_step(ckpt: str, env_ckpt: str | None, opt: OptimizationConfig,
+              views: list[ViewInputs], vis=None) -> dict:
+    """One step as the hand combination: each view's gradients and
+    statistics alone from the checkpoint's state (K1, K2, and in stage 2 K4),
+    the gradients (the env map's too) averaged, the statistics summed (the
+    radii: max), one Adam step."""
+    extent = 1.1 * CAM_RADIUS
+    cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN)
+    grads, contribs = [], []
+    for v in views:
+        it0, model, _ = load_train_state(ckpt, opt, extent, device=v.image.device)
+        env = (load_env_checkpoint(env_ckpt, opt, device=v.image.device)[1]
+               if env_ckpt else None)
+        m2d = torch.zeros((model.num_points, 2), device=v.image.device,
+                          requires_grad=True)
+        bg = torch.zeros(3, device=v.image.device)
+        res = (render(v, model, cfg, bg, opt, is_training=True,
+                      iteration=it0 + 1, mean2d_offset=m2d) if env is None
+               else render_neilf(v, model, cfg, bg, env, vis, opt,
+                                 is_training=True, mean2d_offset=m2d))
+        backward_or_zero_grads(res["loss"], model, m2d)
+        g = {k: getattr(model, k).grad for k in model.fields}
+        if env is not None:
+            g["env"] = env.env.grad
+        grads.append(g)
+        contribs.append(densification_contribs(
+            m2d.grad, model.normal.grad, res["weights"][:, 0].detach(),
+            res["radii"], (SIZE_MAIN, SIZE_MAIN)))
+    it0, model, optimizer = load_train_state(ckpt, opt, extent,
+                                             device=views[0].image.device)
+    for k in model.fields:
+        getattr(model, k).grad = sum(g[k] for g in grads) / len(grads)
+    set_learning_rates(optimizer, learning_rates(opt, it0 + 1, extent))
+    optimizer.step()
+    env = None
+    if env_ckpt:
+        _, env, env_optimizer = load_env_checkpoint(
+            env_ckpt, opt, device=views[0].image.device)
+        env.env.grad = sum(g["env"] for g in grads) / len(grads)
+        env_optimizer.step()
+    apply_stat_contribs(model, StatContribs(
+        *(sum(c[i] for c in contribs) for i in range(4)),
+        radii=torch.stack([c.radii for c in contribs]).amax(0)))
+    return {**step_state(model, env), "lrs": {
+        **learning_rates(opt, it0 + 1, extent), "env": opt.env_lr}}
+
+
+def check_hand_step(label: str, got_file: str, want: dict) -> dict:
+    """The first data-parallel step (rank 0's state) against the hand
+    combination, under DP_PARAM_LR, DP_GRAD_TOL, DP_STAT_TOL (denom and the
+    radii exactly); returns the worst errors in units of their bounds."""
+    worst = {}
+    with np.load(got_file) as got:
+        for key, w in want.items():
+            if key == "lrs":
+                continue
+            kind, name = key.split(".")
+            g = got[key]
+            if kind == "params":
+                err = float(np.abs(g - w).max()) / (DP_PARAM_LR
+                                                    * want["lrs"][name])
+            elif kind == "stats" and name in ("denom", "max_radii2d"):
+                err = 0.0 if np.array_equal(g, w) else float("inf")
+            else:
+                tol = DP_GRAD_TOL if kind == "grad" else DP_STAT_TOL
+                err = float(np.abs(g - w).max()) / (
+                    tol * max(float(np.abs(w).max()), 1e-30))
+            worst[key] = err
+    bad = {k: v for k, v in worst.items() if not v <= 1.0}
+    if bad:
+        raise AssertionError(f"{label}: step 1 apart from the hand "
+                             f"combination (in units of the bound): {bad}")
+    return {kind: f"{max(v for k, v in worst.items() if k.startswith(kind)):.3f}"
+            for kind in ("params", "grad", "stats")}
+
+
+def parallel_phases(trained: dict, s2: dict, device) -> dict:
+    """dp-stage1, dp-stage2 and sharded: a rank on each of DP_DEVICES (two
+    on the one card, over gloo), one spawn of parallel.spawn for all three;
+    each gated against this process's own computation. Returns each phase's
+    launches (a list, one entry a rank)."""
+    os.environ.pop("R3DG_BWD_TWO_WALK", None)
+    root = WORK / "parallel"
+    root.mkdir(parents=True, exist_ok=True)
+    views = trained["views"]
+    views_file = root / "views.npz"
+    np.savez(views_file, image=torch.stack([v.image for v in views]).cpu().numpy(),
+             mask=torch.stack([v.image_mask for v in views]).cpu().numpy())
+    ckpt1 = root / f"chkpnt{TRAIN_OPT.iterations}.npz"
+    save_checkpoint(str(ckpt1), TRAIN_OPT.iterations, trained["model"],
+                    trained["optimizer"])
+    ckpt2 = root / f"chkpnt{STAGE2_OPT.iterations}.npz"
+    env2 = root / f"env_light_chkpnt{STAGE2_OPT.iterations}.npz"
+    save_checkpoint(str(ckpt2), STAGE2_OPT.iterations, s2["model"],
+                    s2["optimizer"])
+    save_env_checkpoint(str(env2), STAGE2_OPT.iterations, s2["env"],
+                        s2["env_optimizer"])
+    files = {k: str(root / f"{k}.npz") for k in ("dp1_step1", "dp2_step1",
+                                                 "sharded")}
+    jobs = [("dp_stage1_rank", (str(ckpt1), str(views_file),
+                                files["dp1_step1"])),
+            ("dp_stage2_rank", (str(ckpt2), str(env2), str(views_file),
+                                files["dp2_step1"])),
+            ("sharded_rank", (str(ckpt2), str(env2), files["sharded"]))]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = spawn(run_rank_jobs, DP_DEVICES, jobs, timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    dp1, dp2, shr = ([r[k] for r in ranks] for k in range(3))
+    d1, d2 = dp1[0], dp2[0]
+    n = len(DP_DEVICES)
+
+    # dp-stage1
+    for r in dp1[1:]:
+        apart = [i + 1 for i, (a, b) in enumerate(zip(d1["digests"],
+                                                      r["digests"])) if a != b]
+        if apart:
+            raise AssertionError(f"dp-stage1: replicas apart after steps "
+                                 f"{apart}")
+    for r in dp1:
+        if (r["launches"]["K1"], r["launches"]["K2"]) != (DP1_STEPS, DP1_STEPS):
+            raise AssertionError(f"dp-stage1: {DP1_STEPS} steps launched "
+                                 f"{r['launches']} on a rank")
+    if not np.isfinite(d1["loss"]).all() or d1["points"][-1] == d1["points"][0]:
+        raise AssertionError(f"dp-stage1: loss {d1['loss'][:3]}..., points "
+                             f"{d1['points'][0]} -> {d1['points'][-1]}")
+    hand1 = hand_step(str(ckpt1), None, TRAIN_OPT, [
+        views[v] for v in dp_batch(0, n)])
+    worst1 = check_hand_step("dp-stage1", files["dp1_step1"], hand1)
+    say("dp-stage1", ranks=n, devices=list(DP_DEVICES),
+        backend=choose_backend(DP_DEVICES),
+        steps=DP1_STEPS, densify_after=DP1_DENSIFY_AT,
+        reset_after=DP1_RESET_AT, points=f"{d1['points'][0]}->{d1['points'][-1]}",
+        replicas_bitwise_equal_every_step=True,
+        launches=[r["launches"] for r in dp1],
+        step1_vs_hand_in_bound_units=worst1,
+        ms_per_dp_step_median=f"{float(np.median(d1['ms'][1:])):.3f}",
+        ms_per_dp_step=[round(m, 3) for m in d1["ms"]],
+        loss_first=f"{d1['loss'][0]:.5f}", loss_last=f"{d1['loss'][-1]:.5f}")
+
+    # dp-stage2
+    if any(r["digests"] != d2["digests"] or r["env_digest"] != d2["env_digest"]
+           for r in dp2):
+        raise AssertionError("dp-stage2: replicas (or env maps) apart")
+    for r in dp2:
+        per_step = [r["launches"][k] for k in ("K1", "K2", "K4-fwd", "K4-bwd")]
+        if per_step != [DP2_STEPS] * 4:
+            raise AssertionError(f"dp-stage2: {DP2_STEPS} steps launched "
+                                 f"{r['launches']} on a rank")
+    with torch.no_grad():
+        _, model2 = load_checkpoint(str(ckpt2), device=device)
+        vis2 = update_visibility(model2, SAMPLE_NUM)
+    hand2 = hand_step(str(ckpt2), str(env2), STAGE2_OPT,
+                      [views[v] for v in dp_batch(0, n)], vis2)
+    worst2 = check_hand_step("dp-stage2", files["dp2_step1"], hand2)
+    say("dp-stage2", ranks=n, steps=DP2_STEPS,
+        replicas_bitwise_equal_every_step=True, env_maps_bitwise_equal=True,
+        launches=[r["launches"] for r in dp2],
+        step1_vs_hand_in_bound_units=worst2,
+        ms_per_dp_step_median=f"{float(np.median(d2['ms'][1:])):.3f}",
+        ms_per_dp_step=[round(m, 3) for m in d2["ms"]],
+        loss_first=f"{d2['loss'][0]:.5f}", loss_last=f"{d2['loss'][-1]:.5f}")
+
+    # sharded: against one K3 launch, the unsharded shading and render
+    with torch.no_grad(), np.load(files["sharded"]) as got:
+        _, env_model, _ = load_env_checkpoint(str(env2), STAGE2_OPT,
+                                              device=device)
+        dirs, _ = fibonacci_sphere_sampling(model2.get_normal, SAMPLE_NUM)
+        bvh, rays_o, rays_d = visibility_rays(model2, dirs)
+        reset_launches()
+        whole, trace_ms = timed_ms(lambda: ray_trace.trace_visibility(
+            bvh, rays_o, rays_d))
+        if not np.array_equal(got["trace"], whole.cpu().numpy()):
+            diff = int((got["trace"] != whole.cpu().numpy()).sum())
+            raise AssertionError(f"sharded: {diff} rays' T apart from one K3 "
+                                 "launch on all rays")
+        view0 = orbit_view(0, VIEWS, SIZE_MAIN, device)
+        pbr, extras = neilf._shade_points(*sharded_shading_args(
+            model2, env_model, vis2, view0))
+        shade_err = {k: float(np.abs(got[key] - v.cpu().numpy()).max())
+                     for k, key, v in [("pbr", "pbr", pbr)] + [
+                         (k, f"extra.{k}", v) for k, v in extras.items()]}
+        if max(shade_err.values()) > SHARDED_SHADE_ATOL:
+            raise AssertionError(f"sharded: shading apart from _shade_points "
+                                 f"{shade_err} > {SHARDED_SHADE_ATOL}")
+        res = render_neilf(view0, model2, RasterConfig(SIZE_MAIN, SIZE_MAIN),
+                           torch.zeros(3, device=device), env_model, vis2,
+                           is_training=False)
+        want_count = res["num_contrib"].cpu().numpy()
+        agree = got["render.num_contrib"] == want_count
+        if agree.mean() < COUNT_AGREE:
+            raise AssertionError(f"sharded: n_contrib equal on {agree.mean()}")
+        render_err = {}
+        for k in SHARDED_RENDER_KEYS[:-1]:
+            w = res[k].cpu().numpy()
+            g = got[f"render.{k}"]
+            if not np.allclose(g[:, agree], w[:, agree], atol=IMG_ATOL,
+                               rtol=IMG_RTOL):
+                raise AssertionError(f"sharded: render {k} apart from the "
+                                     "unsharded view beyond k1-main's gate")
+            render_err[k] = f"{float(np.abs(g - w)[:, agree].max()):.3e}"
+    for r in shr:
+        if (r["launches"]["trace"]["K3"], r["launches"]["render"]["K1"]) != (1, 1):
+            raise AssertionError(f"sharded: launches {r['launches']}")
+    say("sharded", ranks=n, rays=int(rays_o.shape[0]),
+        rays_per_rank=int(rays_o.shape[0]) // n,
+        trace_bitwise_equal_one_launch=True,
+        trace_ms_per_rank=[round(r["ms"]["trace"], 3) for r in shr],
+        trace_ms_one_launch=f"{trace_ms:.3f}",
+        shading_max_abs_err={k: f"{v:.3e}" for k, v in shade_err.items()},
+        shading_ms=[round(r["ms"]["shading"], 3) for r in shr],
+        render_n_contrib_equal=f"{agree.mean():.6f}",
+        render_max_abs_err=render_err,
+        render_ms=[round(r["ms"]["render"], 3) for r in shr],
+        launches=[r["launches"] for r in shr],
+        spawn_s=f"{spawn_s:.2f}")
+    return {"dp-stage1": [r["launches"] for r in dp1],
+            "dp-stage2": [r["launches"] for r in dp2],
+            "sharded": [r["launches"] for r in shr]}
+
+
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
     """Builds K1 to K5 from the checkout's sources, one nvcc each, all at
     once, and prints ptxas's report of csrc/shading.cu and of each source in
@@ -2635,6 +3342,16 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     # 25. K4's gate over fresh sample directions on the stage-2 model
     with torch.no_grad():
         k4_seeds_phase(s2, k4_seeds)
+    # 26. the dense oracle against K1 and K2
+    dense = dense_phase(device)
+    # 27. the reference-API facade against rasterize
+    facade = facade_phase(scene_model, orbit_view(0, VIEWS, SIZE_MAIN, device))
+    # 28-30. data-parallel stages 1 and 2 and the sharded eval, two ranks on
+    # the card
+    par = parallel_phases(trained, s2, device)
+
+    def per_rank(phase, kernel, part=None):
+        return [(r[part] if part else r)[kernel] for r in par[phase]]
 
     s2_launches = s2["launches"]
     print(json.dumps({"kernels": [
@@ -2644,9 +3361,16 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "relight_eval_launches": relight_eval["launches"]["K1"],
          "gui_render_launches": gui_launches["render"]["K1"],
          "gui_neilf_launches": gui_launches["neilf"]["K1"],
-         "train_gui_launches": train_gui_launches["K1"]},
+         "train_gui_launches": train_gui_launches["K1"],
+         "dense_launches": dense["K1"], "facade_launches": facade["K1"],
+         "dp_stage1_launches": per_rank("dp-stage1", "K1"),
+         "dp_stage2_launches": per_rank("dp-stage2", "K1"),
+         "sharded_launches": per_rank("sharded", "K1", "render")},
         {"name": "K2 composite_bwd", "route": "cuda", "source": K2_SOURCE,
-         "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2},
+         "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2,
+         "dense_launches": dense["K2"],
+         "dp_stage1_launches": per_rank("dp-stage1", "K2"),
+         "dp_stage2_launches": per_rank("dp-stage2", "K2")},
         {"name": "K3 ray_trace", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": s2_launches["K3"], **main_k3,
          "relight_launches": relight["launches"]["K3"],
@@ -2661,16 +3385,18 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "relight_eval_bound_ms": relight_eval["k3_bound_ms"],
          "relight_eval_bound_by": relight_eval["k3_bound_by"],
          "gui_neilf_launches": gui_launches["neilf"]["K3"],
-         "finetune_vis_launches": finetune["launches"]["K3"]},
+         "finetune_vis_launches": finetune["launches"]["K3"],
+         "sharded_launches": per_rank("sharded", "K3", "trace")},
         {"name": "K4 shade_fwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4F_REPLACES, "launches": s2_launches["K4-fwd"],
-         **main_k4f},
+         **main_k4f, "dp_stage2_launches": per_rank("dp-stage2", "K4-fwd")},
         {"name": "K4 shade_bwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4B_REPLACES, "launches": s2_launches["K4-bwd"],
-         **main_k4b},
+         **main_k4b, "dp_stage2_launches": per_rank("dp-stage2", "K4-bwd")},
         {"name": "K5 composite_bwd_two_walk", "route": "cuda",
          "source": K5_SOURCE, "replaces": K5_REPLACES,
-         "launches": cli_launches["K5"], **main_k5}]}), flush=True)
+         "launches": cli_launches["K5"], **main_k5,
+         "dp_stage1_launches": per_rank("dp-stage1", "K5")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,6 +15,8 @@ import os
 import sys
 from argparse import ArgumentParser, Namespace
 
+import torch
+
 from ..train.config import ModelConfig, OptimizationConfig, PipelineConfig
 
 _SHORTHAND = {
@@ -42,29 +44,37 @@ def add_dataclass_args(parser: ArgumentParser, cls, name: str) -> None:
                                default=field.default)
 
 
-MULTI_GPU_QUEUE = "ROADMAP queue 1 item 4e"
 NO_EFFECT = "accepted for the JAX CLI's flag surface; no effect here"
 
 
 def add_tpu_flags(parser: ArgumentParser) -> None:
-    """The JAX CLIs' TPU-only flags: --no_auto_plan and the tracer's caps
-    are accepted with no effect; --n_devices > 1 is refused by
-    `refuse_multi_gpu`."""
+    """The JAX CLIs' device flags: --n_devices (ranks, one a card) and,
+    with no effect, --no_auto_plan and the tracer's caps."""
     parser.add_argument("--no_auto_plan", action="store_true", help=NO_EFFECT)
     parser.add_argument("--n_devices", type=int, default=1,
-                        help=f"values > 1 are refused ({MULTI_GPU_QUEUE})")
+                        help="ranks to split the work over, one process a "
+                             "card (cli.run_ranks)")
     parser.add_argument("--trace_max_clusters", type=int, default=0,
                         help=NO_EFFECT)
     parser.add_argument("--trace_max_supers", type=int, default=0,
                         help=NO_EFFECT)
 
 
-def refuse_multi_gpu(args: Namespace, what: str) -> None:
-    """Raise SystemExit for --n_devices > 1: multi-GPU `what` is not
-    ported."""
-    if (getattr(args, "n_devices", 1) or 1) > 1:
-        raise SystemExit(f"--n_devices {args.n_devices}: multi-GPU {what} "
-                         f"is not ported yet ({MULTI_GPU_QUEUE})")
+def rank_devices(n: int, device: torch.device) -> list[torch.device]:
+    """The device of each of `n` ranks: cuda:0 to cuda:n-1 on the card
+    (SystemExit where fewer cards are visible, as the JAX CLIs refuse more
+    devices than they see), the CPU n times where the caller asked for the
+    CPU (the tests: n gloo ranks)."""
+    if device.type != "cuda":
+        return [device] * n
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the CLIs run on the card (a "
+                           "caller may pass device='cpu' to main)")
+    count = torch.cuda.device_count()
+    if n > count:
+        raise SystemExit(f"--n_devices {n} requested but only {count} CUDA "
+                         "devices are visible")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def extract(cls, args: Namespace):

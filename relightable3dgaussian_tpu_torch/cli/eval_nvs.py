@@ -6,6 +6,8 @@ point_cloud/iteration_N PLY), render the train and test splits, save the
 images and write PSNR, SSIM and, where LPIPS has weights (losses/lpips.py),
 LPIPS to metric_{split}.txt. With `-t neilf` the visibility is traced anew
 (kernel K3) and the env light is read from env_light_<checkpoint name>.
+With --n_devices N the visibility trace and the eval shading are split over
+N ranks, one process a card (cli.run_ranks), and rank 0 writes.
 
 Usage:
   python -m relightable3dgaussian_tpu_torch.cli.eval_nvs -s <data> \
@@ -25,13 +27,14 @@ from ..models import gaussians as G
 from ..models.lights import DirectLightMap
 from ..models.render import render
 from ..models.render_neilf import render_neilf, update_visibility
+from ..parallel.data_parallel import broadcast_
 from ..scene import Scene, ply_io, search_max_iteration
 from ..scene.image_io import save_image_u8
 from ..train import checkpoint as ckpt
 from ..train.config import ModelConfig, OptimizationConfig, PipelineConfig
 from ..utils.image import psnr as psnr_fn, visualize_depth
-from .arguments import (add_tpu_flags, build_parser, extract,
-                        get_combined_args, refuse_multi_gpu)
+from . import run_ranks, sharded_shading_from_args, sharded_trace_from_args
+from .arguments import add_tpu_flags, build_parser, extract, get_combined_args
 from .train import background, raster_config, require_device
 
 
@@ -56,12 +59,17 @@ def load_model(args, model_cfg: ModelConfig, is_pbr: bool,
 
 
 @torch.no_grad()
-def render_set(out_dir: str, name: str, cams, render_one, device) -> dict:
+def render_set(out_dir: str, name: str, cams, render_one, device,
+               write: bool = True) -> dict | None:
     """Render `cams`, save renders and ground truth (and the depth and
     normal maps where the render has them) under out_dir/name, and write
     out_dir/metric_<name>.txt; returns the metrics and "view_ms", the host
     milliseconds of each view's render and metrics (which wait for the
-    device)."""
+    device). Without `write` (a rank past rank 0) it only renders."""
+    if not write:
+        for cam in cams:
+            render_one(cam.view_inputs(device))
+        return None
     os.makedirs(os.path.join(out_dir, name, "renders"), exist_ok=True)
     os.makedirs(os.path.join(out_dir, name, "gt"), exist_ok=True)
     psnrs, ssims, lpipss, view_ms = [], [], [], []
@@ -115,11 +123,17 @@ def build_eval_parser():
 
 
 def main(argv=None, device: torch.device | str = "cuda") -> dict:
-    """Evaluate on `device`; returns {split: render_set's result}."""
+    """Evaluate on `device`, on `--n_devices` ranks; returns {split:
+    render_set's result}."""
     device = torch.device(device)
     require_device(device)
     args = get_combined_args(build_eval_parser(), argv)
-    refuse_multi_gpu(args, "evaluation")
+    return run_ranks(evaluation, args, device)
+
+
+def evaluation(args, device, group=None) -> dict:
+    """The evaluation on `device`; with `group`, as one of its ranks."""
+    require_device(device)
     model_cfg = extract(ModelConfig, args)
     pipe = extract(PipelineConfig, args)
     is_pbr = args.type == "neilf"
@@ -131,9 +145,12 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
     model, it = load_model(args, model_cfg, is_pbr, device)
     print(f"Evaluating model at iteration {it} ({model.num_points} gaussians)")
 
-    env = vis = None
+    env = vis = sharded_shading = None
     if is_pbr:
-        vis = update_visibility(model, pipe.sample_num)
+        vis = update_visibility(model, pipe.sample_num,
+                                sharded_trace=sharded_trace_from_args(
+                                    args, group))
+        sharded_shading = sharded_shading_from_args(args, group)
         env_path = (ckpt.env_checkpoint_path(args.checkpoint)
                     if args.checkpoint else None)
         if env_path and not env_path.endswith(".npz"):
@@ -144,6 +161,7 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
             print(f"Loaded env light from {env_path}")
         else:
             env = DirectLightMap(model_cfg.env_resolution, device=device)
+        broadcast_([env.env.data], group)     # one unseeded map for all ranks
 
     results = {}
     for name, cams, skip in (("train", scene.get_train_cameras(),
@@ -157,12 +175,14 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
         if is_pbr:
             def render_one(view):
                 return render_neilf(view, model, cfg, bg, env, vis,
-                                    is_training=False)
+                                    is_training=False,
+                                    sharded_shading=sharded_shading)
         else:
             def render_one(view):
                 return render(view, model, cfg, bg)
         results[name] = render_set(model_cfg.model_path, name, cams,
-                                   render_one, device)
+                                   render_one, device,
+                                   write=group is None or group.rank == 0)
     return results
 
 

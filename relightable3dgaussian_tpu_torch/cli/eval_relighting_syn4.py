@@ -8,7 +8,9 @@ render with the ground truth (PSNR, SSIM, LPIPS), the base colour, under the
 per-scene albedo scale, with the ground-truth albedo, and the roughness by
 MSE, each over the object's mask. Writes test_rli/<task>/metric.txt with the
 reference's seven field names; the log names the LPIPS backbone
-(`lpips(random-vgg)` under LPIPS_WEIGHTS=random).
+(`lpips(random-vgg)` under LPIPS_WEIGHTS=random). With --n_devices N the
+trace and the shading are split over N ranks, one process a card
+(cli.run_ranks), and rank 0 scores and writes.
 
 Usage:
   python -m relightable3dgaussian_tpu_torch.cli.eval_relighting_syn4 \
@@ -34,8 +36,8 @@ from ..scene.image_io import load_img_rgb, save_image_u8
 from ..train.config import ModelConfig, PipelineConfig
 from ..utils.graphics import focal2fov, fov2focal
 from ..utils.image import psnr as psnr_fn
-from .arguments import (add_tpu_flags, build_parser, extract,
-                        get_combined_args, refuse_multi_gpu)
+from . import run_ranks, sharded_shading_from_args, sharded_trace_from_args
+from .arguments import add_tpu_flags, build_parser, extract, get_combined_args
 from .eval_nvs import load_model
 from .train import require_device
 
@@ -67,19 +69,28 @@ def build_eval_parser():
 
 
 def main(argv=None, device: torch.device | str = "cuda") -> dict:
-    """Evaluate on `device`; returns {task: metrics} for each task whose
-    map exists."""
+    """Evaluate on `device`, on `--n_devices` ranks; returns {task:
+    metrics} for each task whose map exists."""
     device = torch.device(device)
     require_device(device)
     args = get_combined_args(build_eval_parser(), argv)
-    refuse_multi_gpu(args, "evaluation")
+    return run_ranks(evaluation, args, device)
+
+
+def evaluation(args, device, group=None) -> dict:
+    """The evaluation on `device`; with `group`, as one of its ranks, the
+    trace and the shading split over them, rank 0 scoring and writing."""
+    require_device(device)
+    writer = group is None or group.rank == 0
     model_cfg = extract(ModelConfig, args)
     pipe = extract(PipelineConfig, args)
 
     model, it = load_model(args, model_cfg, True, device)
     print(f"Loaded model at iteration {it}")
     print(f"Tracing visibility ({pipe.sample_num} samples)...")
-    vis = update_visibility(model, pipe.sample_num)
+    vis = update_visibility(model, pipe.sample_num,
+                            sharded_trace=sharded_trace_from_args(args, group))
+    sharded_shading = sharded_shading_from_args(args, group)
     out = {}
 
     scale = [1.0, 1.0, 1.0]
@@ -117,7 +128,8 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
         envname = os.path.splitext(os.path.basename(env_path))[0]
         task_dir = os.path.join(results_dir, task)
         for sub in capture_list + ["gt", "gt_albedo", "gt_roughness"]:
-            os.makedirs(os.path.join(task_dir, sub), exist_ok=True)
+            if writer:
+                os.makedirs(os.path.join(task_dir, sub), exist_ok=True)
 
         acc = {k: [] for k in METRICS}
         cfg = None
@@ -136,7 +148,10 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
             view = cam.view_inputs(device)
             with torch.no_grad():
                 res = render_neilf(view, model, cfg, bg, env, vis,
-                                   is_training=False, base_color_scale=scale)
+                                   is_training=False, base_color_scale=scale,
+                                   sharded_shading=sharded_shading)
+            if not writer:
+                continue
 
             pbr = res["pbr"] * mask + (1 - mask) * bg_val
             pbr_env = res["pbr"] * mask + (1 - mask) * res["env_only"]
@@ -182,6 +197,8 @@ def main(argv=None, device: torch.device | str = "cuda") -> dict:
                 print("Albedo scale:",
                       np.median(ratio[:, m].cpu().numpy(), axis=1))
 
+        if not writer:
+            continue
         metrics = {k: float(np.mean(v)) if v else float("nan")
                    for k, v in acc.items()}
         with open(os.path.join(task_dir, "metric.txt"), "w") as f:

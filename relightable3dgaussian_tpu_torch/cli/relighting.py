@@ -10,7 +10,9 @@ under an HDR environment map (kernel K1 at the eval width), rotating the
 light each frame where <config>/light_transform.json says so, and writes
 one PNG per capture type and frame. `--video` would join the frames into
 mp4s; the port has no video encoder, so it says so and keeps the PNGs, as
-the JAX CLI does without imageio.
+the JAX CLI does without imageio. With --n_devices N the trace and the
+shading are split over N ranks, one process a card (cli.run_ranks), and
+rank 0 writes.
 
 Usage:
   python -m relightable3dgaussian_tpu_torch.cli.relighting -co <config> \
@@ -34,7 +36,8 @@ from ..scene import ply_io
 from ..scene.cameras import Camera
 from ..scene.image_io import save_image_u8
 from ..utils.graphics import focal2fov, fov2focal
-from .arguments import add_tpu_flags, refuse_multi_gpu
+from . import run_ranks, sharded_shading_from_args, sharded_trace_from_args
+from .arguments import add_tpu_flags
 from .train import require_device
 
 # The Blender camera's horizontal field of view (relighting.py:155), the
@@ -119,11 +122,17 @@ def build_parser() -> ArgumentParser:
 
 
 def main(argv=None, device: torch.device | str = "cuda") -> None:
-    """Compose, trace and render on `device`."""
+    """Compose, trace and render on `device`, on `--n_devices` ranks."""
     device = torch.device(device)
     require_device(device)
-    args = build_parser().parse_args(argv)
-    refuse_multi_gpu(args, "relighting")
+    run_ranks(relight, build_parser().parse_args(argv), device)
+
+
+def relight(args, device, group=None) -> None:
+    """Compose, trace and render on `device`; with `group`, as one of its
+    ranks, the trace and the shading split over them, rank 0 writing."""
+    require_device(device)
+    writer = group is None or group.rank == 0
 
     scene_dict = load_json_config(os.path.join(args.config, "transform.json"))
     traject = load_json_config(os.path.join(args.config, "trajectory.json"))
@@ -134,7 +143,9 @@ def main(argv=None, device: torch.device | str = "cuda") -> None:
     model = scene_composition(scene_dict, device)
 
     print(f"Tracing visibility ({args.sample_num} samples)...")
-    vis = update_visibility(model, args.sample_num)
+    vis = update_visibility(model, args.sample_num,
+                            sharded_trace=sharded_trace_from_args(args, group))
+    sharded_shading = sharded_shading_from_args(args, group)
     if args.vis_one:
         print("ablation: visibility forced to 1")
         vis = vis._replace(visibility=torch.ones_like(vis.visibility))
@@ -144,7 +155,8 @@ def main(argv=None, device: torch.device | str = "cuda") -> None:
 
     capture_list = [s.strip() for s in args.capture_list.split(",")]
     for t in capture_list:
-        os.makedirs(os.path.join(args.output, t), exist_ok=True)
+        if writer:
+            os.makedirs(os.path.join(args.output, t), exist_ok=True)
 
     bg_val = (args.background_color if args.background_color is not None
               else (1.0 if args.white_background else 0.0))
@@ -169,7 +181,10 @@ def main(argv=None, device: torch.device | str = "cuda") -> None:
             env_i = env._replace(transform=transform)
             view = cam.view_inputs(device)
             res = render_neilf(view, model, cfg, bg, env_i, vis,
-                               is_training=False, base_color_scale=bc_scale)
+                               is_training=False, base_color_scale=bc_scale,
+                               sharded_shading=sharded_shading)
+            if not writer:
+                continue
             opacity = res["opacity"]
             for t in capture_list:
                 if t == "points":
@@ -189,7 +204,7 @@ def main(argv=None, device: torch.device | str = "cuda") -> None:
                                            f"frame_{idx}.png"), img)
             print(f"frame {idx} done", flush=True)
 
-    if args.video:
+    if args.video and writer:
         export_videos(args.output, capture_list, traject, W, H)
 
 

@@ -23,10 +23,15 @@ its tracer is exact, so it has no caps. Their flags (--capacity,
 --buffer_multiple, --no_auto_plan, --chunk, --max_chunks_per_tile,
 --max_tiles_per_gaussian, --trace_max_clusters, --trace_max_supers) are
 accepted and have no effect; --max_capacity > 0 is refused, as there is no
-capacity to cap. --n_devices > 1 is refused: multi-GPU training is ROADMAP
-queue 1 item 4e. --gui embeds the viewer (cli/gui.py), one frame a step,
-where dearpygui is installed, and goes on without it where it is not, as
-the JAX CLI does. The final metrics add LPIPS where it has weights
+capacity to cap. --n_devices N trains data-parallel on N ranks, one process
+a card (cli.run_ranks; parallel/data_parallel.py): each step pops N views
+from the camera order and rank r renders the r-th, the gradients and
+densification statistics are combined, every rank densifies alike from the
+same seeded generator, the stage-2 visibility trace is split over the ranks
+at set-up and at refreshes, and rank 0 alone writes the checkpoints, PLYs,
+logs and the final eval. --gui embeds the viewer (cli/gui.py), one frame a
+step, where dearpygui is installed, and goes on without it where it is
+not, as the JAX CLI does. The final metrics add LPIPS where it has weights
 (losses/lpips.py), as the JAX CLI's do.
 """
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import random
 import re
 import time
 
@@ -47,6 +53,7 @@ from ..models import lights
 from ..models.render import render
 from ..models.render_neilf import render_neilf, update_visibility
 from ..ops.config import RasterConfig
+from ..parallel import replicate
 from ..scene import Scene
 from ..scene.image_io import save_image_u8
 from ..train import checkpoint as ckpt
@@ -54,8 +61,8 @@ from ..train import stage1, stage2
 from ..train.optim import make_env_optimizer, make_optimizer, start_state
 from ..utils.image import psnr as psnr_fn, visualize_depth
 from ..utils.logging import MetricsLogger, debug_dump, save_training_vis
-from .arguments import (MULTI_GPU_QUEUE, NO_EFFECT, add_tpu_flags,
-                        build_parser, extract_all, refuse_multi_gpu,
+from . import run_ranks, sharded_trace_from_args
+from .arguments import (NO_EFFECT, add_tpu_flags, build_parser, extract_all,
                         save_cfg_args)
 
 
@@ -84,7 +91,6 @@ def background(cfg: RasterConfig, device) -> torch.Tensor:
 
 
 def refuse_unsupported(args) -> None:
-    refuse_multi_gpu(args, "training")
     if getattr(args, "max_capacity", 0):
         raise SystemExit("--max_capacity: the port keeps only the live "
                          "gaussians and has no capacity to cap")
@@ -119,19 +125,28 @@ def require_device(device: torch.device) -> None:
                            "caller may pass device='cpu' to main)")
 
 
-def training(args, device) -> None:
+def training(args, device, group=None) -> None:
+    """Train on `device`; with `group` (a rank of `--n_devices`), as one
+    rank of the data-parallel run, writing only on rank 0."""
     require_device(device)
     refuse_unsupported(args)
     model_cfg, pipe, opt = extract_all(args)
     is_pbr = args.type == "neilf"
+    writer = group is None or group.rank == 0
     t0 = time.time()
 
-    scene = Scene(model_cfg.source_path, model_cfg.model_path,
+    if group is not None:
+        # The scene shuffles its cameras with `random`: the same order on
+        # every rank.
+        random.seed(args.seed)
+    scene = Scene(model_cfg.source_path,
+                  model_cfg.model_path if writer else "",
                   images=model_cfg.images,
                   white_background=model_cfg.white_background,
                   eval_split=model_cfg.eval, resolution=model_cfg.resolution,
                   debug=pipe.debug)
-    save_cfg_args(model_cfg.model_path, args)
+    if writer:
+        save_cfg_args(model_cfg.model_path, args)
     spatial_lr_scale = extent = scene.cameras_extent
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -164,8 +179,6 @@ def training(args, device) -> None:
 
     env = env_optimizer = vis = None
     if is_pbr:
-        print(f"Tracing visibility ({pipe.sample_num} samples)...")
-        vis = update_visibility(model, pipe.sample_num)
         env = lights.DirectLightMap(
             model_cfg.env_resolution, opt.light_init,
             torch.Generator(device=device).manual_seed(args.seed + 1),
@@ -177,10 +190,20 @@ def training(args, device) -> None:
             _, env, env_optimizer = ckpt.load_env_checkpoint(env_path, opt,
                                                              device=device)
             print(f"Loaded env light from {env_path}")
+    replicate(group, model, optimizer, env, env_optimizer)
+    sharded_trace = sharded_trace_from_args(args, group)
+    if is_pbr:
+        print(f"Tracing visibility ({pipe.sample_num} samples)...")
+        vis = update_visibility(model, pipe.sample_num,
+                                sharded_trace=sharded_trace)
 
+    if not writer:
+        _run_rank(state_of(model, optimizer, env, env_optimizer, vis), views,
+                  cfg, opt, spatial_lr_scale, extent, first_iter, args, pipe,
+                  generator, is_pbr, group, sharded_trace)
+        return
     logger = MetricsLogger(model_cfg.model_path)
-    state = {"model": model, "optimizer": optimizer, "env": env,
-             "env_optimizer": env_optimizer, "vis": vis}
+    state = state_of(model, optimizer, env, env_optimizer, vis)
     best = {"psnr": -1.0, "iter": 0}
     test_views = None
     ema: dict[str, float] = {}
@@ -315,18 +338,9 @@ def training(args, device) -> None:
                     iteration, state["env"], state["env_optimizer"])
 
     try:
-        if not is_pbr:
-            _run_stage1(state, views, cfg, opt, spatial_lr_scale, extent,
-                        first_iter, callback, generator, timer,
-                        collapse_min_points=(0 if args.no_collapse_guard
-                                             else args.collapse_min_points))
-        else:
-            ups = tuple(int(v) for v in args.env_upsample_iters.split(",")
-                        if v)
-            _run_stage2(state, views, cfg, opt, spatial_lr_scale, first_iter,
-                        callback, timer, env_upsample_iters=ups,
-                        vis_refresh=args.vis_refresh_interval,
-                        sample_num=pipe.sample_num)
+        _run_stages(state, views, cfg, opt, spatial_lr_scale, extent,
+                    first_iter, args, pipe, generator, is_pbr, group,
+                    sharded_trace, callback, timer)
     except ModelCollapseError as e:
         _quarantine_checkpoints(model_cfg.model_path, best["iter"])
         print(f"MODEL COLLAPSE: {e}\nCheckpoints newer than the best "
@@ -344,6 +358,43 @@ def training(args, device) -> None:
     if model_cfg.eval and scene.get_test_cameras():
         evaluate(scene, state["model"], state["env"], state["vis"],
                  model_cfg, device)
+
+
+def state_of(model, optimizer, env, env_optimizer, vis) -> dict:
+    """The training state the loops update in place."""
+    return {"model": model, "optimizer": optimizer, "env": env,
+            "env_optimizer": env_optimizer, "vis": vis}
+
+
+def _run_stages(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
+                args, pipe, generator, is_pbr, group, sharded_trace,
+                callback, timer) -> None:
+    """The stage-1 or the stage-2 loop of `args`."""
+    if not is_pbr:
+        _run_stage1(state, views, cfg, opt, spatial_lr_scale, extent,
+                    first_iter, callback, generator, timer,
+                    collapse_min_points=(0 if args.no_collapse_guard
+                                         else args.collapse_min_points),
+                    group=group)
+    else:
+        ups = tuple(int(v) for v in args.env_upsample_iters.split(",") if v)
+        _run_stage2(state, views, cfg, opt, spatial_lr_scale, first_iter,
+                    callback, timer, env_upsample_iters=ups,
+                    vis_refresh=args.vis_refresh_interval,
+                    sample_num=pipe.sample_num, group=group,
+                    sharded_trace=sharded_trace)
+
+
+def _run_rank(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
+              args, pipe, generator, is_pbr, group, sharded_trace) -> None:
+    """A data-parallel rank past rank 0: the same steps, densifies and
+    re-traces, writing nothing."""
+    try:
+        _run_stages(state, views, cfg, opt, spatial_lr_scale, extent,
+                    first_iter, args, pipe, generator, is_pbr, group,
+                    sharded_trace, lambda iteration, metrics: None, None)
+    except ModelCollapseError:
+        raise SystemExit(3)
 
 
 def open_viewer(args, state, cfg, bg, is_pbr: bool, extent: float, device):
@@ -388,21 +439,43 @@ def _quarantine_checkpoints(model_path: str, best_iter: int) -> None:
             print(f"[collapse] quarantined {name}")
 
 
-def _run_stage1(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
-                callback, generator, timer, collapse_min_points=32) -> None:
-    """The JAX CLI's stage-1 loop (cli/train.py:504-632) from first_iter:
-    cameras from a numpy permutation (seed 0), densify and opacity reset on
-    its schedule, and the collapse guard after each densify."""
-    model, optimizer = state["model"], state["optimizer"]
+def _make_batcher(views, group):
+    """The JAX CLI's `_make_batcher` (cli/train.py:487-499): a function
+    popping one view a rank from a numpy permutation of the views (seed 0,
+    popped from its end, renewed when empty); this rank's is the
+    rank-th."""
     rng = np.random.default_rng(0)
     stack: list[int] = []
+    size, rank = (1, 0) if group is None else (group.size, group.rank)
+
+    def next_view():
+        batch = []
+        for _ in range(size):
+            if not stack:
+                stack.extend(rng.permutation(len(views)))
+            batch.append(stack.pop())
+        return views[batch[rank]]
+
+    return next_view
+
+
+def _run_stage1(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
+                callback, generator, timer, collapse_min_points=32,
+                group=None) -> None:
+    """The JAX CLI's stage-1 loop (cli/train.py:504-632) from first_iter:
+    cameras from a numpy permutation (seed 0), one a rank, densify and
+    opacity reset on its schedule, and the collapse guard after each
+    densify."""
+    model, optimizer = state["model"], state["optimizer"]
+    next_view = _make_batcher(views, group)
+    if group is not None:
+        print(f"Data-parallel training over {group.size} ranks "
+              f"({group.size} cameras per step)")
     n_prev = peak_pts = model.num_points
     for iteration in range(first_iter + 1, opt.iterations + 1):
-        if not stack:
-            stack = list(rng.permutation(len(views)))
         metrics = stage1.train_step(
-            model, optimizer, views[stack.pop()], iteration, cfg=cfg, opt=opt,
-            spatial_lr_scale=spatial_lr_scale, timer=timer)
+            model, optimizer, next_view(), iteration, cfg=cfg, opt=opt,
+            spatial_lr_scale=spatial_lr_scale, timer=timer, group=group)
         if iteration < opt.densify_until_iter:
             if (iteration > opt.densify_from_iter
                     and iteration % opt.densification_interval == 0):
@@ -454,19 +527,22 @@ def upsample_env(env: lights.DirectLightMap,
 
 def _run_stage2(state, views, cfg, opt, spatial_lr_scale, first_iter,
                 callback, timer, env_upsample_iters=(), vis_refresh=0,
-                sample_num=64) -> None:
+                sample_num=64, group=None, sharded_trace=None) -> None:
     """The JAX CLI's stage-2 loop (cli/train.py:650-718): no densify, the
     visibility re-traced every `vis_refresh` steps (from the second step on,
-    at the steps after a multiple of it) and the env map upsampled at the
-    steps of `env_upsample_iters`."""
+    at the steps after a multiple of it; through `sharded_trace` where
+    given) and the env map upsampled at the steps of
+    `env_upsample_iters`; one camera a rank."""
     model, optimizer = state["model"], state["optimizer"]
-    rng = np.random.default_rng(0)
-    stack: list[int] = []
+    next_view = _make_batcher(views, group)
+    if group is not None:
+        print(f"Data-parallel stage-2 training over {group.size} ranks")
     for iteration in range(first_iter + 1, opt.iterations + 1):
         if (vis_refresh and iteration > first_iter + 1
                 and (iteration - 1) % vis_refresh == 0):
             old = float(state["vis"].visibility.mean())
-            state["vis"] = update_visibility(model, sample_num)
+            state["vis"] = update_visibility(model, sample_num,
+                                             sharded_trace=sharded_trace)
             print(f"[ITER {iteration}] re-traced visibility ({sample_num} "
                   f"samples): mean_vis {old:.4f} -> "
                   f"{float(state['vis'].visibility.mean()):.4f}", flush=True)
@@ -474,12 +550,10 @@ def _run_stage2(state, views, cfg, opt, spatial_lr_scale, first_iter,
             state["env"] = upsample_env(state["env"], state["env_optimizer"])
             print(f"[ITER {iteration}] env map upsampled to "
                   f"{state['env'].env.shape[0]}x{state['env'].env.shape[1]}")
-        if not stack:
-            stack = list(rng.permutation(len(views)))
         metrics = stage2.train_step(
             model, optimizer, state["env"], state["env_optimizer"],
-            state["vis"], views[stack.pop()], iteration, cfg=cfg, opt=opt,
-            spatial_lr_scale=spatial_lr_scale, timer=timer)
+            state["vis"], next_view(), iteration, cfg=cfg, opt=opt,
+            spatial_lr_scale=spatial_lr_scale, timer=timer, group=group)
         callback(iteration, metrics)
 
 
@@ -601,10 +675,11 @@ def build_train_parser():
 
 
 def main(argv=None, device: torch.device | str = "cuda") -> None:
-    """Parse `argv` (sys.argv when None) and train on `device`."""
+    """Parse `argv` (sys.argv when None) and train on `device`, on
+    `--n_devices` ranks."""
     args = build_train_parser().parse_args(argv)
     np.random.seed(args.seed)
-    training(args, torch.device(device))
+    run_ranks(training, args, device)
 
 
 if __name__ == "__main__":

@@ -266,8 +266,14 @@ def add_densification_stats(model: GaussianModel, mean2d_grad: torch.Tensor,
                             radii: torch.Tensor,
                             image_wh: tuple[int, int]) -> None:
     """Accumulate one view's contributions into the model's statistics."""
-    c = densification_contribs(mean2d_grad, normal_grad, weights, radii,
-                               image_wh)
+    apply_stat_contribs(model, densification_contribs(
+        mean2d_grad, normal_grad, weights, radii, image_wh))
+
+
+@torch.no_grad()
+def apply_stat_contribs(model: GaussianModel, c: StatContribs) -> None:
+    """Accumulate contributions into the model's statistics: sums, and the
+    max of the radii."""
     model.weights_accum += c.weights
     model.xyz_grad_accum += c.xyz_grad_norm
     model.normal_grad_accum += c.normal_grad_norm

@@ -41,13 +41,16 @@ def view_features(model: GaussianModel, cam: CameraParams) -> torch.Tensor:
 
 def render_view(model: GaussianModel, cam: CameraParams, cfg: RasterConfig,
                 bg_color: torch.Tensor,
-                mean2d_offset: torch.Tensor | None = None) -> dict[str, Any]:
+                mean2d_offset: torch.Tensor | None = None,
+                override_color: torch.Tensor | None = None) -> dict[str, Any]:
     """Splat the scene for one view; returns the reference results dict.
-    `mean2d_offset` ([P, 2] zeros) collects d(loss)/d(mean2d) in `.grad`."""
+    `mean2d_offset` ([P, 2] zeros) collects d(loss)/d(mean2d) in `.grad`;
+    `override_color` [P, 3] is splatted in place of the SH colour."""
     out = rasterize(
         model.xyz, model.get_scaling, model.get_rotation, model.get_opacity,
         model.get_shs, view_features(model, cam), cam=cam, cfg=cfg,
-        bg_color=bg_color, mean2d_offset=mean2d_offset)
+        bg_color=bg_color, mean2d_offset=mean2d_offset,
+        colors_precomp=override_color)
 
     mask = (out.n_contrib > 0)[None].to(out.feature.dtype)
     feat = out.feature / torch.clamp(out.opacity, min=1e-5) * mask

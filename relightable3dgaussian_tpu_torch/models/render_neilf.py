@@ -7,9 +7,11 @@ splatted as features in one rasterize call, then normalised by opacity and
 sRGB-encoded. In training the shading is `rendering_equation_train`: kernel
 K4 on the card, its plain version on the CPU; the splat is K1 and K2 on the
 card. The eval path shades with `ops/shading.py::rendering_equation`,
-chunked over points. Normals enter the shading detached, as in the JAX
-package. The JAX package's seeded-weights path (`w_seed`) is a TPU scatter
-workaround and is not ported: the weights come from the forward.
+chunked over points, or split over a group of ranks (`sharded_shading`;
+the visibility trace likewise, `sharded_trace`). Normals enter the shading
+detached, as in the JAX package. The JAX package's seeded-weights path
+(`w_seed`) is a TPU scatter workaround and is not ported: the weights come
+from the forward.
 """
 from __future__ import annotations
 
@@ -90,26 +92,51 @@ def visibility_rays(model: GaussianModel, incident_dirs: torch.Tensor):
     return bvh, rays_o, incident_dirs[bvh.order].reshape(-1, 3)
 
 
+def _pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """x with its last row repeated up to a multiple of `multiple` rows."""
+    pad = (-x.shape[0]) % multiple
+    return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]) if pad else x
+
+
 @torch.no_grad()
-def update_visibility(model: GaussianModel, sample_num: int) -> VisibilityCache:
+def update_visibility(model: GaussianModel, sample_num: int,
+                      sharded_trace=None) -> VisibilityCache:
     """Trace visibility at `sample_num` Fibonacci directions around each
     point's normal (gaussian_model.py:312-342, deterministic sampling); on
-    the card in one K3 launch."""
+    the card in one K3 launch, or with `sharded_trace`
+    (`parallel.point_sharded.make_sharded_trace`) split over its ranks, the
+    rays padded to a multiple of their number."""
     dirs, areas = fibonacci_sphere_sampling(model.get_normal, sample_num)
     bvh, rays_o, rays_d = visibility_rays(model, dirs)
     P, S = dirs.shape[:2]
     vis = torch.empty((P, S, 1), dtype=torch.float32, device=dirs.device)
-    vis[bvh.order] = trace_visibility(bvh, rays_o, rays_d).reshape(P, S, 1)
+    if sharded_trace is not None:
+        n = sharded_trace.group.size
+        traced = sharded_trace(bvh, _pad_rows(rays_o, n),
+                               _pad_rows(rays_d, n))[:P * S]
+    else:
+        traced = trace_visibility(bvh, rays_o, rays_d)
+    vis[bvh.order] = traced.reshape(P, S, 1)
     return VisibilityCache(visibility=vis, incident_dirs=dirs,
                            incident_areas=areas)
 
 
 def _shade_points(base_color, roughness, normal, viewdirs, incidents, env,
-                  vis: VisibilityCache):
+                  vis: VisibilityCache, sharded_shading=None):
     """The eval shading: `rendering_equation` over chunks of at most
     SHADE_CHUNK_SAMPLES samples, keeping the per-sample lights only as
-    their means over the samples. Returns (pbr, extras), each [P, 3]."""
+    their means over the samples; or with `sharded_shading`
+    (`parallel.point_sharded.make_sharded_shading(full_extras=True)`) split
+    over its ranks, P padded to a multiple of their number. Returns (pbr,
+    extras), each [P, 3]."""
     P, S = vis.visibility.shape[:2]
+    if sharded_shading is not None:
+        n = sharded_shading.group.size
+        pbr, extras = sharded_shading(
+            *(_pad_rows(x, n) for x in (base_color, roughness, normal,
+                                        viewdirs, incidents)), env,
+            *(_pad_rows(x, n) for x in vis))
+        return pbr[:P], {k: v[:P] for k, v in extras.items()}
     chunk = max(1, SHADE_CHUNK_SAMPLES // S)
     parts = []
     for i in range(0, P, chunk):
@@ -128,13 +155,18 @@ def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
                 bg_color: torch.Tensor, env, vis: VisibilityCache,
                 is_training: bool, mean2d_offset: torch.Tensor | None = None,
                 opt: OptimizationConfig | None = None,
-                base_color_scale: torch.Tensor | None = None
-                ) -> dict[str, Any]:
+                base_color_scale: torch.Tensor | None = None,
+                sharded_shading=None) -> dict[str, Any]:
     """Shade, splat and unpack one view; returns the reference results dict
     (eval adds the specular and light maps and the environment
     background). `base_color_scale` [3] multiplies the linear base color
     before the shading (the relighting benchmark's per-scene albedo scale,
-    eval_relighting_syn4.py:95-105)."""
+    eval_relighting_syn4.py:95-105). `sharded_shading` splits the eval
+    shading over its ranks (`_shade_points`); its gather is not
+    differentiable, so training refuses it."""
+    if is_training and sharded_shading is not None:
+        raise ValueError("render_neilf: the sharded shading is an eval "
+                         "path (its gather has no gradient)")
     cam = view.cam
     base_color = model.get_base_color
     if base_color_scale is not None:
@@ -153,7 +185,8 @@ def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
         extras = {"diffuse_light": dif, "specular": spec}
     else:
         pbr, extras = _shade_points(base_color, roughness, normal.detach(),
-                                    viewdirs, incidents, env, vis)
+                                    viewdirs, incidents, env, vis,
+                                    sharded_shading)
 
     xyz1 = torch.cat([model.xyz, torch.ones_like(model.xyz[:, :1])], dim=-1)
     depths = (xyz1 @ cam.world_view)[:, 2:3]
@@ -324,14 +357,17 @@ def render_neilf(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
                  opt: OptimizationConfig | None = None,
                  is_training: bool = False,
                  mean2d_offset: torch.Tensor | None = None,
-                 base_color_scale: torch.Tensor | None = None
-                 ) -> dict[str, Any]:
+                 base_color_scale: torch.Tensor | None = None,
+                 sharded_shading=None) -> dict[str, Any]:
     """Stage-2 entry point (the reference's `render_neilf`); with
-    `is_training` the results also hold "loss" and "tb_dict"."""
+    `is_training` the results also hold "loss" and "tb_dict". With
+    `sharded_shading` the eval shading is split over its ranks, each of
+    which must render the same view."""
     if is_training and opt is None:
         raise ValueError("render_neilf: is_training needs an OptimizationConfig")
     results = render_view(model, view, cfg, bg_color, env, vis, is_training,
-                          mean2d_offset, opt, base_color_scale)
+                          mean2d_offset, opt, base_color_scale,
+                          sharded_shading)
     if is_training:
         results["loss"], results["tb_dict"] = calculate_loss(
             view, model, results, opt, env)

@@ -20,6 +20,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -44,8 +45,22 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
-    if name in _LOADED:
-        return _LOADED[name]
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+    return _LOADED[name]
+
+
+def prebuild() -> None:
+    """Compile every kernel source that is not built yet, one nvcc each,
+    all at once, without loading them (before processes that each load
+    them start: they then find them built)."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(library_path, names))
+
+
+def library_path(name: str) -> Path:
+    """The shared library of `csrc/<name>.cu`, compiled if needed."""
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers
@@ -60,8 +75,7 @@ def load_library(name: str) -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
-    _LOADED[name] = ctypes.CDLL(str(lib_path))
-    return _LOADED[name]
+    return lib_path
 
 
 def ptxas_report(src: str | Path) -> dict[str, str]:

@@ -12,6 +12,11 @@ from __future__ import annotations
 
 import dataclasses
 
+# The JAX package's static TPU budget fields: accepted where its API takes
+# them (the `raster/` facade's overrides), with no effect.
+TPU_BUDGET_FIELDS = ("buffer_multiple", "max_tiles_per_gaussian", "chunk",
+                     "max_chunks_per_tile", "tier_plan", "use_pallas")
+
 
 @dataclasses.dataclass(frozen=True)
 class RasterConfig:

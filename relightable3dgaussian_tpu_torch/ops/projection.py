@@ -3,7 +3,10 @@
 `compute_cov2d` and `preprocess`, line for line: frustum cull at view z <= 0.2,
 EWA Jacobian with view x/y clamped to 1.3·tan(fov), +0.3 px low-pass, radius
 ceil(3·sqrt(λmax)), the alpha-aware tile rect when opacity is given, ndc→pixel
-((x + 1)·size − 1)/2, and SH→RGB along (mean − campos), +0.5, clamped at 0.
+((x + 1)·size − 1)/2, and SH→RGB along (mean − campos), +0.5, clamped at
+0, unless the caller gives the colours (`colors`) or the packed 3D
+covariances (`cov3d_precomp`) itself. `covariance3d_packed` is the packed
+covariance the scales and rotations give.
 """
 from __future__ import annotations
 
@@ -11,7 +14,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..utils.quaternions import build_covariance
+from ..utils.quaternions import (build_covariance, strip_symmetric,
+                                 unpack_symmetric)
 from ..utils.sh import eval_sh
 from .camera import CameraParams
 from .config import RasterConfig
@@ -65,14 +69,19 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                rotations: torch.Tensor, shs: torch.Tensor, cam: CameraParams,
                cfg: RasterConfig,
                mean2d_offset: torch.Tensor | None = None,
-               opacity: torch.Tensor | None = None) -> Preprocessed:
+               opacity: torch.Tensor | None = None,
+               colors: torch.Tensor | None = None,
+               cov3d_precomp: torch.Tensor | None = None) -> Preprocessed:
     """Project all gaussians; culled gaussians get radius 0.
 
     `mean2d_offset` ([P, 2], zeros) is added to the pixel-space means: its
     `.grad` is d(loss)/d(mean2d), the densification statistic (the
     reference's `screenspace_points`). When `opacity` ([P] activated) is
     given, the tile rect uses the tighter alpha-aware radius
-    sqrt(2 λmax ln(255 op)); `radius` keeps the 3σ value.
+    sqrt(2 λmax ln(255 op)); `radius` keeps the 3σ value. `colors` [P, 3]
+    replaces the SH colour (`shs` may then be None) and `cov3d_precomp`
+    [P, 6] (xx, xy, xz, yy, yz, zz) the covariance of `scales` and
+    `rotations` (then unused); gradients reach both.
     """
     xyz1 = _homogeneous(means3d)
     p_view = xyz1 @ cam.world_view
@@ -83,7 +92,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     p_w = 1.0 / (p_hom[:, 3] + 1e-7)
     p_proj = p_hom[:, :3] * p_w[:, None]
 
-    cov3d = build_covariance(scales, rotations, cfg.scale_modifier)
+    cov3d = (unpack_symmetric(cov3d_precomp) if cov3d_precomp is not None
+             else build_covariance(scales, rotations, cfg.scale_modifier))
     cov2d = compute_cov2d(means3d, cov3d, cam)
 
     det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
@@ -135,12 +145,15 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     # A gaussian whose rect is empty contributes nothing: zero its radius.
     radius = torch.where(tiles_touched > 0, radius, 0).to(torch.int32)
 
-    dirs = means3d - cam.campos[None, :]
-    dirs = dirs / torch.clamp(
-        torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
-    # shs: [P, K, 3] → eval over the channel-last layout
-    rgb = torch.clamp(
-        eval_sh(cfg.sh_degree, shs.transpose(-1, -2), dirs) + 0.5, min=0.0)
+    if colors is not None:
+        rgb = colors
+    else:
+        dirs = means3d - cam.campos[None, :]
+        dirs = dirs / torch.clamp(
+            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+        # shs: [P, K, 3] → eval over the channel-last layout
+        rgb = torch.clamp(
+            eval_sh(cfg.sh_degree, shs.transpose(-1, -2), dirs) + 0.5, min=0.0)
 
     return Preprocessed(
         mean2d=mean2d,
@@ -153,3 +166,9 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
         tiles_touched=tiles_touched.to(torch.int32),
     )
 
+
+def covariance3d_packed(scales: torch.Tensor, rotations: torch.Tensor,
+                        scale_modifier: float = 1.0) -> torch.Tensor:
+    """Packed upper-triangular 3D covariance [P, 6] (xx, xy, xz, yy, yz,
+    zz) of scales [P, 3] and rotations [P, 4]."""
+    return strip_symmetric(build_covariance(scales, rotations, scale_modifier))

@@ -4,8 +4,8 @@ preprocess (projection) → bin_gaussians (pairs sorted by tile and depth) →
 tile compositor → image assembly + pseudo-normal pass. The compositor is the
 plain PyTorch version on CPU tensors and kernel K1 on CUDA tensors
 (ops/composite_cuda.py), never anything else. Returns the JAX package's
-`RasterOut` fields (ops/rasterize_dense.py); `overflow_*` are always 0
-because the port never drops a pair.
+`RasterOut` fields (the dense oracle, ops/rasterize_dense.py, returns the
+same); `overflow_*` are always 0 because the port never drops a pair.
 """
 from __future__ import annotations
 
@@ -39,7 +39,8 @@ class RasterOut(NamedTuple):
 
 
 def prepare(means3d, scales, rotations, opacity, shs, features,
-            cam: CameraParams, cfg: RasterConfig, mean2d_offset=None):
+            cam: CameraParams, cfg: RasterConfig, mean2d_offset=None,
+            colors_precomp=None, cov3d_precomp=None):
     """Everything before the compositor: (Preprocessed, Binning, attrs
     [P, A]) with the attribute layout [rgb, features, depth, 1]."""
     P = means3d.shape[0]
@@ -47,7 +48,8 @@ def prepare(means3d, scales, rotations, opacity, shs, features,
     # cull decisions are integer selections, so detach it there.
     op_cull = opacity[:, 0].detach()
     prep = preprocess(means3d, scales, rotations, shs, cam, cfg,
-                      mean2d_offset=mean2d_offset, opacity=op_cull)
+                      mean2d_offset=mean2d_offset, opacity=op_cull,
+                      colors=colors_precomp, cov3d_precomp=cov3d_precomp)
     binning = bin_gaussians(prep, cfg, op_cull)
     attrs = torch.cat(
         [prep.rgb, features, prep.depth[:, None],
@@ -58,7 +60,8 @@ def prepare(means3d, scales, rotations, opacity, shs, features,
 
 def rasterize(means3d, scales, rotations, opacity, shs, features,
               cam: CameraParams, cfg: RasterConfig,
-              bg_color: torch.Tensor, mean2d_offset=None) -> RasterOut:
+              bg_color: torch.Tensor, mean2d_offset=None,
+              colors_precomp=None, cov3d_precomp=None) -> RasterOut:
     """Rasterize P gaussians; differentiable on both devices (on CUDA
     tensors the compositor's backward is kernel K2).
 
@@ -68,11 +71,15 @@ def rasterize(means3d, scales, rotations, opacity, shs, features,
       blended channels. All tensors, the camera's included, on one device.
       mean2d_offset: optional [P, 2] zeros whose `.grad` is
         d(loss)/d(pixel-space mean), for the densification statistics.
+      colors_precomp: optional [P, 3] colours in place of the SH colour
+        (`shs` may then be None).
+      cov3d_precomp: optional [P, 6] packed 3D covariances (xx, xy, xz, yy,
+        yz, zz) in place of those of `scales` and `rotations`.
     """
     H, W = cfg.height, cfg.width
     prep, binning, attrs = prepare(
         means3d, scales, rotations, opacity, shs, features, cam, cfg,
-        mean2d_offset)
+        mean2d_offset, colors_precomp, cov3d_precomp)
     out = composite_cuda.composite(
         binning, prep.mean2d.contiguous(), prep.conic.contiguous(),
         opacity[:, 0].contiguous(), attrs.contiguous(), cfg)

@@ -9,6 +9,7 @@ card unless the caller asks for the CPU).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -160,3 +161,18 @@ def camera_from_json(data: dict) -> Camera:
     return Camera(uid=data.get("id", 0), R=R, T=T, fovx=fovx, fovy=fovy,
                   width=w, height=h, image_name=data.get("img_name", ""))
 
+
+def look_at_camera(eye: np.ndarray, target: np.ndarray, up: np.ndarray,
+                   width: int, height: int, fovy: float) -> Camera:
+    """A camera at `eye` looking at `target`, image rows along the side of
+    `up` opposite to it (the viewer's and trajectories' free camera)."""
+    fwd = target - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    right = np.cross(fwd, up)
+    right /= np.linalg.norm(right)
+    dn = np.cross(fwd, right)
+    R = np.stack([right, dn, fwd], axis=1)
+    T = -R.T @ eye
+    fovx = 2 * math.atan(math.tan(fovy / 2) * width / height)
+    return Camera(uid=0, R=R, T=T, fovx=fovx, fovy=fovy, width=width,
+                  height=height)

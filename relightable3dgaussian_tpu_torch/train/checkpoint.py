@@ -19,6 +19,7 @@ and its Adam state `env_state.mu`, `env_state.nu`, `env_state.count`.
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -33,6 +34,20 @@ def _npz_path(path: str) -> str:
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         return path + ".npz"
     return path
+
+
+def find_checkpoint(model_path: str, prefix: str = "chkpnt") -> str | None:
+    """The `<prefix><iteration>.npz` under `model_path` with the largest
+    iteration, or None where there is none."""
+    if not os.path.isdir(model_path):
+        return None
+    best, best_it = None, -1
+    pattern = re.compile(rf"^{re.escape(prefix)}(\d+)\.npz$")
+    for name in os.listdir(model_path):
+        m = pattern.match(name)
+        if m and int(m.group(1)) > best_it:
+            best_it, best = int(m.group(1)), os.path.join(model_path, name)
+    return best
 
 
 def load_checkpoint(path: str, device: torch.device | str = "cuda"

@@ -3,7 +3,9 @@
 `train_step` is one optimisation step on one view: forward (render and
 `calculate_loss`), backward (kernel K2 on the card), Adam with the per-field
 learning rates, then the densification statistics from `mean2d_offset.grad`,
-`normal.grad`, the forward's blend weights and the radii. `densify_step` and
+`normal.grad`, the forward's blend weights and the radii. Given a group of
+ranks (parallel/data_parallel.py), each rank's view is combined with the
+others' between the backward and Adam. `densify_step` and
 `reset_opacity_step` resize or reset the model and re-key the optimizer.
 `run_training_schedule` is the host loop of the JAX package: the same
 numpy-permutation camera order from `seed` and the same densify and
@@ -65,10 +67,13 @@ def backward_or_zero_grads(loss: torch.Tensor, model: G.GaussianModel,
 def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
                view: ViewInputs, iteration: int, *, cfg: RasterConfig,
                opt: OptimizationConfig, spatial_lr_scale: float,
-               timer: StepTimer | None = None) -> dict[str, Any]:
+               timer: StepTimer | None = None, group=None) -> dict[str, Any]:
     """One optimisation step in place; returns the metrics: the loss terms
     of `tb_dict` and "loss" (tensors), "n_active" and "num_rendered"
-    (the step's binned pairs)."""
+    (the step's binned pairs). With `group` (a `parallel.data_parallel.
+    Group`, each rank holding the same model and its own view), the view's
+    densification contributions are combined over the ranks, the gradients
+    and the loss terms averaged (`data_parallel.reduce_step`)."""
     dev = model.xyz.device
     if timer is not None:
         timer.mark("start")
@@ -84,17 +89,43 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
     backward_or_zero_grads(loss, model, m2d)
     if timer is not None:
         timer.mark("backward")
+    contribs = view_contribs(model, m2d, results, cfg, group)
 
     set_learning_rates(optimizer,
                        learning_rates(opt, iteration, spatial_lr_scale))
     optimizer.step()
-    G.add_densification_stats(model, m2d.grad, model.normal.grad,
-                              results["weights"][:, 0].detach(),
-                              results["radii"], (cfg.width, cfg.height))
+    G.apply_stat_contribs(model, contribs)
     if timer is not None:
         timer.mark("end")
     metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
     metrics["loss"] = loss.detach()
+    return step_metrics(metrics, model, results, group)
+
+
+def view_contribs(model: G.GaussianModel, m2d: torch.Tensor,
+                  results: dict[str, Any], cfg: RasterConfig, group,
+                  extra_grads: tuple[torch.Tensor, ...] = ()
+                  ) -> G.StatContribs:
+    """The view's densification contributions, from the gradients of its
+    backward; with `group`, combined over the ranks, and the model's
+    gradients (and `extra_grads`) averaged over them, in place."""
+    contribs = G.densification_contribs(
+        m2d.grad, model.normal.grad, results["weights"][:, 0].detach(),
+        results["radii"], (cfg.width, cfg.height))
+    if group is None:
+        return contribs
+    from ..parallel.data_parallel import reduce_step
+    grads = [getattr(model, k).grad for k in model.fields]
+    return reduce_step(group, grads + list(extra_grads), contribs)
+
+
+def step_metrics(metrics: dict[str, Any], model: G.GaussianModel,
+                 results: dict[str, Any], group) -> dict[str, Any]:
+    """The step's metrics with "n_active" and "num_rendered" (this rank's);
+    with `group`, the tensors averaged over the ranks."""
+    if group is not None:
+        from ..parallel.data_parallel import mean_metrics
+        metrics = mean_metrics(metrics, group)
     metrics["n_active"] = model.num_points
     metrics["num_rendered"] = results["num_rendered"]
     return metrics

@@ -31,7 +31,7 @@ from ..utils.sh import eval_sh
 from .config import OptimizationConfig
 from .optim import learning_rates, set_learning_rates
 from .stage1 import (StepTimer, backward_or_zero_grads, densify_step,
-                     reset_opacity_step)
+                     reset_opacity_step, step_metrics, view_contribs)
 
 
 def setup_stage2(model: G.GaussianModel, sample_num: int,
@@ -107,10 +107,11 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
                vis: VisibilityCache, view: ViewInputs, iteration: int, *,
                cfg: RasterConfig, opt: OptimizationConfig,
                spatial_lr_scale: float,
-               timer: StepTimer | None = None) -> dict[str, Any]:
+               timer: StepTimer | None = None, group=None) -> dict[str, Any]:
     """One optimisation step in place; returns the metrics: the loss terms
     of `tb_dict` (psnr, psnr_pbr, ...) and "loss", "light_mean" (tensors),
-    "n_active" and "num_rendered"."""
+    "n_active" and "num_rendered". With `group`, combined over the ranks as
+    `stage1.train_step` combines it, the env map's gradient averaged too."""
     dev = model.xyz.device
     if timer is not None:
         timer.mark("start")
@@ -129,21 +130,20 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
         env.env.grad = torch.zeros_like(env.env)
     if timer is not None:
         timer.mark("backward")
+    contribs = view_contribs(model, m2d, results, cfg, group,
+                             extra_grads=(env.env.grad,))
 
     set_learning_rates(optimizer,
                        learning_rates(opt, iteration, spatial_lr_scale))
     optimizer.step()
     env_optimizer.step()
-    G.add_densification_stats(model, m2d.grad, model.normal.grad,
-                              results["weights"][:, 0].detach(),
-                              results["radii"], (cfg.width, cfg.height))
+    G.apply_stat_contribs(model, contribs)
     if timer is not None:
         timer.mark("end")
     metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
     metrics["loss"] = loss.detach()
+    metrics = step_metrics(metrics, model, results, group)
     metrics["light_mean"] = results["env"].detach().mean()
-    metrics["n_active"] = model.num_points
-    metrics["num_rendered"] = results["num_rendered"]
     return metrics
 
 

@@ -79,5 +79,13 @@ def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
          cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]], dim=-1)
 
 
+def unpack_symmetric(packed: torch.Tensor) -> torch.Tensor:
+    """Packed [..., 6] (xx, xy, xz, yy, yz, zz) → full [..., 3, 3]."""
+    xx, xy, xz, yy, yz, zz = packed.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], -1),
+                        torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
+
+
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1 - x))

@@ -95,6 +95,11 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """The DC band's colour: the inverse of `rgb_to_sh`."""
+    return sh * C0 + 0.5
+
+
 def rotation_between_z(vec: torch.Tensor) -> torch.Tensor:
     """[..., 3] unit vectors → [..., 3, 3] rotations R with R @ +z == vec
     (Rodrigues' special case), -I where vec is -z."""

@@ -266,20 +266,82 @@ def test_restore_refuses_a_collapsed_checkpoint(dataset, stage1, tmp_path):
                        device="cpu")
 
 
+def one_card(monkeypatch):
+    """A machine with one card, as the CLIs see it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+
+
 @pytest.mark.parametrize("flags,message", [
-    (["--n_devices", "2"], "queue 1 item 4"),
-    (["--n_devices", "4"], "queue 1 item 4"),
+    (["--n_devices", "2"], "--n_devices 2 requested but only 1 CUDA"),
+    (["--n_devices", "4"], "--n_devices 4 requested but only 1 CUDA"),
     (["--max_capacity", "4096"], "no capacity")])
-def test_unported_flags_are_refused(dataset, tmp_path, flags, message):
+def test_unported_flags_are_refused(dataset, tmp_path, monkeypatch, flags,
+                                   message):
+    """On the card, --n_devices above the card count is refused with the
+    count (the JAX CLI's check); --max_capacity always."""
+    one_card(monkeypatch)
     with pytest.raises(SystemExit, match=message):
         train_cli.main(["-s", str(dataset), "-m", str(tmp_path), *flags],
-                       device="cpu")
+                       device="cuda")
+    assert not list(tmp_path.iterdir())
 
 
-def test_cli_refuses_n_devices_in_eval(dataset, stage1):
-    with pytest.raises(SystemExit, match="queue 1 item 4"):
+def test_cli_refuses_n_devices_in_eval(dataset, stage1, monkeypatch):
+    one_card(monkeypatch)
+    with pytest.raises(SystemExit, match="--n_devices 2 requested but only 1"):
         eval_nvs.main(["-s", str(dataset), "-m", str(stage1),
-                       "--n_devices", "2"], device="cpu")
+                       "--n_devices", "2"], device="cuda")
+
+
+def test_train_on_two_ranks_writes_one_set_of_artifacts(dataset, tmp_path,
+                                                        capfd):
+    """cli.train --n_devices 2 on the CPU (two gloo ranks): stage 1 with a
+    densify, then stage 2 with a visibility refresh (the trace split over
+    the ranks at set-up and refresh); rank 0 alone writes, and each step is
+    logged once."""
+    s1, s2 = tmp_path / "s1", tmp_path / "s2"
+    train_cli.main(stage1_args(
+        dataset, s1, 6, "--densify_from_iter", "2",
+        "--densification_interval", "3", "--densify_until_iter", "5",
+        "--n_devices", "2"), device="cpu")
+    train_cli.main(["-s", str(dataset), "-m", str(s2), "-t", "neilf",
+                    "-c", str(s1 / "chkpnt6.npz"), "--iterations", "10",
+                    "--sample_num", "8", "--save_interval", "10",
+                    "--checkpoint_interval", "10",
+                    "--vis_refresh_interval", "2", "--n_devices", "2"],
+                   device="cpu")
+    out = capfd.readouterr().out
+    assert "[parallel] 2 ranks on cpu, cpu: gloo backend" in out
+    assert "Data-parallel training over 2 ranks (2 cameras per step)" in out
+    assert "Data-parallel stage-2 training over 2 ranks" in out
+    assert "Visibility tracing split over 2 ranks" in out
+    assert out.count("re-traced visibility") == 1     # rank 0's print only
+    for out_dir, it in ((s1, 6), (s2, 10)):
+        for rel in (f"chkpnt{it}.npz", "cfg_args.json", "metrics.jsonl",
+                    f"point_cloud/iteration_{it}/point_cloud.ply"):
+            assert (out_dir / rel).exists(), rel
+        with open(out_dir / "metrics.jsonl") as f:
+            steps = [json.loads(line)["step"] for line in f]
+        first = 1 if it == 6 else 7
+        assert sorted(steps) == list(range(first, it + 1))
+    _, model = checkpoint.load_checkpoint(str(s1 / "chkpnt6.npz"),
+                                          device="cpu")
+    assert model.num_points != 300                     # the densify at 3
+    assert (s2 / "env_light_chkpnt10.npz").exists()
+
+
+def test_eval_nvs_on_two_ranks_matches_one(dataset, stage2):
+    """cli.eval_nvs -t neilf --n_devices 2: the trace and the shading split
+    over two gloo ranks give the one-rank metrics (PSNR within 1e-4 dB, the
+    same per-point arithmetic on shares)."""
+    argv = ["-s", str(dataset), "-m", str(stage2), "-t", "neilf", "-c",
+            str(stage2 / "chkpnt24.npz"), "--skip_train", "--sample_num", "8"]
+    one = eval_nvs.main(argv, device="cpu")["test"]
+    two = eval_nvs.main(argv + ["--n_devices", "2"], device="cpu")["test"]
+    for k in ("psnr", "ssim"):
+        assert two[k] == pytest.approx(one[k], abs=1e-4), k
+    assert len(two["view_ms"]) == 4
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +366,9 @@ def entry_point_calls(dataset, stage1):
         .get_train_cameras()[0].view_inputs(),
         "cli.train": lambda: train_cli.main(["-s", str(dataset), "-m",
                                              str(stage1 / "never")]),
+        "cli.train --n_devices 2": lambda: train_cli.main(
+            ["-s", str(dataset), "-m", str(stage1 / "never"), "--n_devices",
+             "2"]),
         "cli.eval_nvs": lambda: eval_nvs.main(["-s", str(dataset), "-m",
                                                str(stage1)]),
         "load_env_light": lambda: lights.load_env_light(
@@ -319,7 +384,8 @@ def entry_point_calls(dataset, stage1):
 @pytest.mark.parametrize("name", ["load_checkpoint", "load_train_state",
                                   "from_numpy", "DirectLightMap",
                                   "make_camera_params", "view_inputs",
-                                  "cli.train", "cli.eval_nvs",
+                                  "cli.train", "cli.train --n_devices 2",
+                                  "cli.eval_nvs",
                                   "load_env_light", "cli.relighting",
                                   "cli.eval_relighting_syn4"])
 def test_entry_points_default_to_the_card(dataset, stage1, name):

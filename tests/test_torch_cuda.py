@@ -1525,3 +1525,98 @@ def test_k4_takes_the_local_lights_sign_from_float64_near_zero(cuda, delta):
         assert e_kernel <= min(1e-5, 0.1 * e_plain), (
             delta, seed, e_kernel, e_plain)
         cs.check_k4(tuple(x), f"k4-light-zero-{seed}", seed, timed=False)
+
+
+# ---------------------------------------------------------------------------
+# the dense oracle and two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_dense_oracle_on_the_card_matches_the_cpu(cuda, dtype, atol):
+    """ops.rasterize_dense on the card against the CPU on 300 gaussians at
+    64x64: the same function, its sums in the card's order."""
+    from relightable3dgaussian_tpu_torch.ops.rasterize_dense import \
+        rasterize_dense
+    rng = np.random.default_rng(4)
+    n = 300
+    rots = rng.normal(size=(n, 4))
+    arrays = (rng.uniform(-1.2, 1.2, (n, 3)), rng.uniform(0.02, 0.15, (n, 3)),
+              rots / np.linalg.norm(rots, axis=-1, keepdims=True),
+              rng.uniform(0.2, 0.95, (n, 1)), rng.normal(size=(n, 1, 3)),
+              rng.normal(size=(n, 5)))
+    cfg = RasterConfig(64, 64, sh_degree=0)
+    outs = []
+    for dev in ("cpu", cuda):
+        cam = make_camera_params(np.eye(3), np.array([0.0, 0.0, 4.0]), 64, 64,
+                                 fovx=0.9, fovy=0.9, device=dev)
+        x = [torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays]
+        outs.append(rasterize_dense(*x, cam=cam, cfg=cfg,
+                                    bg_color=torch.zeros(3, device=dev)))
+    got, want = outs[1], outs[0]
+    assert got.color.dtype == dtype and got.color.device.type == cuda.type
+    for name in ("color", "opacity", "depth", "feature", "weights"):
+        torch.testing.assert_close(getattr(got, name).cpu(),
+                                   getattr(want, name), atol=atol, rtol=0)
+    assert torch.equal(got.n_contrib.cpu(), want.n_contrib)
+    assert torch.equal(got.radii.cpu(), want.radii)
+
+
+def test_two_ranks_share_the_card_over_gloo(cuda):
+    """parallel.spawn with two ranks on cuda:0 (gloo, whose all_reduce and
+    broadcast take CUDA tensors): the ray-sharded visibility bitwise one K3
+    launch's on all rays, update_visibility through it bitwise the
+    one-launch cache, the sharded shading the unsharded shading's within
+    1e-6."""
+    import test_torch_ranks as torch_ranks
+    from relightable3dgaussian_tpu_torch.parallel import spawn
+    from relightable3dgaussian_tpu_torch.utils.graphics import \
+        fibonacci_sphere_sampling as fib
+
+    assert _build.load_library(ray_trace_cuda.KERNEL)   # built before spawn
+    d = scene(8, 2000)
+    model = GaussianModel.from_numpy(d, device=cuda)
+    rng = np.random.default_rng(9)
+    n, S = 61, 16
+    normals = rng.normal(size=(n, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    dirs, areas = fib(torch.from_numpy(normals), S)
+    view_d = rng.normal(size=(n, 3)).astype(np.float32)
+    shading = dict(base=rng.uniform(size=(n, 3)).astype(np.float32),
+                   rough=rng.uniform(0.1, 0.9, (n, 1)).astype(np.float32),
+                   normals=normals,
+                   view=view_d / np.linalg.norm(view_d, axis=-1,
+                                                keepdims=True),
+                   incidents=(rng.normal(size=(n, 16, 3)) * 0.1
+                              ).astype(np.float32),
+                   vis=rng.uniform(size=(n, S, 1)).astype(np.float32),
+                   dirs=dirs.numpy(), areas=areas.numpy(),
+                   env=rng.uniform(size=(8, 16, 3)).astype(np.float32))
+    with torch.no_grad():
+        sdirs, _ = fibonacci_sphere_sampling(model.get_normal, 8)
+        bvh, rays_o, rays_d = render_neilf.visibility_rays(model, sdirs)
+        trace = dict(xyz=model.xyz.cpu().numpy(),
+                     scaling=model.get_scaling.cpu().numpy(),
+                     rot=model.get_rotation.cpu().numpy(),
+                     op=model.get_opacity[:, 0].cpu().numpy(),
+                     nrm=model.get_normal.cpu().numpy(),
+                     rays_o=rays_o.cpu().numpy(), rays_d=rays_d.cpu().numpy())
+        whole = ray_trace.trace_visibility(bvh, rays_o, rays_d).cpu().numpy()
+        cache = render_neilf.update_visibility(model, 8).visibility
+    r0, r1 = spawn(torch_ranks.sharded, [cuda, cuda], shading, trace,
+                   d, 8, timeout_s=300)
+    for r in (r0, r1):
+        np.testing.assert_array_equal(r["trace"], whole)
+        np.testing.assert_array_equal(r["visibility"], cache.cpu().numpy())
+        assert r["last_stats"] == {"rounds": 0, "retraced_rays": 0}
+    x = {k: torch.as_tensor(v, device=cuda) for k, v in shading.items()}
+    env = DirectLightMap.from_raw(x.pop("env"))
+    with torch.no_grad():
+        pbr, extras = render_neilf._shade_points(
+            x["base"], x["rough"], x["normals"], x["view"], x["incidents"],
+            env, render_neilf.VisibilityCache(x["vis"], x["dirs"],
+                                              x["areas"]))
+    np.testing.assert_allclose(r0["eval_pbr"], pbr.cpu().numpy(), atol=1e-6)
+    for k, v in extras.items():
+        np.testing.assert_allclose(r0[f"eval.{k}"], v.cpu().numpy(),
+                                   atol=1e-6, err_msg=k)

@@ -73,6 +73,28 @@ def test_viewer_and_mvs_modules_import_without_jax_or_dearpygui():
     assert "imported 9 built 0" in proc.stdout, proc.stdout
 
 
+def test_parallel_raster_dense_and_timing_import_without_jax():
+    """parallel/, raster/, ops/rasterize_dense.py and utils/timing.py import
+    with jax and the JAX package blocked, build nothing, and start no
+    process group."""
+    code = (
+        "import sys, importlib\n"
+        "for blocked in ('jax', 'relightable3dgaussian_tpu'):\n"
+        "    sys.modules[blocked] = None\n"
+        "names = ['parallel', 'parallel.data_parallel',\n"
+        "         'parallel.point_sharded', 'raster', 'ops.rasterize_dense',\n"
+        "         'utils.timing']\n"
+        "for name in names:\n"
+        "    importlib.import_module('relightable3dgaussian_tpu_torch.' + name)\n"
+        "import torch.distributed as dist\n"
+        "from relightable3dgaussian_tpu_torch.ops import _build\n"
+        "print('imported', len(names), 'built', len(_build._LOADED),\n"
+        "      'group', dist.is_initialized())\n")
+    proc = run_python(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported 6 built 0 group False" in proc.stdout, proc.stdout
+
+
 def test_sources_never_import_the_jax_package():
     pattern = re.compile(r"^\s*(import relightable3dgaussian_tpu\b(?!_torch)"
                          r"|from relightable3dgaussian_tpu\b(?!_torch))",

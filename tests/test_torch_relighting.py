@@ -495,10 +495,14 @@ def test_own_bvh_rise_comes_from_gaussians_outside_their_box():
     assert (vis_box_c <= vis_box_a + 1e-6).all()
 
 
-def test_relighting_refuses_n_devices(tmp_path):
-    with pytest.raises(SystemExit, match="queue 1 item 4"):
+def test_relighting_refuses_n_devices(tmp_path, monkeypatch):
+    """On a machine with one card, --n_devices 2 is refused with the card
+    count before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--n_devices 2 requested but only 1"):
         relighting.main(["-co", str(tmp_path), "--n_devices", "2"],
-                        device="cpu")
+                        device="cuda")
 
 
 def test_export_videos_keeps_the_pngs(tmp_path, capsys):
