@@ -11,8 +11,10 @@ no result line is printed):
   1. device   needs torch.cuda; prints the card's name and power limit;
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
-              (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu)
-              with nvcc, all at once, and prints ptxas's registers, spills
+              (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu),
+              and the check kernel csrc/composite_decisions.cu (K1's blend
+              decisions at given pixels, for k2-split), with nvcc, all at
+              once, and prints ptxas's registers, spills
               and shared memory for csrc/ray_trace.cu and
               csrc/composite_bwd_two_walk.cu and for each source given with
               --ptxas-also (another version of one, to compare);
@@ -76,6 +78,15 @@ no result line is printed):
               eval width (A = 32), each against its plain version and timed
               beside it, on the inputs render_neilf hands the compositor for
               the stage's trained model and first view;
+     k2-split K2 at the pixels the K2 gates leave out, where K1 and the
+              plain compositor blend other pairs (split_pixels): against a
+              float64 replay of K1's own blend decisions there (ops/
+              composite.py::replay_backward; the decisions read by the check
+              kernel, whose walk must equal K1's final T, stop and count
+              bitwise), for a seeded cotangent on those pixels alone, under
+              K2_TOL, on k2-main's and k12-stage2's inputs and on a built
+              input where split pixels are certain (at least one required);
+              the split pixels of each are printed;
  13. k3-main  K3 against the plain tracer on a seeded subset of the stage's
               rays, both timed, and K3 timed on all of them: in coherent
               order with the sort (the main path), the sort alone, in the
@@ -163,7 +174,10 @@ no result line is printed):
               bounds); again with the SH colour and the packed covariance
               given precomputed (the covariance under k1-main's gate: its
               packing may move a last bit); mark_visible against view z >
-              0.2;
+              0.2; the covariance also given full [P, 3, 3] (the packed one
+              unpacked): the same render bitwise but the weights, and K2's
+              gradient into each layout, the full one's symmetrized within
+              K2_TOL of the packed one's;
  28. dp-stage1  two ranks on the one card (gloo), started by
               parallel.spawn: DP1_STEPS data-parallel stage-1 steps
               (parallel.make_dp_train_step) from the train phase's model and
@@ -187,6 +201,14 @@ no result line is printed):
               shading within 1e-6; a render_neilf(is_training=False) view
               with both hooks against the unsharded view under k1-main's
               gate. Phases 28 to 30 share one spawn.
+ 31. prune-only  stage-1 steps of a copy of the train phase's model (its
+              statistics and Adam state, through save_checkpoint and
+              load_train_state) on its views (K1, K2): 10 steps, models.
+              gaussians.prune_only with max_screen_size inf, 10 steps, again
+              with 20 (statistics live), each held bitwise to the rows, Adam
+              state and statistics selected on the host from the same
+              tensors, then 20 more steps with a finite loss; the count
+              pruned, the points left and the ms of each prune.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each input read once, each output written once) over
@@ -225,8 +247,8 @@ from relightable3dgaussian_tpu_torch.cli import (eval_nvs,
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
 from relightable3dgaussian_tpu_torch.models.gaussians import STATS as G_STATS
 from relightable3dgaussian_tpu_torch.models.gaussians import (
-    GaussianModel, StatContribs, apply_stat_contribs, create_from_pcd,
-    densification_contribs)
+    WEIGHTS_PRUNE, GaussianModel, StatContribs, apply_stat_contribs,
+    create_from_pcd, densification_contribs, prune_only)
 from relightable3dgaussian_tpu_torch.losses import lpips
 from relightable3dgaussian_tpu_torch.models import render_neilf as neilf
 from relightable3dgaussian_tpu_torch.models.lights import (load_env_light,
@@ -241,15 +263,16 @@ from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
 from relightable3dgaussian_tpu_torch.ops.camera import (CameraParams,
                                                         make_camera_params)
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
-from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
-                                                          split_pixels,
-                                                          walk_state)
+from relightable3dgaussian_tpu_torch.ops.composite import (
+    BLEND_AT_CAP, composite_backward, replay_backward, split_pixels,
+    walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
-from relightable3dgaussian_tpu_torch.ops.projection import (
-    Preprocessed, covariance3d_packed, preprocess)
+from relightable3dgaussian_tpu_torch.ops.projection import (Preprocessed,
+                                                           preprocess)
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare, rasterize
 from relightable3dgaussian_tpu_torch.ops.rasterize_dense import (
     _alpha_at, rasterize_dense)
+from relightable3dgaussian_tpu_torch.ops.tiles import Binning
 from relightable3dgaussian_tpu_torch.parallel import (make_dp_train_step,
                                                       make_dp_train_step_stage2,
                                                       replicate, spawn)
@@ -279,6 +302,8 @@ from relightable3dgaussian_tpu_torch.train.stage1 import (
     run_training_schedule, train_step)
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
+from relightable3dgaussian_tpu_torch.utils.quaternions import (
+    strip_symmetric, unpack_symmetric)
 from relightable3dgaussian_tpu_torch.utils.sh import C0, rgb_to_sh
 from relightable3dgaussian_tpu_torch.utils.timing import Timing
 
@@ -333,6 +358,16 @@ W_RTOL, W_ATOL = 1e-4, 1e-6
 # max with the count mask alone). Those pixels are K1's split pixels, and,
 # as before, the pixels whose images differ past IMG_ATOL, IMG_RTOL.
 K2_TOL = 1e-4
+# k2-split: K2 against a float64 replay of K1's own blend decisions (read by
+# the check kernel csrc/composite_decisions.cu) at the split pixels, which
+# the gate above leaves out, under K2_TOL. Split pixels are rare on a
+# trained model, so the phase also builds SPLIT_P gaussians, all in every
+# tile of a SPLIT_SIZE^2 image, each with its opacity set so that its alpha
+# at one pixel 1-2 sigma from its centre is 1/255 to float32 rounding: K1
+# fuses two products of the power that the plain version rounds apart, and
+# in a float32 emulation of both 8% of those pairs land on either side of
+# 1/255.
+SPLIT_P, SPLIT_SIZE, SPLIT_A = 3000, 128, 9
 PROFILE_STEPS = 10   # train steps in each window of the profile phases
 K3_SOURCE = "relightable3dgaussian_tpu_torch/csrc/ray_trace.cu"
 K3_REPLACES = "relightable3dgaussian_tpu/ops/ray_trace.py:488"
@@ -660,6 +695,116 @@ def check_k2_views(model: GaussianModel, device) -> None:
     if max(worst) > K2_TOL:
         raise AssertionError(f"k2-views: K2 against the plain backward, max "
                              f"relative error {max(worst)} > {K2_TOL}")
+
+
+def forced_split_args(device, seed: int = SEED + 12, n: int = SPLIT_P,
+                      size: int = SPLIT_SIZE, A: int = SPLIT_A) -> tuple:
+    """Compositor inputs on which K1 and the plain compositor are certain
+    to blend other pairs somewhere (SPLIT_P's note): every tile's range
+    holds all n gaussians, widths 1-3 pixels at random angles, each with
+    its alpha at one pixel set to 1/255 in float64, and seeded attributes."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    mean = rng.uniform(0, size, (n, 2))
+    sig = rng.uniform(1.0, 3.0, (n, 2))
+    th = rng.uniform(0.0, np.pi, n)
+    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                    np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    inv = np.linalg.inv(rot @ (np.eye(2) * (sig ** 2)[:, None, :])
+                        @ rot.transpose(0, 2, 1))
+    conic = inv[:, [0, 0, 1], [0, 1, 1]].astype(f32)
+    mean = mean.astype(f32)
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    reach = rng.uniform(1.0, 2.0, n) * sig.mean(1)
+    target = np.clip(np.round(mean + np.stack([np.cos(ang), np.sin(ang)], -1)
+                              * reach[:, None]), 0, size - 1)
+    dx, dy = (mean.astype(np.float64) - target).T
+    a, b, c = conic.astype(np.float64).T
+    power = -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+    opacity = np.minimum(np.exp(-power) / 255.0, 0.99).astype(f32)
+    cfg = RasterConfig(size, size)
+    tiles = cfg.num_tiles
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    binning = Binning(t(np.tile(np.arange(n), tiles), torch.int32),
+                      t(np.arange(tiles) * n, torch.int32),
+                      t((np.arange(tiles) + 1) * n, torch.int32), tiles * n)
+    attrs = rng.uniform(0.0, 1.0, (n, A))
+    return (binning, t(mean), t(conic), t(opacity), t(attrs), cfg)
+
+
+def check_k2_split(args, label: str, seed: int) -> dict:
+    """K2 (from K1's walk state) against the float64 replay of K1's own
+    blend decisions at the pixels where K1 and the plain compositor blend
+    other pairs, for a seeded image cotangent on those pixels alone; the
+    decisions' walk must be K1's, bitwise (final T, stop, count). Raises
+    past K2_TOL. Returns the count of split pixels and the largest relative
+    error over the gradient fields."""
+    binning, mean2d, conic, opacity, attrs, cfg = args
+    out, walk = composite_cuda.composite_k1(*args)
+    plain, split = k1_split(args, out, walk)
+    pixels = torch.nonzero(split.flatten()).flatten()
+    dec = composite_cuda.blend_decisions(binning, mean2d, conic, opacity,
+                                         pixels, cfg)
+    apart = [name for name, a, b in (
+        ("final_T", dec.final_T, walk.final_T.flatten()[pixels]),
+        ("stop", dec.stop, walk.stop.flatten()[pixels]),
+        ("n_contrib", dec.n_contrib, out.n_contrib.flatten()[pixels]))
+        if not torch.equal(a, b)]
+    if apart:
+        raise AssertionError(f"{label}: the decisions' walk is not K1's: "
+                             f"{apart} apart")
+    A = attrs.shape[1]
+    gen = torch.Generator(device=attrs.device).manual_seed(seed)
+    g_pixels = torch.randn((pixels.numel(), A), generator=gen,
+                           device=attrs.device)
+    g_image = torch.zeros_like(out.image)
+    g_image.view(-1, A)[pixels] = g_pixels
+    got = composite_cuda.composite_k2(binning, mean2d, conic, opacity, attrs,
+                                      walk, g_image, None, cfg)
+    want = replay_backward(binning, mean2d, conic, opacity, attrs, pixels,
+                           dec.codes, g_pixels, cfg)
+    torch.cuda.synchronize()
+    rel, abs_err = grad_errors(label, "K2", got, want)
+    worst = max(rel.values())
+    say(label, pairs=binning.num_rendered, attrs=A,
+        split_pixels=pixels.numel(),
+        count_equal_splits=int((dec.n_contrib == plain.n_contrib.flatten()
+                                [pixels]).sum()),
+        pairs_blended=int(dec.n_contrib.sum()),
+        pairs_at_cap=int((dec.codes == BLEND_AT_CAP).sum()),
+        max_rel_err={k: f"{v:.3e}" for k, v in rel.items()},
+        max_abs_err=f"{abs_err:.3e}")
+    if worst > K2_TOL:
+        raise AssertionError(f"{label}: K2 against the float64 replay of K1's "
+                             f"decisions, max relative error {rel} > {K2_TOL}")
+    return {"pixels": pixels.numel(), "max_rel_err": worst}
+
+
+@torch.no_grad()
+def k2_split_phase(main_args, s2: dict) -> dict:
+    """check_k2_split on k2-main's inputs, on k12-stage2's train-width
+    inputs and on forced_split_args; raises where the forced input has no
+    split pixel. Returns the kernels line's fields."""
+    view, model = s2["views"][0], s2["model"]
+    bg = torch.zeros(3, device=view.image.device)
+    s2_args = captured_compositor_args(lambda: render_neilf(
+        view, model, s2["cfg"], bg, s2["env"], s2["vis"], STAGE2_OPT,
+        is_training=True))
+    cases = {"k2-main": main_args, "k12-stage2": s2_args,
+             "forced": forced_split_args(view.image.device)}
+    res = {name: check_k2_split(args, f"k2-split {name}", 21 + i)
+           for i, (name, args) in enumerate(cases.items())}
+    if res["forced"]["pixels"] == 0:
+        raise AssertionError("k2-split: no split pixel on the forced input")
+    worst = max(r["max_rel_err"] for r in res.values())
+    say("k2-split", split_pixels={k: r["pixels"] for k, r in res.items()},
+        max_rel_err=f"{worst:.3e}")
+    return {"k2_split_pixels": {k: r["pixels"] for k, r in res.items()},
+            "k2_split_max_rel_err": worst}
 
 
 def check_k5(args, label: str, with_g_weights: bool, seed: int,
@@ -2670,9 +2815,12 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
     """raster.GaussianRasterizer on the card against ops.rasterize on the
     same inputs (the 10-tuple; the weights, summed by K1's atomics, under
     k1-main's weights bounds, the rest bitwise), with the SH colour and the
-    covariance given precomputed (k1-main's gate: the covariance's packing
-    may move a last bit), and mark_visible against view z > 0.2. Returns
-    K1's launches by the facade."""
+    covariance given precomputed, packed [P, 6] (get_covariance()) and full
+    [P, 3, 3] (it unpacked) (k1-main's gate: the covariance's packing may
+    move a last bit), and mark_visible against view z > 0.2. K2's gradient
+    reaches both layouts: the full one's, symmetrized, is the packed one's
+    within K2_TOL of its largest entry. Returns K1's launches by the facade,
+    and K1's and K2's with the full layout."""
     cam = view.cam
     size = SIZE_MAIN
     settings = GaussianRasterizationSettings(
@@ -2698,16 +2846,19 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
             want.weights, want.radii)
     prep = preprocess(model.xyz, model.get_scaling, model.get_rotation,
                       model.get_shs, r.cam, cfg)
+    packed = model.get_covariance().detach()
     cases = {"shs": inputs,
              "colors_precomp": {**inputs, "shs": None,
                                 "colors_precomp": prep.rgb},
              "cov3d_precomp": {**inputs, "scales": None, "rotations": None,
-                               "cov3D_precomp": covariance3d_packed(
-                                   model.get_scaling, model.get_rotation)}}
-    launches, report = [], {}
+                               "cov3D_precomp": packed},
+             "cov3d_full": {**inputs, "scales": None, "rotations": None,
+                            "cov3D_precomp": unpack_symmetric(packed)}}
+    launches, report, outs = [], {}, {}
     for name, kw in cases.items():
         reset_launches()
         got, ms = timed_ms(lambda: r(**common, **kw))
+        outs[name] = got
         launches.append(composite_cuda.LAUNCHES)
         if len(got) != 10 or got[0] != want[0] or launches[-1] != 1:
             raise AssertionError(f"facade {name}: {len(got)} outputs, "
@@ -2715,10 +2866,10 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
                                  f"{launches[-1]} times")
         bitwise = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
         torch.testing.assert_close(got[8], want[8], rtol=W_RTOL, atol=W_ATOL)
-        if name == "cov3d_precomp":
+        if name.startswith("cov3d"):
             agree = got[1] == want[1]
             if float(agree.float().mean()) < COUNT_AGREE:
-                raise AssertionError("facade cov3d_precomp: n_contrib")
+                raise AssertionError(f"facade {name}: n_contrib")
             for i in (2, 3, 4, 5):
                 torch.testing.assert_close(got[i][:, agree], want[i][:, agree],
                                            atol=IMG_ATOL, rtol=IMG_RTOL)
@@ -2729,6 +2880,44 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
                                            for b in bitwise),
                         "max_abs_err": f"{float((got[2] - want[2]).abs().max()):.3e}",
                         "ms": f"{ms:.3f}"}
+    # the full layout renders as the packed one, but the weights' atomics
+    layouts = list(zip(outs["cov3d_full"], outs["cov3d_precomp"]))
+    if not all(torch.equal(a, b) for i, (a, b) in enumerate(layouts[1:], 1)
+               if i != 8):
+        raise AssertionError("facade: the full layout's render apart from "
+                             "the packed one's")
+    # K2's gradient into each layout, for one seeded colour cotangent
+    gen = torch.Generator(device=packed.device).manual_seed(SEED + 9)
+    g_color = torch.randn((3, size, size), generator=gen, device=packed.device)
+    fixed = {k: v.detach() for k, v in {**common, **inputs}.items()}
+    grads, full_launches = {}, {}
+    for name, cov in (("cov3d_precomp", packed),
+                      ("cov3d_full", unpack_symmetric(packed))):
+        x = cov.clone().requires_grad_(True)
+        reset_launches()
+        with torch.enable_grad():
+            out = r(**{**fixed, "scales": None, "rotations": None},
+                    cov3D_precomp=x)
+            (out[2] * g_color).sum().backward()
+        if composite_cuda.BWD_LAUNCHES != 1 or not bool(
+                torch.isfinite(x.grad).all()):
+            raise AssertionError(f"facade {name}: K2 launched "
+                                 f"{composite_cuda.BWD_LAUNCHES} times, "
+                                 f"gradient finite: "
+                                 f"{bool(torch.isfinite(x.grad).all())}")
+        grads[name] = x.grad
+        if name == "cov3d_full":
+            full_launches = {"K1": launches[-1] + composite_cuda.LAUNCHES,
+                             "K2": composite_cuda.BWD_LAUNCHES}
+    full_g = grads["cov3d_full"]
+    sym = strip_symmetric(full_g + full_g.transpose(-1, -2))
+    sym[:, [0, 3, 5]] /= 2
+    want_g = grads["cov3d_precomp"]
+    g_rel = float((sym - want_g).abs().max() / want_g.abs().max())
+    if not g_rel <= K2_TOL:
+        raise AssertionError(f"facade: the full layout's gradient, "
+                             f"symmetrized, {g_rel} from the packed one's "
+                             f"> {K2_TOL}")
     xyz1 = torch.cat([model.xyz, torch.ones_like(model.xyz[:, :1])], -1)
     visible = (xyz1 @ cam.world_view)[:, 2] > 0.2
     far = torch.cat([model.xyz, model.xyz * -20.0 - torch.tensor(
@@ -2742,8 +2931,10 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
         raise AssertionError("facade: mark_visible apart from view z > 0.2")
     say("facade", size=f"{size}x{size}", pairs=want[0], cases=report,
         k1_launches=launches,
-        mark_visible=f"{int(marks[1].sum())}/{far.shape[0]}")
-    return {"K1": sum(launches)}
+        mark_visible=f"{int(marks[1].sum())}/{far.shape[0]}",
+        full_grad_rel_err_from_packed=f"{g_rel:.3e}",
+        full_layout_launches=full_launches)
+    return {"K1": sum(launches), "full": full_launches}
 
 
 def state_digest(model: GaussianModel, optimizers, env=None) -> str:
@@ -3144,14 +3335,120 @@ def parallel_phases(trained: dict, s2: dict, device) -> dict:
             "sharded": [r["launches"] for r in shr]}
 
 
+# prune-only: stage-1 steps of a copy of cell 2's trained 800x800 model (a
+# model from random points has radii of ~40 pixels, so a screen-size prune
+# at 20 takes nearly all of it), PRUNE_STEPS before each prune_only (its
+# statistics live: a prune zeroes weights_accum, so a second one at once
+# would prune every point), with the reference's min_opacity and
+# max_screen_size inf, then PRUNE_SCREEN (the training loop's size
+# threshold); PRUNE_MORE_STEPS after.
+PRUNE_STEPS, PRUNE_MORE_STEPS, PRUNE_SCREEN, PRUNE_MIN_OPACITY = 10, 20, 20.0, 0.005
+
+
+def host_prune(model: GaussianModel, optimizer, extent: float,
+               max_screen_size: float) -> dict:
+    """What prune_only must leave, selected on the host from the model's
+    tensors as the card holds them: the kept rows' parameters, Adam state
+    and statistics (weights_accum zero), and the count pruned."""
+    cpu = {k: getattr(model, k).detach().cpu() for k in model.fields + G_STATS}
+    opacity = model.get_opacity[:, 0].detach().cpu()
+    max_scale = model.get_scaling.detach().max(-1).values.cpu()
+    prune = ((opacity < PRUNE_MIN_OPACITY)
+             | (cpu["weights_accum"] < WEIGHTS_PRUNE)
+             | (cpu["max_radii2d"] > max_screen_size))
+    if max_screen_size < math.inf:
+        prune |= max_scale > 0.1 * extent
+    keep = ~prune
+    state = {}
+    for g in optimizer.param_groups:
+        st = optimizer.state.get(g["params"][0], {})
+        state[g["name"]] = {k: (v.cpu()[keep] if k.startswith("exp_avg")
+                                else v.clone()) for k, v in st.items()}
+    rows = {k: v[keep] for k, v in cpu.items()}
+    rows["weights_accum"] = torch.zeros_like(rows["weights_accum"])
+    return {"rows": rows, "state": state, "pruned": int(prune.sum())}
+
+
+def check_prune(model: GaussianModel, optimizer, want: dict, pruned: int,
+                label: str) -> None:
+    """prune_only's result against host_prune's, bitwise."""
+    apart = [k for k, v in want["rows"].items()
+             if not torch.equal(getattr(model, k).detach().cpu(), v)]
+    for g in optimizer.param_groups:
+        p = g["params"][0]
+        if p is not getattr(model, g["name"]):
+            apart.append(f"{g['name']} (the optimizer's tensor)")
+        st = optimizer.state.get(p, {})
+        for k, v in want["state"][g["name"]].items():
+            if k not in st or not torch.equal(st[k].cpu(), v):
+                apart.append(f"{g['name']}.{k}")
+    if pruned != want["pruned"] or apart:
+        raise AssertionError(f"{label}: pruned {pruned} (host {want['pruned']}); "
+                             f"apart from the host's rows: {apart}")
+
+
+def prune_only_phase(trained: dict, device) -> dict:
+    """prune_only on the card between stage-1 steps (PRUNE_STEPS' note),
+    each prune held bitwise to host_prune, some points pruned and none
+    leaving the model empty; the loss finite after it.
+    Returns K1's and K2's launches."""
+    views, cfg, extent = trained["views"], trained["cfg"], trained["extent"]
+    path = WORK / "prune_only_start.npz"
+    save_checkpoint(str(path), TRAIN_OPT.iterations, trained["model"],
+                    trained["optimizer"])
+    it, model, optimizer = load_train_state(str(path), TRAIN_OPT, extent,
+                                            device=device)
+    losses = []
+
+    def steps(n: int) -> None:
+        nonlocal it
+        for _ in range(n):
+            it += 1
+            m = train_step(model, optimizer, views[it % VIEWS], it, cfg=cfg,
+                           opt=TRAIN_OPT, spatial_lr_scale=extent)
+            losses.append(float(m["loss"]))
+
+    reset_launches()
+    report = []
+    for max_screen_size in (math.inf, PRUNE_SCREEN):
+        steps(PRUNE_STEPS)
+        before = model.num_points
+        want = host_prune(model, optimizer, extent, max_screen_size)
+        pruned, ms = timed_ms(lambda: prune_only(
+            model, optimizer, min_opacity=PRUNE_MIN_OPACITY, extent=extent,
+            max_screen_size=max_screen_size))
+        check_prune(model, optimizer, want, pruned,
+                    f"prune-only {max_screen_size}")
+        report.append({"max_screen_size": max_screen_size, "points": before,
+                       "pruned": pruned, "left": model.num_points,
+                       "ms": f"{ms:.3f}"})
+    steps(PRUNE_MORE_STEPS)
+    launches = {"K1": composite_cuda.LAUNCHES,
+                "K2": composite_cuda.BWD_LAUNCHES}
+    n_steps = 2 * PRUNE_STEPS + PRUNE_MORE_STEPS
+    if not np.isfinite(losses).all() or launches != {"K1": n_steps,
+                                                      "K2": n_steps}:
+        raise AssertionError(f"prune-only: losses finite "
+                             f"{bool(np.isfinite(losses).all())}, launches "
+                             f"{launches} for {n_steps} steps")
+    if sum(r["pruned"] for r in report) == 0 or any(
+            r["left"] == 0 for r in report):
+        raise AssertionError(f"prune-only: pruned none or all: {report}")
+    say("prune-only", size=f"{cfg.width}x{cfg.height}", steps=n_steps,
+        prunes=report, loss_before=f"{losses[2 * PRUNE_STEPS - 1]:.5f}",
+        loss_last=f"{losses[-1]:.5f}", k1_launches=launches["K1"],
+        k2_launches=launches["K2"])
+    return launches
+
+
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
-    """Builds K1 to K5 from the checkout's sources, one nvcc each, all at
-    once, and prints ptxas's report of csrc/shading.cu and of each source in
+    """Builds K1 to K5 and the check kernel composite_decisions from the
+    checkout's sources, one nvcc each, all at once, and prints ptxas's report of csrc/shading.cu and of each source in
     `ptxas_also`, compiled beside them."""
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
-               composite_cuda.TWO_WALK_KERNEL)
+               composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL)
     ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
         ray_trace_cuda.KERNEL, composite_cuda.TWO_WALK_KERNEL)), *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
@@ -3294,6 +3591,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     s2 = stage2_phase(trained, device)
     # K1 and K2 at stage 2's widths
     k12_stage2_phase(s2)
+    # K2 against the float64 replay of K1's decisions at split pixels
+    k2_split = k2_split_phase(main_args, s2)
     with torch.no_grad():
         # 13. K3 against the plain tracer on the stage's rays
         model = s2["model"]
@@ -3349,6 +3648,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     # 28-30. data-parallel stages 1 and 2 and the sharded eval, two ranks on
     # the card
     par = parallel_phases(trained, s2, device)
+    # 31. prune_only between stage-1 steps
+    prune = prune_only_phase(trained, device)
 
     def per_rank(phase, kernel, part=None):
         return [(r[part] if part else r)[kernel] for r in par[phase]]
@@ -3363,12 +3664,16 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "gui_neilf_launches": gui_launches["neilf"]["K1"],
          "train_gui_launches": train_gui_launches["K1"],
          "dense_launches": dense["K1"], "facade_launches": facade["K1"],
+         "facade_full_launches": facade["full"]["K1"],
+         "prune_only_launches": prune["K1"],
          "dp_stage1_launches": per_rank("dp-stage1", "K1"),
          "dp_stage2_launches": per_rank("dp-stage2", "K1"),
          "sharded_launches": per_rank("sharded", "K1", "render")},
         {"name": "K2 composite_bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2,
          "dense_launches": dense["K2"],
+         "facade_full_launches": facade["full"]["K2"],
+         "prune_only_launches": prune["K2"], **k2_split,
          "dp_stage1_launches": per_rank("dp-stage1", "K2"),
          "dp_stage2_launches": per_rank("dp-stage2", "K2")},
         {"name": "K3 ray_trace", "route": "cuda", "source": K3_SOURCE,

@@ -85,6 +85,11 @@ def raster_config(cameras, white_background: bool) -> RasterConfig:
                         white_background=white_background)
 
 
+def make_views(cameras, device) -> list:
+    """The cameras' ViewInputs on `device`."""
+    return [c.view_inputs(device) for c in cameras]
+
+
 def background(cfg: RasterConfig, device) -> torch.Tensor:
     return (torch.ones(3, device=device) if cfg.white_background
             else torch.zeros(3, device=device))
@@ -173,7 +178,7 @@ def training(args, device, group=None) -> None:
         print(f"Initialized {model.num_points} gaussians")
 
     train_cams = scene.get_train_cameras()
-    views = [c.view_inputs(device) for c in train_cams]
+    views = make_views(train_cams, device)
     cfg = raster_config(train_cams, model_cfg.white_background)
     bg = background(cfg, device)
 
@@ -235,7 +240,7 @@ def training(args, device, group=None) -> None:
             return
         if test_views is None:
             cap = args.report_max_views or len(test_cams)
-            test_views = [c.view_inputs(device) for c in test_cams[:cap]]
+            test_views = make_views(test_cams[:cap], device)
         psnrs = []
         for tv in test_views:
             res = render_eval(tv)

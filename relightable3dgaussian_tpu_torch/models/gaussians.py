@@ -21,6 +21,8 @@ import torch
 from torch import nn
 
 from ..ops.knn import mean_sq_dist_to_3nn
+from ..ops.projection import covariance3d_packed
+from ..ops.ray_trace import inverse_covariance_packed
 from ..utils.quaternions import (inverse_sigmoid, quaternion_multiply,
                                  quaternion_to_rotmat, rotmat_to_quaternion)
 from ..utils.sh import rgb_to_sh
@@ -145,6 +147,29 @@ class GaussianModel(nn.Module):
     def get_incidents(self) -> torch.Tensor:
         """[P, N_SH, 3] local incident-light SH coefficients."""
         return torch.cat([self.incidents_dc, self.incidents_rest], dim=1)
+
+    @property
+    def get_visibility_shs(self) -> torch.Tensor:
+        """[P, N_SH, 1] visibility SH coefficients."""
+        return torch.cat([self.visibility_dc, self.visibility_rest], dim=1)
+
+    def get_covariance(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        """Packed [P, 6] 3D covariance (xx, xy, xz, yy, yz, zz), the
+        reference's `GaussianModel.get_covariance`; `ops.rasterize.
+        rasterize` takes it as `cov3d_precomp`."""
+        return covariance3d_packed(self.get_scaling, self.get_rotation,
+                                   scaling_modifier)
+
+    def get_inverse_covariance(self, scaling_modifier: float = 1.0
+                               ) -> torch.Tensor:
+        """Packed [P, 6] inverse 3D covariance (the ray tracer's)."""
+        return inverse_covariance_packed(self.get_scaling * scaling_modifier,
+                                         self.get_rotation)
+
+
+def inverse_roughness(y: torch.Tensor) -> torch.Tensor:
+    """The raw roughness whose `get_roughness` is `y`."""
+    return inverse_sigmoid((y - 0.09) / 0.9)
 
 
 def add_pbr_params(model: GaussianModel) -> GaussianModel:
@@ -396,6 +421,38 @@ def densify_and_prune_with_noise(model: GaussianModel,
     _replace_parameters(model, optimizer, values, moments)
     model.reset_stats()
     return stats
+
+
+@torch.no_grad()
+def prune_only(model: GaussianModel, optimizer: torch.optim.Optimizer, *,
+               min_opacity: float, extent: float, max_screen_size: float,
+               weights_threshold: float = WEIGHTS_PRUNE) -> int:
+    """Prune without densifying (the reference's standalone `prune`,
+    gaussian_model.py:916-929), with the JAX package's semantics: prune
+    where opacity < min_opacity or weights_accum < weights_threshold, and
+    where max_radii2d > max_screen_size or, while `max_screen_size` is
+    finite, the max scale exceeds 0.1·extent. Unlike densify_and_prune the
+    screen-size term acts: no densification_postfix zeroes max_radii2d
+    before it.
+
+    The pruned rows are removed; the survivors keep their Adam moments and
+    their statistics, every group its step, and weights_accum is zeroed.
+    Returns the number pruned.
+    """
+    prune = ((model.get_opacity[:, 0] < min_opacity)
+             | (model.weights_accum < weights_threshold)
+             | (model.max_radii2d > max_screen_size))
+    if max_screen_size < float("inf"):
+        prune |= model.get_scaling.max(-1).values > 0.1 * extent
+    keep = ~prune
+    _replace_parameters(model, optimizer,
+                        {k: getattr(model, k).detach()[keep]
+                         for k in model.fields},
+                        lambda name, m: m[keep])
+    for k in STATS:
+        setattr(model, k, getattr(model, k)[keep])
+    model.weights_accum.zero_()
+    return int(prune.sum())
 
 
 @torch.no_grad()

@@ -12,6 +12,12 @@ checked against on the card, and it is differentiable by autograd;
 kernel K2. Tiles are
 batched by range length: a batch of G tiles whose longest range is L costs
 G·L·256 elements per intermediate, kept under BATCH_ELEMENTS.
+
+For checks only: `walk_state` and `split_pixels` (where two compositors
+blended other pairs), `blend_decisions` (which pairs a pixel blended), and
+`replay`/`replay_backward`, which composite given pixels over the pairs a
+walk's decisions name, in float64, taking no decision of their own: K2 is
+held to that VJP of K1's decisions where K1 and this compositor part.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ class _Blend(NamedTuple):
     ids: torch.Tensor         # [G, L] gaussian ids (0 where not valid)
     valid: torch.Tensor       # [G, L] slot lies in the tile's range
     cum: torch.Tensor         # [G, L, tile²] transmittance after each slot
+    alpha: torch.Tensor       # [G, L, tile²] alpha (0 where skipped)
 
 
 def _batches(binning: Binning, cfg: RasterConfig, mean2d, conic, opacity,
@@ -104,7 +111,7 @@ def _batches(binning: Binning, cfg: RasterConfig, mean2d, conic, opacity,
         T_at = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
         w = torch.where(T_at >= 1e-4, alpha * T_at, 0.0)          # [G, L, tt]
         yield _Blend(tiles=tb, image=torch.einsum("glt,gla->gta", w, attrs[ids]),
-                     w=w, ids=ids, valid=valid, cum=cum)
+                     w=w, ids=ids, valid=valid, cum=cum, alpha=alpha)
 
 
 def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
@@ -222,6 +229,111 @@ def split_pixels(n_contrib_a: torch.Tensor, walk_a: WalkState,
     return ((n_contrib_a != n_contrib_b) | (walk_a.stop != walk_b.stop)
             | ((walk_a.final_T - walk_b.final_T).abs()
                > SPLIT_T_RTOL * walk_b.final_T.abs()))
+
+
+# Blend decisions (Decisions.codes): not blended, blended, blended at the
+# 0.99 cap on alpha (where no gradient reaches op · e^power).
+SKIP, BLEND, BLEND_AT_CAP = 0, 1, 2
+ALPHA_CAP = float(torch.tensor(0.99, dtype=torch.float32))   # 0.99 in float32
+
+
+class Decisions(NamedTuple):
+    """A compositor's walk at a list of pixels: the decision for each pair
+    of the pixel's tile range, in range order, and the walk state there."""
+    codes: torch.Tensor      # [n, L] int8 SKIP, BLEND or BLEND_AT_CAP
+    final_T: torch.Tensor    # [n] f32
+    stop: torch.Tensor       # [n] i32
+    n_contrib: torch.Tensor  # [n] i32 pairs blended
+
+
+def blend_decisions(binning: Binning, mean2d: torch.Tensor,
+                    conic: torch.Tensor, opacity: torch.Tensor,
+                    pixels: torch.Tensor, cfg: RasterConfig) -> Decisions:
+    """The plain compositor's decisions at `pixels` ([n] int64 indices into
+    the [num_tiles * tile²] pixel buffers), with L the longest range among
+    their tiles; pairs past a pixel's stop are SKIP. The plain version of
+    the check kernel `composite_cuda.blend_decisions`, which reads K1's."""
+    dev = mean2d.device
+    tt = cfg.tile * cfg.tile
+    tiles = pixels // tt
+    lengths = (binning.tile_end - binning.tile_start).to(torch.int64)
+    L = int(lengths[tiles].max()) if pixels.numel() else 0
+    codes = torch.zeros((pixels.numel(), L), dtype=torch.int8, device=dev)
+    slot_of = torch.full((cfg.num_tiles,), -1, dtype=torch.int64, device=dev)
+    ones = mean2d.new_ones((mean2d.shape[0], 1))
+    for b in _batches(binning, cfg, mean2d, conic, opacity, ones):
+        slot_of[b.tiles] = torch.arange(b.tiles.numel(), device=dev)
+        rows = torch.nonzero(slot_of[tiles] >= 0).flatten()
+        g, p = slot_of[tiles[rows]], pixels[rows] % tt
+        # the batch's longest range may be another tile's, longer than L
+        w, alpha = b.w[g, :L, p], b.alpha[g, :L, p]             # [m, <= L]
+        codes[rows, :w.shape[1]] = torch.where(
+            w > 0, torch.where(alpha == ALPHA_CAP, BLEND_AT_CAP, BLEND),
+            SKIP).to(torch.int8)
+        slot_of[b.tiles] = -1
+    walk = walk_state(binning, mean2d, conic, opacity, cfg)
+    return Decisions(codes=codes, final_T=walk.final_T.flatten()[pixels],
+                     stop=walk.stop.flatten()[pixels],
+                     n_contrib=(codes > 0).sum(1).to(torch.int32))
+
+
+REPLAY_ELEMENTS = 1 << 22   # (pixel, slot) elements per replayed chunk
+
+
+def replay(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
+           opacity: torch.Tensor, attrs: torch.Tensor, pixels: torch.Tensor,
+           codes: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:
+    """[n, A] blended attributes of `pixels` over exactly the pairs `codes`
+    ([n, L], as `blend_decisions` gives) blends, in the dtype of the inputs
+    and differentiable by autograd: alpha = op · e^power where BLEND, the
+    float32 0.99 where BLEND_AT_CAP; w = alpha · T over the blended pairs.
+    No decision is taken here, so the VJP is that of the walk that took
+    them. For checks (float64 inputs), never on a main path."""
+    tt = cfg.tile * cfg.tile
+    tiles = pixels // tt
+    p = pixels % tt
+    k = torch.arange(codes.shape[1], device=codes.device)
+    blended = codes > 0
+    slots = torch.where(blended, binning.tile_start.to(torch.int64)[tiles][:, None]
+                        + k, 0)
+    ids = binning.sorted_ids.to(torch.int64)[slots]             # [n, L]
+    px = ((tiles % cfg.tiles_x) * cfg.tile + p % cfg.tile).to(mean2d.dtype)
+    py = ((tiles // cfg.tiles_x) * cfg.tile + p // cfg.tile).to(mean2d.dtype)
+    dx = mean2d[ids, 0] - px[:, None]
+    dy = mean2d[ids, 1] - py[:, None]
+    con = conic[ids]
+    power = (-0.5 * (con[..., 0] * dx * dx + con[..., 2] * dy * dy)
+             - con[..., 1] * dx * dy)
+    alpha = torch.where(codes == BLEND_AT_CAP, ALPHA_CAP,
+                        opacity[ids] * torch.exp(power))
+    alpha = torch.where(blended, alpha, 0.0)
+    cum = torch.cumprod(1.0 - alpha, dim=1)
+    T = torch.cat([torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+    return torch.einsum("nl,nla->na", alpha * T, attrs[ids])
+
+
+def replay_backward(binning: Binning, mean2d: torch.Tensor,
+                    conic: torch.Tensor, opacity: torch.Tensor,
+                    attrs: torch.Tensor, pixels: torch.Tensor,
+                    codes: torch.Tensor, g_pixels: torch.Tensor,
+                    cfg: RasterConfig):
+    """The float64 VJP of `replay` for the cotangent g_pixels [n, A]:
+    (g_mean2d [P, 2], g_conic [P, 3], g_opacity [P], g_attrs [P, A]), by
+    autograd, summed over chunks of pixels."""
+    leaves = [x.detach().to(torch.float64).requires_grad_() for x in
+              (mean2d, conic, opacity, attrs)]
+    grads = [torch.zeros_like(x) for x in leaves]
+    step = max(1, REPLAY_ELEMENTS // max(codes.shape[1], 1))
+    with torch.enable_grad():
+        for i in range(0, pixels.numel(), step):
+            out = replay(binning, *leaves, pixels[i:i + step],
+                         codes[i:i + step], cfg)
+            objective = (out * g_pixels[i:i + step].to(torch.float64)).sum()
+            for g, d in zip(grads, torch.autograd.grad(
+                    objective, leaves, allow_unused=True)):
+                if d is not None:
+                    g += d
+    return tuple(grads)
 
 
 def tiles_to_image(tile_buf: torch.Tensor, cfg: RasterConfig) -> torch.Tensor:

@@ -19,6 +19,11 @@ two-walk backward the JAX package runs under `R3DG_BWD_TWO_WALK=1`.
 counts K1's launches, `BWD_LAUNCHES` K2's and `TWO_WALK_LAUNCHES` K5's. The
 plain version of both backward kernels is `ops/composite.py::
 composite_backward`: they compute the same function.
+
+`blend_decisions` is a check, never on a main path: K1's blend decisions at
+a list of pixels (`csrc/composite_decisions.cu`, K1's alpha step and walk),
+which `ops/composite.py::replay_backward` turns into the exact VJP that K2
+is held to where K1 and the plain compositor blend other pairs.
 """
 from __future__ import annotations
 
@@ -28,13 +33,16 @@ import os
 import torch
 
 from . import _build
-from .composite import CompositeOut, WalkState, composite as composite_plain
+from .composite import CompositeOut, Decisions, WalkState
+from .composite import blend_decisions as blend_decisions_plain
+from .composite import composite as composite_plain
 from .config import RasterConfig
 from .tiles import Binning
 
 KERNEL = "composite_fwd"
 BWD_KERNEL = "composite_bwd"
 TWO_WALK_KERNEL = "composite_bwd_two_walk"
+DECISIONS_KERNEL = "composite_decisions"
 MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
 # The attribute widths K1, K2 and K5 build apart, with their accumulators in
 # registers at that width (the `case`s of the dispatch in each source): the
@@ -268,3 +276,51 @@ def composite_k5(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
         raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
     TWO_WALK_LAUNCHES += 1
     return g_mean2d, g_conic, g_opacity, g_attrs
+
+
+def blend_decisions(binning: Binning, mean2d: torch.Tensor,
+                    conic: torch.Tensor, opacity: torch.Tensor,
+                    pixels: torch.Tensor, cfg: RasterConfig) -> Decisions:
+    """The blend decisions at `pixels` ([n] int64 indices into the
+    [num_tiles, 256] pixel buffers) and the walk state there: on CPU tensors
+    the plain compositor's (`ops/composite.py::blend_decisions`), on CUDA
+    tensors K1's, read by the check kernel `csrc/composite_decisions.cu`.
+    L is the longest range among the pixels' tiles."""
+    tensors = (binning.sorted_ids, binning.tile_start, binning.tile_end,
+               mean2d, conic, opacity, pixels)
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return blend_decisions_plain(binning, mean2d, conic, opacity, pixels,
+                                     cfg)
+    if devices != {"cuda"}:
+        raise ValueError(f"blend_decisions: inputs on {sorted(devices)}; "
+                         "expected all on CPU or all on CUDA")
+    # K1's inputs but attrs (opacity stands in as one channel)
+    expect = _inputs("decisions", binning, mean2d, conic, opacity,
+                     opacity[:, None], cfg)
+    n = pixels.numel()
+    expect["pixels"] = (pixels, (n,), torch.int64)
+    device = mean2d.device
+    _check("decisions", expect, device)
+    if n and not (0 <= int(pixels.min()) and int(pixels.max())
+                  < cfg.num_tiles * cfg.tile * cfg.tile):
+        raise ValueError("blend_decisions: a pixel outside the tiles")
+    tiles = pixels // (cfg.tile * cfg.tile)
+    L = int((binning.tile_end - binning.tile_start)[tiles].max()) if n else 0
+    lib = _library(DECISIONS_KERNEL, "r3dg_composite_decisions", 7, 3, 5)
+    codes = torch.zeros((n, L), dtype=torch.int8, device=device)
+    final_T = torch.empty((n,), dtype=torch.float32, device=device)
+    stop = torch.empty((n,), dtype=torch.int32, device=device)
+    n_contrib = torch.empty((n,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.r3dg_composite_decisions(
+            binning.tile_start.data_ptr(), binning.tile_end.data_ptr(),
+            binning.sorted_ids.data_ptr(), mean2d.data_ptr(),
+            conic.data_ptr(), opacity.data_ptr(), pixels.data_ptr(), n,
+            cfg.tiles_x, L, codes.data_ptr(), final_T.data_ptr(),
+            stop.data_ptr(), n_contrib.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"decisions launch failed: cudaError_t {rc}")
+    return Decisions(codes=codes, final_T=final_T, stop=stop,
+                     n_contrib=n_contrib)

@@ -4,9 +4,9 @@
 EWA Jacobian with view x/y clamped to 1.3·tan(fov), +0.3 px low-pass, radius
 ceil(3·sqrt(λmax)), the alpha-aware tile rect when opacity is given, ndc→pixel
 ((x + 1)·size − 1)/2, and SH→RGB along (mean − campos), +0.5, clamped at
-0, unless the caller gives the colours (`colors`) or the packed 3D
-covariances (`cov3d_precomp`) itself. `covariance3d_packed` is the packed
-covariance the scales and rotations give.
+0, unless the caller gives the colours (`colors`) or the 3D covariances
+(`cov3d_precomp`, packed or full) itself. `covariance3d_packed` is the
+packed covariance the scales and rotations give.
 """
 from __future__ import annotations
 
@@ -65,6 +65,18 @@ def compute_cov2d(mean3d: torch.Tensor, cov3d: torch.Tensor,
     return torch.stack([xx, xy, yy], dim=-1)
 
 
+def full_covariance(cov3d: torch.Tensor, n: int) -> torch.Tensor:
+    """[n, 3, 3] from a packed [n, 6] (xx, xy, xz, yy, yz, zz), or a full
+    [n, 3, 3] as it is; raises ValueError on any other shape."""
+    shape = tuple(cov3d.shape)
+    if shape == (n, 3, 3):
+        return cov3d
+    if shape == (n, 6):
+        return unpack_symmetric(cov3d)
+    raise ValueError(f"cov3d_precomp: got shape {shape}, expected [{n}, 6] "
+                     f"(packed xx, xy, xz, yy, yz, zz) or [{n}, 3, 3]")
+
+
 def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                rotations: torch.Tensor, shs: torch.Tensor, cam: CameraParams,
                cfg: RasterConfig,
@@ -80,8 +92,10 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     given, the tile rect uses the tighter alpha-aware radius
     sqrt(2 λmax ln(255 op)); `radius` keeps the 3σ value. `colors` [P, 3]
     replaces the SH colour (`shs` may then be None) and `cov3d_precomp`
-    [P, 6] (xx, xy, xz, yy, yz, zz) the covariance of `scales` and
-    `rotations` (then unused); gradients reach both.
+    the covariance of `scales` and `rotations` (then unused): packed
+    [P, 6] (xx, xy, xz, yy, yz, zz), the reference's layout, or the full
+    [P, 3, 3] the JAX package takes, used as it is (all nine entries, not
+    symmetrized). Gradients reach the tensor given.
     """
     xyz1 = _homogeneous(means3d)
     p_view = xyz1 @ cam.world_view
@@ -92,7 +106,8 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     p_w = 1.0 / (p_hom[:, 3] + 1e-7)
     p_proj = p_hom[:, :3] * p_w[:, None]
 
-    cov3d = (unpack_symmetric(cov3d_precomp) if cov3d_precomp is not None
+    cov3d = (full_covariance(cov3d_precomp, means3d.shape[0])
+             if cov3d_precomp is not None
              else build_covariance(scales, rotations, cfg.scale_modifier))
     cov2d = compute_cov2d(means3d, cov3d, cam)
 

@@ -73,8 +73,10 @@ def rasterize(means3d, scales, rotations, opacity, shs, features,
         d(loss)/d(pixel-space mean), for the densification statistics.
       colors_precomp: optional [P, 3] colours in place of the SH colour
         (`shs` may then be None).
-      cov3d_precomp: optional [P, 6] packed 3D covariances (xx, xy, xz, yy,
-        yz, zz) in place of those of `scales` and `rotations`.
+      cov3d_precomp: optional 3D covariances in place of those of `scales`
+        and `rotations`: packed [P, 6] (xx, xy, xz, yy, yz, zz), as
+        `GaussianModel.get_covariance` gives them, or the full [P, 3, 3] of
+        the JAX package, used as it is (not symmetrized).
     """
     H, W = cfg.height, cfg.width
     prep, binning, attrs = prepare(

@@ -59,7 +59,8 @@ def rasterize_dense(means3d, scales, rotations, opacity, shs, features,
     Arguments as `ops.rasterize.rasterize`: means3d [P, 3]; scales [P, 3];
     rotations [P, 4]; opacity [P, 1] activated; shs [P, K, 3] (or None with
     colors_precomp [P, 3]); features [P, S]; bg_color [3]; cov3d_precomp
-    [P, 6] packed. The camera is taken in the dtype of `means3d`.
+    packed [P, 6] or full [P, 3, 3]. The camera is taken in the dtype of
+    `means3d`.
     """
     dtype, dev = means3d.dtype, means3d.device
     cam = CameraParams(*(t.to(dtype) for t in cam))

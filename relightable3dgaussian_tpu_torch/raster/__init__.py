@@ -100,7 +100,8 @@ class GaussianRasterizer:
         """Returns the reference 10-tuple: (num_rendered, num_contrib,
         color, opacity, depth, feature, pseudo_normal, surface_xyz,
         weights, radii). `means2D` is not read: gradients reach means3D
-        directly."""
+        directly. `cov3D_precomp` is packed [P, 6] (the reference's) or
+        full [P, 3, 3] (the JAX package's)."""
         if features is None:
             raise ValueError("GaussianRasterizer: features [P, S] are "
                              "required")

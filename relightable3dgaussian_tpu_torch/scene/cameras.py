@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -73,6 +74,34 @@ class Camera:
                           image_mask=t(mask), depth=t(depth),
                           normal=t(normal))
 
+    @property
+    def world_view_transform(self) -> np.ndarray:
+        """[4, 4] float32 world→camera matrix, transposed (points
+        transform as `p_row @ M`)."""
+        return graphics.world_to_view(self.R, self.T, self.trans,
+                                      self.scale).T
+
+    @property
+    def c2w(self) -> np.ndarray:
+        """[4, 4] float32 camera→world matrix."""
+        return np.linalg.inv(graphics.world_to_view(self.R, self.T,
+                                                    self.trans, self.scale))
+
+    @property
+    def camera_center(self) -> np.ndarray:
+        return self.c2w[:3, 3]
+
+    def intrinsics(self) -> np.ndarray:
+        """[3, 3] float32 pinhole matrix: fx, fy, cx, cy where given,
+        else focal lengths from the FoV and the image centre."""
+        if self.fx is None:
+            fx = graphics.fov2focal(self.fovx, self.width)
+            fy = graphics.fov2focal(self.fovy, self.height)
+            cx, cy = self.width / 2, self.height / 2
+        else:
+            fx, fy, cx, cy = self.fx, self.fy, self.cx, self.cy
+        return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+
 
 def resolve_resolution(width: int, height: int, resolution: int,
                        resolution_scale: float = 1.0) -> tuple[int, int]:
@@ -83,6 +112,9 @@ def resolve_resolution(width: int, height: int, resolution: int,
                 round(height / (resolution_scale * resolution)))
     if resolution == -1:
         if width > 1600:
+            # the default filter shows it once, as the JAX package's WARNED
+            warnings.warn("big images detected: auto-rescaling to 1.6K (use "
+                          "--resolution 1 to disable)", stacklevel=2)
             global_down = width / 1600
         else:
             global_down = 1

@@ -2,8 +2,8 @@
 
 Port of relightable3dgaussian_tpu/utils/logging.py (the reference's
 TensorBoard wiring, train.py:209-317):
-  * MetricsLogger writes every scalar to metrics.jsonl (always) and to
-    TensorBoard where torch.utils.tensorboard can be imported;
+  * MetricsLogger writes every scalar to metrics.jsonl (always) and, with
+    its images, to TensorBoard where torch.utils.tensorboard can be imported;
   * save_training_vis renders a labeled grid of every image-like entry in a
     results dict to PNG;
   * debug_dump snapshots named tensors (a model's fields and statistics) to
@@ -55,6 +55,14 @@ class MetricsLogger:
             for k, v in rec.items():
                 if k != "step":
                     self._tb.add_scalar(k, v, step)
+
+    def image(self, step: int, tag: str, img_chw) -> None:
+        """Log a [C, H, W] image (numpy, or a tensor on any device),
+        clipped to [0, 1], to TensorBoard where it is present."""
+        if self._tb is not None:
+            if isinstance(img_chw, torch.Tensor):
+                img_chw = img_chw.detach().cpu().numpy()
+            self._tb.add_image(tag, np.clip(np.asarray(img_chw), 0, 1), step)
 
     def close(self) -> None:
         self._jsonl.close()

@@ -368,6 +368,38 @@ def test_split_pixels_flags_a_count_equal_crossing_of_k1(cuda):
         assert torch.nonzero(split).tolist() == flagged
 
 
+@torch.no_grad()
+@pytest.mark.parametrize("A", [9, 8])
+def test_blend_decisions_walk_is_k1s_on_every_pixel(cuda, A):
+    """The check kernel's walk (csrc/composite_decisions.cu) on every pixel
+    of deep tiles equals K1's walk state bitwise: final T, stop and count;
+    its codes blend exactly the count, none past the stop."""
+    binning, mean2d, conic, op, attrs, cfg = deep_tiles(cuda, A, seed=A + 40)
+    out, walk = composite_cuda.composite_k1(binning, mean2d, conic, op, attrs,
+                                            cfg)
+    pixels = torch.arange(cfg.num_tiles * 256, device=cuda)
+    dec = composite_cuda.blend_decisions(binning, mean2d, conic, op, pixels,
+                                         cfg)
+    assert torch.equal(dec.final_T, walk.final_T.flatten())
+    assert torch.equal(dec.stop, walk.stop.flatten())
+    assert torch.equal(dec.n_contrib, out.n_contrib.flatten())
+    assert torch.equal((dec.codes > 0).sum(1).int(), dec.n_contrib)
+    k = torch.arange(dec.codes.shape[1], device=cuda)
+    assert not bool(((dec.codes > 0) & (k >= dec.stop[:, None])).any())
+    assert int((dec.stop < 2000).sum()) > 0
+
+
+def test_k2_matches_the_replay_of_k1s_decisions_at_split_pixels(cuda):
+    """chip_smoke.py's k2-split on its forced input at 64x64: split pixels
+    exist, the decisions' walk is K1's there, and K2 is within 1e-4 of each
+    field's largest entry of the float64 replay of K1's decisions."""
+    cs = chip_smoke_module()
+    res = cs.check_k2_split(cs.forced_split_args(cuda, n=1000, size=64),
+                            "forced", 5)
+    assert res["pixels"] > 0
+    assert res["max_rel_err"] <= 1e-4
+
+
 def test_composite_function_takes_k5_under_the_switch(cuda, monkeypatch):
     """With R3DG_BWD_TWO_WALK=1 the autograd Function's backward launches K5
     and not K2, and gives autograd's gradients through the plain

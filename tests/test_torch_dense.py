@@ -29,6 +29,7 @@ from relightable3dgaussian_tpu.train import checkpoint as jax_checkpoint
 from relightable3dgaussian_tpu.utils import quaternions as jax_quat
 from relightable3dgaussian_tpu_torch import ops as port_ops
 from relightable3dgaussian_tpu_torch.models import render as port_render
+from relightable3dgaussian_tpu_torch.models.gaussians import GaussianModel
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.ops.rasterize import rasterize
@@ -165,19 +166,38 @@ def test_tiled_gradients_match_the_dense_oracle(scene):
 
 # precomputed colours and covariances
 
-@pytest.mark.parametrize("precomp", ["colors", "cov3d"])
-def test_precomputed_inputs_match_jax(scene, precomp):
-    """`colors_precomp` [P, 3] and `cov3d_precomp` [P, 6] (the JAX
-    package's preprocess takes the covariance as the full [P, 3, 3], which
-    `unpack_symmetric` gives) against JAX `rasterize` with the same values,
-    and their gradients."""
-    means, scales, rots, opacity, shs, features = scene
-    cam_j, cam_t = cameras()
+def precomputed_arg(scene, precomp: str):
+    """(the port's argument, JAX's) for `precomp`: colours [P, 3]; the
+    packed covariance [P, 6] (JAX takes its unpacked [P, 3, 3]); JAX's full
+    [P, 3, 3] as it is, symmetric or with its upper triangle moved by up to
+    20% (not symmetric)."""
+    means, scales, rots, *_ = scene
     rng = np.random.default_rng(3)
-    colors = rng.uniform(size=(means.shape[0], 3)).astype(np.float32)
+    if precomp == "colors":
+        colors = rng.uniform(size=(means.shape[0], 3)).astype(np.float32)
+        return colors, colors
     packed = np.asarray(jax_cov_packed(scales * 1.3, rots))
-    arg = colors if precomp == "colors" else packed
-    jax_arg = arg if precomp == "colors" else jax_quat.unpack_symmetric(arg)
+    full = np.array(jax_quat.unpack_symmetric(packed))
+    if precomp == "cov3d":
+        return packed, full
+    if precomp == "cov3d_nonsymmetric":
+        upper = np.triu(np.ones((3, 3), bool), 1)
+        full = np.where(upper, full * rng.uniform(0.8, 1.2, full.shape),
+                        full).astype(np.float32)
+    return full, full
+
+
+@pytest.mark.parametrize("precomp", ["colors", "cov3d", "cov3d_full",
+                                     "cov3d_nonsymmetric"])
+def test_precomputed_inputs_match_jax(scene, precomp):
+    """`colors_precomp` [P, 3] and `cov3d_precomp` against JAX `rasterize`
+    with the same values, and their gradients: the packed [P, 6] (JAX takes
+    the full [P, 3, 3], which `unpack_symmetric` gives) and JAX's own full
+    [P, 3, 3] given to both unchanged, its gradient entry by entry; a full
+    one that is not symmetric renders as JAX renders it, not as its
+    symmetric part does."""
+    cam_j, cam_t = cameras()
+    arg, jax_arg = precomputed_arg(scene, precomp)
     key = "colors_precomp" if precomp == "colors" else "cov3d_precomp"
 
     def jax_loss(a, *xs):
@@ -197,6 +217,7 @@ def test_precomputed_inputs_match_jax(scene, precomp):
         want_g = np.array(jax_quat.strip_symmetric(
             want_g + np.swapaxes(want_g, -1, -2)))
         want_g[:, [0, 3, 5]] /= 2
+    assert x.grad.shape == want_g.shape
     scale = np.abs(want_g).max()
     assert scale > 0
     np.testing.assert_allclose(x.grad.numpy() / scale, want_g / scale,
@@ -205,6 +226,48 @@ def test_precomputed_inputs_match_jax(scene, precomp):
     inside = rasterize(*(t(v) for v in scene), cam=cam_t, cfg=CFG,
                        bg_color=t(BG))
     assert not np.allclose(inside.color.numpy(), got.color.detach().numpy())
+    if precomp == "cov3d_nonsymmetric":
+        sym = rasterize(*(t(v) for v in scene), cam=cam_t, cfg=CFG,
+                        bg_color=t(BG),
+                        cov3d_precomp=t((arg + arg.swapaxes(-1, -2)) / 2))
+        assert not np.allclose(sym.color.numpy(), got.color.detach().numpy())
+
+
+def test_get_covariance_renders_as_the_scales_and_rotations(scene):
+    """GaussianModel.get_covariance() straight into `rasterize` gives the
+    render of the model's scales and rotations, bitwise, and gradients
+    reach it; a transposed view of the full matrix renders the same."""
+    means, scales, rots, opacity, shs, features = scene
+    P = means.shape[0]
+    model = GaussianModel(
+        xyz=t(means), normal=torch.zeros((P, 3)), shs_dc=t(shs[:, :1]),
+        shs_rest=t(shs[:, 1:]), scaling=torch.log(t(scales)),
+        rotation=t(rots), opacity=quaternions.inverse_sigmoid(t(opacity)))
+    _, cam_t = cameras()
+    common = dict(cam=cam_t, cfg=CFG, bg_color=t(BG))
+    args = (model.xyz, None, None, model.get_opacity, model.get_shs,
+            t(features))
+    want = rasterize(model.xyz, model.get_scaling, model.get_rotation,
+                     *args[3:], **common)
+    cov = model.get_covariance().detach().requires_grad_(True)
+    got = rasterize(*args, cov3d_precomp=cov, **common)
+    full = quaternions.unpack_symmetric(cov.detach())
+    view = rasterize(*args, cov3d_precomp=full.transpose(-1, -2), **common)
+    assert not full.transpose(-1, -2).is_contiguous()
+    for name in ("color", "opacity", "depth", "feature", "weights", "radii"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(view, name), getattr(want, name)), name
+    loss_of(got, 0.0).backward()
+    assert cov.grad.shape == (P, 6) and float(cov.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("shape", [(300, 3), (300, 9), (299, 6), (300, 3, 2),
+                                   (300, 1, 3, 3)])
+def test_cov3d_precomp_of_another_shape_raises(scene, shape):
+    _, cam_t = cameras()
+    with pytest.raises(ValueError, match=r"\[300, 6\].*\[300, 3, 3\]"):
+        rasterize(*(t(v) for v in scene), cam=cam_t, cfg=CFG, bg_color=t(BG),
+                  cov3d_precomp=torch.zeros(shape))
 
 
 def test_covariance3d_packed_matches_jax(scene):

@@ -151,3 +151,118 @@ def test_split_pixels_reads_each_field(field):
         T2[1, 3] *= 1 - 2e-3
     split = composite.split_pixels(n2, composite.WalkState(T2, stop2), n, walk)
     assert torch.nonzero(split).tolist() == [[1, 3]]
+
+
+# the float64 replay of given blend decisions (chip_smoke.py's k2-split)
+
+def test_replay_of_the_plain_walk_matches_the_jax_vjp():
+    """Every pixel replayed in float64 over the plain walk's decisions: the
+    image and the VJP against JAX's composite (float32) to 1e-5 of each
+    field's largest entry. The inputs overflow nothing, and JAX's walk and
+    the plain walk blend the same pairs: counts equal everywhere, final T
+    1 - JAX's opacity channel."""
+    import jax
+    import jax.numpy as jnp
+    from relightable3dgaussian_tpu.ops import composite as jax_composite
+
+    prep, op, attrs, cfg_j, binning_j, binning_t = composite_inputs()
+    assert int(binning_j.overflow_pairs) == int(binning_j.overflow_chunks) == 0
+    cfg = RasterConfig(SIZE, SIZE)
+    A = attrs.shape[1]
+    g_img = np.random.default_rng(8).normal(
+        size=(cfg.num_tiles, 256, A)).astype(F32)
+
+    def f(mean2d, conic, opacity, at):
+        return jax_composite.composite(binning_j, mean2d, conic, opacity, at,
+                                       cfg_j)
+
+    want, vjp = jax.vjp(lambda *x: f(*x).image, prep.mean2d, prep.conic,
+                        jnp.asarray(op), jnp.asarray(attrs))
+    want_g = jax.jit(vjp)(jnp.asarray(g_img))
+    n_contrib = np.asarray(jax.jit(lambda: f(
+        prep.mean2d, prep.conic, jnp.asarray(op), jnp.asarray(attrs)))().n_contrib)
+
+    inputs = (t(prep.mean2d), t(prep.conic), t(op), t(attrs))
+    pixels = torch.arange(cfg.num_tiles * 256)
+    dec = composite.blend_decisions(binning_t, *inputs[:3], pixels, cfg)
+    np.testing.assert_array_equal(dec.n_contrib.numpy(), n_contrib.ravel())
+    np.testing.assert_allclose(dec.final_T.numpy(),
+                               1.0 - np.asarray(want)[..., -1].ravel(),
+                               atol=2e-5)
+    assert int(dec.n_contrib.max()) > 5
+    image = composite.replay(binning_t, *(x.double() for x in inputs), pixels,
+                             dec.codes, cfg)
+    np.testing.assert_allclose(image.numpy(), np.asarray(want).reshape(-1, A),
+                               atol=1e-5)
+    got = composite.replay_backward(binning_t, *inputs, pixels, dec.codes,
+                                    t(g_img).reshape(-1, A), cfg)
+    for name, g, w in zip(("mean2d", "conic", "opacity", "attrs"), got,
+                          want_g):
+        assert g.dtype == torch.float64
+        w = np.asarray(w)
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g.numpy() / scale, w / scale, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_replay_follows_the_decisions_it_is_given():
+    """crossing's tile with X at the float32 1/255 exactly: the plain walk
+    blends X at pixel (5, 7) and ends at Y2 (codes 1, 2, 1, 0; Y1 at the
+    0.99 cap); given the decisions of the walk without X (0, 2, 1, 1), the
+    replay skips X and blends Y3, as it does on the inputs with X one ulp
+    below 1/255, and X's opacity gets no gradient. Y1, at the cap, gets
+    none from either."""
+    on = F32(1 / 255)
+    off = np.nextafter(on, F32(0))
+    cfg = RasterConfig(16, 16)
+    pixel = torch.tensor([7 * 16 + 5])
+
+    def case(op_x):
+        t1 = F32(1) - F32(0.99)
+        ops = np.array([op_x, 0.99, 1 - 1.002e-4 / t1, 0.5], F32)
+        binning = Binning(torch.arange(4, dtype=torch.int32),
+                          torch.tensor([0], dtype=torch.int32),
+                          torch.tensor([4], dtype=torch.int32), 4)
+        attrs = torch.tensor([[1.0, 0.0], [0.0, 1.0], [0.5, 0.5], [2.0, 3.0]])
+        return (binning, torch.tensor([[5.0, 7.0]] * 4),
+                torch.tensor([[1.0, 0.0, 1.0]] * 4), torch.from_numpy(ops),
+                attrs)
+
+    args_on, args_off = case(on), case(off)
+    dec_on = composite.blend_decisions(*args_on[:4], pixel, cfg)
+    dec_off = composite.blend_decisions(*args_off[:4], pixel, cfg)
+    assert dec_on.codes.tolist() == [[1, 2, 1, 0]]
+    assert dec_off.codes.tolist() == [[0, 2, 1, 1]]
+    assert (int(dec_on.stop[0]), int(dec_off.stop[0])) == (3, 4)
+
+    def replay(args, codes):
+        return composite.replay(args[0], *(x.double() for x in args[1:]),
+                                pixel, codes, cfg)
+
+    given = replay(args_on, dec_off.codes)
+    assert torch.equal(given, replay(args_off, dec_off.codes))
+    assert not torch.allclose(given, replay(args_on, dec_on.codes))
+    g = torch.ones((1, 2), dtype=torch.float64)
+    for codes, x_moves in ((dec_off.codes, False), (dec_on.codes, True)):
+        _, _, g_op, _ = composite.replay_backward(*args_on, pixel, codes, g,
+                                                  cfg)
+        assert (float(g_op[0]) != 0.0) == x_moves
+        assert float(g_op[1]) == 0.0
+
+
+def test_blend_decisions_wrapper_runs_the_plain_walk_on_cpu():
+    """composite_cuda.blend_decisions on CPU tensors is the plain walk's:
+    its state at the pixels asked is walk_state's and its counts the
+    plain compositor's."""
+    from relightable3dgaussian_tpu_torch.ops import composite_cuda
+    binning, mean2d, conic, op, cfg = deep_tiles(5, P=300)
+    args = (binning, t(mean2d), t(conic), t(op))
+    pixels = torch.tensor([0, 17, 255, 256 + 40, cfg.num_tiles * 256 - 1])
+    got = composite_cuda.blend_decisions(*args, pixels, cfg)
+    walk = composite.walk_state(*args, cfg)
+    out = composite.composite(*args, torch.ones((300, 1)), cfg)
+    assert torch.equal(got.final_T, walk.final_T.flatten()[pixels])
+    assert torch.equal(got.stop, walk.stop.flatten()[pixels])
+    assert torch.equal(got.n_contrib, out.n_contrib.flatten()[pixels])
+    assert got.codes.shape == (5, 300)
+    assert bool((got.codes[:, got.stop.max():] == 0).all())
