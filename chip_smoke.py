@@ -160,6 +160,14 @@ no result line is printed):
               with those points in are printed with their worst points,
               and each seed's view-direction error, K4's and the plain
               version's.
+     k4-branches  K4's float32 clips forced (k4_branch_case): at 2000
+              points x 64 samples each, the GGX denominator q (roughness
+              0.09-0.15), NoV, NoH or VoH put at 1e-6 (1 + delta) in
+              float64, delta from 1e-8 to 1e-5 in both signs; per case the
+              clip decisions that differ from float64's (K4's emulated in
+              float32, shading_cuda.k4_branch_operands, and the plain
+              float32 version's) and K4's and the plain version's error
+              from float64 per field; each case under check_k4's gate.
  26. dense    ops.rasterize (K1 forward, K2 backward) against the dense
               oracle ops.rasterize_dense on the card in float32, on
               tests/test_rasterizer_parity.py's scene (300 gaussians, 64x64)
@@ -227,6 +235,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -272,6 +281,7 @@ from relightable3dgaussian_tpu_torch.ops.projection import (Preprocessed,
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare, rasterize
 from relightable3dgaussian_tpu_torch.ops.rasterize_dense import (
     _alpha_at, rasterize_dense)
+from relightable3dgaussian_tpu_torch.ops.shading import ggx_terms
 from relightable3dgaussian_tpu_torch.ops.tiles import Binning
 from relightable3dgaussian_tpu_torch.parallel import (make_dp_train_step,
                                                       make_dp_train_step_stage2,
@@ -433,6 +443,18 @@ VIS_ATOL, SPLIT_SHARE, SPLIT_BAND = 1e-5, 1e-4, 1e-4
 # Those points, and only those (ops/shading_cuda.py::view_side), are left
 # out of the gate.
 K4_RTOL, K4_ATOL, K4_BWD_TOL, K4_SLACK = 1e-4, 1e-5, 1e-4, 2.0
+# k4-branches: each case puts one operand of a float32 clip of K4
+# (csrc/shading.cu: the GGX denominator q, NoV, NoH or VoH against 1e-6) at
+# K4_CLIP (1 + delta) in float64, point i's delta the (i // 2)-th of
+# K4_BRANCH_DELTAS in turn, + on even i and - on odd: the grid passes
+# through float32's own rounding of the operand, so float32 decides the
+# clip either way on some points.
+K4_CLIP = 1e-6
+K4_BRANCHES = {"q-clip": "q", "nov-clip": "NoV", "noh-clip": "NoH",
+               "voh-clip": "VoH"}          # case: the operand it forces
+K4_BRANCH_CASES = tuple(K4_BRANCHES)
+K4_BRANCH_DELTAS = (1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5)
+K4_BRANCH_P = 2000
 
 
 def say(phase: str, **fields) -> None:
@@ -1292,7 +1314,7 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
         return float((a.double() - e)[rows].abs().max()
                      / e[rows].abs().max().clamp(min=1e-30))
 
-    errs, abs_err, fails_all = {}, {"fwd": 0.0, "bwd": 0.0}, []
+    errs, abs_err, fails_all, failures = {}, {"fwd": 0.0, "bwd": 0.0}, [], []
     for kind, names, outs, plains, exacts, err, tol in (
             ("fwd", ("pbr", "diffuse", "specular"), got, plain, exact,
              fwd_err, 1.0),
@@ -1311,14 +1333,18 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
             e_kernel, e_plain = err(g, e, keep), err(p, e, keep)
             errs[f"{kind}.{name}"] = (f"{e_kernel:.3e}", f"{e_plain:.3e}")
             if e_kernel > max(tol, K4_SLACK * e_plain):
-                raise AssertionError(
-                    f"{label}: K4-{kind} {name} is {e_kernel} from float64, "
-                    f"the plain float32 version {e_plain} (limit "
-                    f"max({tol}, {K4_SLACK} x that)) outside the "
-                    f"{int(grazing.sum())} grazing points; worst points "
+                failures.append(
+                    f"K4-{kind} {name} is {e_kernel} from float64, the plain "
+                    f"float32 version {e_plain} (limit max({tol}, {K4_SLACK} "
+                    f"x that)) outside the {int(grazing.sum())} grazing "
+                    f"points; worst points "
                     f"{k4_worst_points(x, g, p, e, keep)}")
             abs_err[kind] = max(abs_err[kind],
                                 float((g - p)[keep].abs().max()))
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures)
+                             + f" (every field, K4's and the plain version's "
+                             f"error: {errs})")
     if min_dshs is not None and not float(dshs.abs().max()) > min_dshs:
         raise AssertionError(f"{label}: K4-bwd's SH gradient "
                              f"{float(dshs.abs().max())} is not above {min_dshs}")
@@ -1368,6 +1394,299 @@ def k4_mid_phase(device) -> None:
         check_k4(shading_case(N_MID, S_MID, SEED + 4 + seed, device, rough,
                               dark, zero_shs), "k4-mid", seed,
                  min_dshs=0.01 if zero_shs else None)
+
+
+def k4_branch_deltas(n: int, deltas=K4_BRANCH_DELTAS) -> np.ndarray:
+    """Point i's delta: the (i // 2)-th of `deltas` in turn, + on even i and
+    - on odd."""
+    i = np.arange(n)
+    return (np.asarray(deltas, np.float64)[(i // 2) % len(deltas)]
+            * np.where(i % 2 == 0, 1.0, -1.0))
+
+
+def _unit64(a) -> np.ndarray:
+    a = np.asarray(a, np.float64)
+    return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+
+def _perp(rng, a: np.ndarray) -> np.ndarray:
+    """Seeded unit vectors perpendicular to the unit vectors a [n, 3]."""
+    u = rng.normal(size=a.shape)
+    return _unit64(u - (u * a).sum(-1, keepdims=True) * a)
+
+
+def k4_clip_operands(g: dict) -> dict:
+    """The clip operands of the plain version in float64 (ops/shading.py::
+    ggx_terms) from the float32 inputs `g` (numpy): normals, viewdirs
+    [n, 3], roughness [n] and one sample's direction `dirs` [n, 3] (none
+    for nov-clip). {"NoV", "NoH", "VoH", "q"}, each [n], the last three at
+    that sample."""
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa: E731
+    dirs = g["dirs"] if g.get("dirs") is not None else g["normals"]
+    terms = ggx_terms(t(g["normals"]), t(g["viewdirs"]), t(dirs)[:, None],
+                      t(g["roughness"])[:, None])
+    return {k: v.reshape(-1).numpy() for k, v in terms.items() if k != "f_s"}
+
+
+def _knob_operand(g: dict, op: str, knob: tuple, value: np.ndarray):
+    key, c = knob
+    moved = g[key].astype(np.float64)
+    moved[:, c] = value
+    return k4_clip_operands({**g, key: moved})[op]
+
+
+def _newton(g: dict, op: str, knob: tuple, target: np.ndarray, h: float,
+            iters: int = 4) -> np.ndarray:
+    """Newton steps on the float32 component `knob` (key, index) of g
+    towards operand `op` == target, each rounded to float32; returns the
+    last slope d op / d knob."""
+    key, c = knob
+    for _ in range(iters):
+        x0 = g[key][:, c].astype(np.float64)
+        slope = (_knob_operand(g, op, knob, x0 + h)
+                 - _knob_operand(g, op, knob, x0 - h)) / (2 * h)
+        g[key][:, c] = x0 - (k4_clip_operands(g)[op] - target) / slope
+    return slope
+
+
+def _lattice(g: dict, op: str, key: str, target: np.ndarray,
+             comps: tuple = (0, 1, 2), reach: int = 3) -> None:
+    """Moves components `comps` of each vector g[key] by up to `reach`
+    steps each, a step the ulp of the vector's largest component, to the
+    float32 vector whose operand `op` lies nearest `target`."""
+    base = g[key].copy()
+    ulp = np.spacing(np.abs(base).max(-1, keepdims=True))
+    best, pick = np.full(len(base), np.inf), base.copy()
+    for step in itertools.product(range(-reach, reach + 1), repeat=len(comps)):
+        move = np.zeros(3, np.float32)
+        move[list(comps)] = step
+        g[key] = (base + move * ulp).astype(np.float32)
+        err = np.abs(k4_clip_operands(g)[op] - target)
+        better = err < best
+        best[better], pick[better] = err[better], g[key][better]
+    g[key] = pick
+
+
+def _settle(g: dict, op: str, knob: tuple, delta: np.ndarray,
+            slope: np.ndarray, reach: int = 32) -> None:
+    """Sets the knob, within `reach` steps of 2% of delta's operand (or of
+    one ulp, where that is coarser), to the float32 value whose operand
+    lies at K4_CLIP (1 + delta') nearest 0.9 delta with 0.8 <= delta' /
+    delta <= 1."""
+    key, c = knob
+    x0 = g[key][:, c].astype(np.float64)
+    step = np.maximum(np.spacing(g[key][:, c]).astype(np.float64),
+                      0.02 * np.abs(delta) * K4_CLIP / np.abs(slope))
+    best, pick = np.full(len(x0), np.inf), g[key][:, c].copy()
+    for j in range(-reach, reach + 1):
+        g[key][:, c] = x0 + j * step
+        ratio = (k4_clip_operands(g)[op] / K4_CLIP - 1) / delta
+        score = np.where((ratio >= 0.8) & (ratio <= 1.0),
+                         np.abs(ratio - 0.9), np.inf)
+        better = score < best
+        best[better], pick[better] = score[better], g[key][better, c]
+    g[key][:, c] = pick
+
+
+def k4_branch_geometry(case: str, delta: np.ndarray, seed: int) -> dict:
+    """Seeded float32 normals, viewdirs [n, 3], roughness [n] and (but for
+    nov-clip) one sample's direction `dirs` [n, 3] whose float64 operand of
+    the case's clip (k4_clip_operands) lies at K4_CLIP (1 + delta') with
+    0.8 <= delta' / delta[i] <= 1 at each point i:
+      * q-clip: the sample near the specular peak of a surface of roughness
+        0.09-0.15 (0.2 would keep q above 1e-6), NoL 0.2-0.9;
+      * nov-clip: the view 1e-6 above the tangent plane;
+      * noh-clip: the half vector 1e-6 above the tangent plane, the view
+        behind the normal (so n.d > 0 and the sample lights the point);
+      * voh-clip: the sample a few 1e-4 off the opposite of the view,
+        behind the normal. VoH = (1 + V.d) / |d + V| reaches 1e-6 only
+        where |d| > 1, so the sample is float32's unit vector made one ulp
+        longer where it is not.
+    The sample (nov-clip: the normal) lies in the xy-plane: its z
+    component, tiny, is a knob whose float32 ulps move the operand by less
+    than 1e-15. Rounding the other vectors to float32 moves the operand by
+    up to ~1e-7 (q: ~1e-5 of itself); a search over their last bits
+    (_lattice; voh-clip: Newton on V's z) brings it near, then Newton and
+    _settle on the knob put it in place."""
+    op = K4_BRANCHES[case]
+    rng = np.random.default_rng(seed)
+    n = len(delta)
+    target = K4_CLIP * (1 + 0.9 * delta)
+    ez = np.array([0.0, 0.0, 1.0])
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    ang = rng.uniform(0, 2 * np.pi, n)
+    flat = np.stack([np.cos(ang), np.sin(ang), 0 * ang], -1)   # xy-plane
+    side = np.stack([-np.sin(ang), np.cos(ang), 0 * ang], -1)
+    r = rng.uniform(0.05, 0.95, n)
+
+    def bisect(f, lo, hi, iters=100):       # f increasing on [lo, hi]
+        for _ in range(iters):
+            mid = (lo + hi) / 2
+            below = f(mid) < target
+            lo, hi = np.where(below, mid, lo), np.where(below, hi, mid)
+        return lo
+
+    if op == "NoV":
+        tilt = rng.uniform(0.3, 1.2, n)[:, None]
+        w = np.cos(tilt) * side + np.sin(tilt) * ez
+        g = {"normals": f32(flat), "viewdirs": f32(K4_CLIP * flat + w),
+             "roughness": f32(r)}
+        _lattice(g, op, "viewdirs", target)
+        _lattice(g, op, "normals", target, (0, 1))
+        knob = ("normals", 2)
+    elif op == "q":
+        d = flat
+        r = rng.uniform(0.09, 0.15, n)
+        k = (r * r + 2 * r + 1) / 8
+        # NoL at most where q at the peak, 4 pi alpha^4 nom2^2, is 1e-6 / 2
+        top = np.clip((np.sqrt(0.5e-6 / (4 * np.pi * r ** 8)) - k) / (1 - k),
+                      0.2, 0.9)
+        nol = 0.2 + (top - 0.2) * rng.uniform(size=n)
+        tilt = rng.uniform(0.2, 1.0, n)[:, None]
+        nrm = nol[:, None] * d + np.sqrt(1 - nol ** 2)[:, None] * (
+            np.cos(tilt) * side + np.sin(tilt) * ez)
+        # h tilts off the normal along t, which rises out of the xy-plane:
+        # d z moves nom0 by ~ sin(theta) t_z, so the knob keeps its grip
+        up = _unit64(ez - nrm[:, 2:] * nrm)
+        turn = rng.uniform(-0.7, 0.7, n)[:, None]
+        t = np.cos(turn) * up + np.sin(turn) * np.cross(nrm, up)
+
+        def view(th):                       # d mirrored about h(th)
+            h = np.cos(th)[:, None] * nrm + np.sin(th)[:, None] * t
+            return 2 * (h * d).sum(-1, keepdims=True) * h - d
+
+        th = bisect(lambda th: k4_clip_operands(
+            {"normals": nrm, "viewdirs": view(th), "dirs": d,
+             "roughness": r})["q"], np.zeros(n), np.full(n, 0.3))
+        g = {"normals": f32(nrm), "viewdirs": f32(view(th)), "dirs": f32(d),
+             "roughness": f32(r)}
+        _lattice(g, op, "viewdirs", target)
+        knob = ("dirs", 2)
+    elif op == "NoH":
+        d = flat
+        nov = rng.uniform(0.2, 0.8, n)
+        tilt = rng.uniform(0.5, 1.2, n)[:, None]
+        ns = (-nov[:, None] * d + np.sqrt(1 - nov ** 2)[:, None]
+              * (np.cos(tilt) * side + np.sin(tilt) * ez))    # ns.d = -NoV
+        p = _perp(rng, ns)
+        p = np.where((p * d).sum(-1, keepdims=True) < 0, -p, p)  # V off -d
+
+        def view(c):                        # V.ns = c
+            return c[:, None] * ns + np.sqrt(1 - c ** 2)[:, None] * p
+
+        c = bisect(lambda c: (ns * _unit64(d + view(c))).sum(-1),
+                   nov - 0.01, nov + 0.01)
+        g = {"normals": f32(-ns), "viewdirs": f32(view(c)), "dirs": f32(d),
+             "roughness": f32(r)}
+        _lattice(g, op, "viewdirs", target)
+        knob = ("dirs", 2)
+    else:
+        d = f32(flat)
+        big = np.abs(d).argmax(-1)
+        rows = np.arange(n)
+        while True:                         # |d| > 1
+            short = (d.astype(np.float64) ** 2).sum(-1) <= 1
+            if not short.any():
+                break
+            i, j = rows[short], big[short]
+            d[i, j] = np.nextafter(d[i, j],
+                                   np.sign(d[i, j]) * np.float32(np.inf))
+        u = _unit64(d)
+
+        def view(b):                        # b off the opposite of d
+            return -(np.cos(b)[:, None] * u + np.sin(b)[:, None] * ez)
+
+        b = bisect(lambda b: (view(b) * _unit64(d + view(b))).sum(-1),
+                   np.zeros(n), np.full(n, 0.05))
+        nol = rng.uniform(0.2, 0.9, n)[:, None]
+        g = {"normals": f32(nol * u + np.sqrt(1 - nol ** 2) * _perp(rng, u)),
+             "viewdirs": f32(view(b)), "dirs": d, "roughness": f32(r)}
+        _newton(g, op, ("viewdirs", 2), target, 1e-7)
+        knob = ("dirs", 2)
+    slope = _newton(g, op, knob, target, 1e-9)
+    _settle(g, op, knob, delta, slope)
+    return g
+
+
+def k4_branch_case(case: str, P: int, S: int, seed: int, device,
+                   deltas=K4_BRANCH_DELTAS) -> tuple:
+    """shading_case(P, S, seed) with every point forced onto `case`'s clip
+    (k4_branch_geometry, point i at k4_branch_deltas' delta): its normal,
+    view direction and roughness replaced, its samples made anew about the
+    normal and (but for nov-clip) its last sample the forced one. Returns
+    (the inputs, delta [P], delta' [P]: where the float64 operand lies)."""
+    delta = k4_branch_deltas(P, deltas)
+    g = k4_branch_geometry(case, delta, seed)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    x = list(shading_case(P, S, seed, device))
+    x[1] = f(g["roughness"][:, None])
+    x[2], x[3] = f(g["normals"]), f(g["viewdirs"])
+    x[7], x[8] = fibonacci_sphere_sampling(x[2], S)
+    if g.get("dirs") is not None:
+        x[7][:, -1] = f(g["dirs"])
+    reached = k4_clip_operands(g)[K4_BRANCHES[case]] / K4_CLIP - 1
+    return tuple(x), delta, reached
+
+
+def clip_decisions_apart(x) -> dict:
+    """How many clip decisions (NoV a point; NoH, VoH and q a sample) K4 and
+    the plain float32 version take otherwise than the plain version in
+    float64, on rendering_equation_train's inputs x: K4's as shading_cuda.
+    k4_branch_operands emulates them. NoV, NoH and VoH pass their gradient
+    at or above 1e-6, q within [1e-6, 4 pi]."""
+    rough, nrm, vdir, dirs = x[1], x[2], x[3], x[7]
+    exact = ggx_terms(nrm.double(), vdir.double(), dirs.double(),
+                      rough.double())
+    sides = {"k4": (shading_cuda.k4_branch_operands(nrm, vdir, rough, dirs),
+                    shading_cuda.FLOAT32_CLIP, shading_cuda.K4_PI4),
+             "plain": (ggx_terms(nrm, vdir, dirs, rough), K4_CLIP,
+                       4 * math.pi)}
+
+    def passes(ops, lo, hi):
+        out = {k: ops[k].reshape(nrm.shape[0], -1) >= lo
+               for k in ("NoV", "NoH", "VoH")}
+        q = ops["q"].reshape(nrm.shape[0], -1)
+        out["q"] = (q >= lo) & (q <= hi)
+        return out
+
+    want = passes(exact, K4_CLIP, 4 * math.pi)
+    return {who: {k: int((v != want[k]).sum())
+                  for k, v in passes(*side).items()}
+            for who, side in sides.items()}
+
+
+def k4_branches_phase(device) -> None:
+    """K4 on the four forced clip cases (k4_branch_case), K4_BRANCH_P
+    points x SAMPLE_NUM samples each, under check_k4's gate: one line a
+    case (where the float64 operands lie, the clip decisions that differ
+    from float64's, K4's and the plain version's error per field); raises
+    after the last case if any failed."""
+    t0 = time.perf_counter()
+    failed = []
+    for i, case in enumerate(K4_BRANCH_CASES):
+        x, delta, reached = k4_branch_case(case, K4_BRANCH_P, SAMPLE_NUM,
+                                           SEED + 500 + i, device)
+        ratio = reached / delta
+        line = {"points": K4_BRANCH_P, "samples": SAMPLE_NUM,
+                "abs_delta": f"{min(K4_BRANCH_DELTAS):g}-"
+                             f"{max(K4_BRANCH_DELTAS):g}",
+                "reached_over_delta": f"{ratio.min():.3f}-{ratio.max():.3f}",
+                "decisions_apart_from_float64": clip_decisions_apart(x)}
+        try:
+            _, _, info = check_k4(x, f"k4-branches-{case}", SEED + 510 + i,
+                                  timed=False)
+        except AssertionError as e:
+            failed.append(case)
+            say(f"k4-branches-{case}", **line, FAILED=str(e))
+            continue
+        say(f"k4-branches-{case}", **line,
+            grazing_points=info["grazing_points"],
+            fails_with_grazing_points=info["fails_without_exemption"],
+            err_kernel_plain_vs_float64=info["errs"])
+    say("k4-branches", cases=len(K4_BRANCH_CASES), failed=failed,
+        wall_s=f"{time.perf_counter() - t0:.2f}")
+    if failed:
+        raise AssertionError(f"k4-branches: K4 failed the gate on {failed}")
 
 
 def reset_launches() -> None:
@@ -3641,6 +3960,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     # 25. K4's gate over fresh sample directions on the stage-2 model
     with torch.no_grad():
         k4_seeds_phase(s2, k4_seeds)
+        # K4's float32 clips forced, against float64
+        k4_branches_phase(device)
     # 26. the dense oracle against K1 and K2
     dense = dense_phase(device)
     # 27. the reference-API facade against rasterize

@@ -20,6 +20,17 @@ whole case under chip_smoke.check_k4's gate:
   sign of e, and float32's e can have the other sign than float64's.
   delta from 0 to 1e-5; field shs.
 
+Four more, the lower clips of K4's float32 chain (chip_smoke.k4_branch_case,
+2000 points x 64 samples, all forced, three seeds each): the GGX
+denominator q (q-clip, roughness 0.09-0.15), NoV (nov-clip), NoH
+(noh-clip) and VoH (voh-clip) at 1e-6 (1 + delta) in float64, delta from
+1e-8 to 1e-5, alternating in sign point by point. Each prints, per
+gradient field, K4's and the plain float32 version's error from float64
+(units of the field's largest entry), and how many clip decisions K4 (its
+float32 expression order emulated, shading_cuda.k4_branch_operands) and
+the plain float32 version take otherwise than float64; then the case is
+held under chip_smoke.check_k4's gate.
+
 Needs an NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
@@ -72,41 +83,63 @@ def light_zero_case(P: int, S: int, near: int, delta: float, seed: int,
     return tuple(x)
 
 
-def field_errors(x: tuple, near: int, seed: int, field: str
-                 ) -> tuple[float, float]:
-    """(K4, plain float32) errors of one gradient field from float64 over
-    the first `near` points, in units of their largest float64 entry."""
-    k = FIELDS.index(field)
+def field_errors(x: tuple, near: int, seed: int) -> dict:
+    """{field: (K4, plain float32) error from float64} of every gradient
+    field over the first `near` points, in units of their largest float64
+    entry."""
     gen = torch.Generator().manual_seed(seed)
     cot = [torch.randn((x[0].shape[0], 3), generator=gen).to(x[0].device)
            for _ in range(3)]
-    got = shading_cuda.shade_bwd(*shading_cuda.kernel_inputs(*x), *cot)[k]
+    got = shading_cuda.shade_bwd(*shading_cuda.kernel_inputs(*x), *cot)
     with torch.enable_grad():
         leaves, loss = cs.plain_shading_graph(x, cot)
-        plain = torch.autograd.grad(loss, leaves)[k]
+        plain = torch.autograd.grad(loss, leaves)
         leaves, loss = cs.plain_shading_graph([t.double() for t in x],
                                               [c.double() for c in cot])
-        exact = torch.autograd.grad(loss, leaves)[k]
-    got, plain = got.reshape(exact.shape), plain.reshape(exact.shape)
-    e = exact[:near]
-    scale = float(e.abs().max())
-    return (float((got[:near].double() - e).abs().max()) / scale,
-            float((plain[:near].double() - e).abs().max()) / scale)
+        exact = torch.autograd.grad(loss, leaves)
+    out = {}
+    for field, g, p, e in zip(FIELDS, got, plain, exact):
+        g, p, e = g.reshape(e.shape)[:near], p[:near], e[:near]
+        scale = float(e.abs().max())
+        out[field] = (float((g.double() - e).abs().max()) / scale,
+                      float((p.double() - e).abs().max()) / scale)
+    return out
+
+
+def gate(x: tuple, label: str, seed: int) -> None:
+    try:
+        cs.check_k4(x, label, seed, timed=False)
+    except AssertionError as e:
+        print("FAIL", e, flush=True)
 
 
 def run(name: str, make, values, field: str, dev) -> None:
     for value in values:
         for seed in range(3):
             x = make(P, S, NEAR, value, 400 + seed, dev)
-            k4, plain = field_errors(x, NEAR, seed, field)
+            k4, plain = field_errors(x, NEAR, seed)[field]
             print(f"[k4-{name}] value={value:g} seed={seed} "
                   f"{field}_err_k4={k4:.3e} {field}_err_plain={plain:.3e}",
                   flush=True)
-            try:
-                cs.check_k4(x, f"k4-{name} value={value:g} seed={seed}",
-                            seed, timed=False)
-            except AssertionError as e:
-                print("FAIL", e, flush=True)
+            gate(x, f"k4-{name} value={value:g} seed={seed}", seed)
+
+
+def run_branch(case: str, dev) -> None:
+    """One forced clip case at each |delta| of cs.K4_BRANCH_DELTAS."""
+    for delta in cs.K4_BRANCH_DELTAS:
+        for seed in range(3):
+            x, _, reached = cs.k4_branch_case(case, NEAR, S, 600 + seed, dev,
+                                              (delta,))
+            errs = field_errors(x, NEAR, seed)
+            apart = cs.clip_decisions_apart(x)
+            print(f"[k4-{case}] delta={delta:g} seed={seed} "
+                  f"reached={float(abs(reached).min()):.3e}-"
+                  f"{float(abs(reached).max()):.3e} "
+                  f"decisions_apart_k4={apart['k4']} "
+                  f"decisions_apart_plain={apart['plain']} "
+                  + " ".join(f"{f}_err_k4={k:.3e} {f}_err_plain={p:.3e}"
+                             for f, (k, p) in errs.items()), flush=True)
+            gate(x, f"k4-{case} delta={delta:g} seed={seed}", seed)
 
 
 def main() -> None:
@@ -116,6 +149,8 @@ def main() -> None:
         (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1), "viewdirs", dev)
     run("light-zero", light_zero_case, (0.0, 1e-8, 1e-7, 1e-6, 1e-5),
         "shs", dev)
+    for case in cs.K4_BRANCH_CASES:
+        run_branch(case, dev)
 
 
 if __name__ == "__main__":

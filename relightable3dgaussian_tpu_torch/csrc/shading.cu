@@ -34,6 +34,49 @@
 //     light e is within float32's rounding of 0, the backward takes
 //     max(e, 0)'s branch from e in float64 (light64): float32's sign moved
 //     one point's SH gradient by ~2e-3.
+//
+// Every float32 branch of the chain, where K4 can decide otherwise than the
+// plain version in float64 (line numbers in this file; chip_smoke.py's
+// k4-branches phase forces the four clips at 1e-6, examples/k4_conditioning.py
+// sweeps them):
+//   * decided from float64 (above): max(e, 0) of the local light (:626,
+//     marked :627, corrected in shade_bwd_sign_fix_kernel :816).
+//   * the lower clips at 1e-6. The value is continuous across each, the
+//     gradient 0 below it. Forced with the float64 operand at 1e-6 (1 + d),
+//     |d| from 1e-8 to 1e-5, K4 decides about half the forced samples
+//     otherwise than float64, as the plain float32 version does, and passes
+//     check_k4's gate on each as it stands (within K4_SLACK of the plain
+//     version's error; PERF.md, Findings), so they stay in float32:
+//       q = 4 pi nom0^2 nom1 nom2, the GGX denominator: clip :428, mask
+//         :632. Reached near the specular peak where r < ~0.17 (at
+//         r = 0.2 q stays above ~1.0e-6). The jump is -f_s dq / q, all of
+//         the sample's roughness and view-direction gradient through q:
+//         ~1 of those fields' largest entry on the forced points.
+//       NoV: clip :376, mask :706 (views near grazing). The jump is
+//         gnom1 (1 - k) into V: ~6e-2 of the view gradient's largest entry.
+//       NoH: clip :406, mask :644, and the cross-product branch :416
+//         (continuous: |ns x h|^2 = 1 - NoH^2 there). The jump,
+//         2 NoH gnom0 (alpha^2 - 1), carries the factor NoH = 1e-6.
+//       VoH: clip :407, mask :637 (a sample a few 1e-4 off the opposite of
+//         the view: in float32, VoH = (1 + V.d) / |d + V| falls to 1e-6
+//         only where |d| > 1). Jumps ~1e-3 of the view gradient.
+//   * value only, no gradient crosses them: NoL's clip :405 (N and
+//     the sample are constants), max(n.d, 0) in the transport (:462,
+//     :794), and the upper clips of NoV, NoH and VoH at 1, which dot
+//     products of unit vectors pass only by rounding: unmasked, where the
+//     plain version's torch.clamp passes all the gradient at the tie and
+//     JAX's jnp.clip half; at the tie the gradient projected onto the
+//     sphere is 0 (tests/test_torch_shading.py).
+//   * unreachable: q's upper clip 4 pi needs nom0 = nom1 = nom2 = 1, i.e.
+//     NoV = NoL = 1 with NoH <= 1e-6 (NoV = NoL = 1 puts H on N), or r = 1,
+//     past the roughness activation's 0.99. The 1e-12 floors of |V|
+//     (:358, :360, :713), |N| (:366) and |h0| (:400, :651) need
+//     a zero-length view direction or normal, or a sample opposite the view
+//     to 1e-12, which float32's grid meets only when both are exactly on it
+//     (an axis-aligned view); such inputs are not forced.
+//   * left out of the gate: sign(V.N) (:369), where K4's float32 sign is
+//     0 or apart from float64's, K4 shades another function
+//     (ops/shading_cuda.py::view_side, examples/k4_grazing.py).
 // The backward recomputes the forward chain, as the TPU kernel does, and
 // returns the analytic VJP for base colour, roughness, view direction, the
 // local-light SH and the per-sample global light (dgl [P, S, 3]); torch chains

@@ -33,16 +33,29 @@ def ggx_specular(normal: torch.Tensor, pts2c: torch.Tensor,
     """GGX specular reflectance [P, S, 1] for normals [P, 3], view
     directions [P, 3], unit light directions [P, S, 3] and roughness
     [P, 1]."""
+    return ggx_terms(normal, pts2c, pts2l, roughness, fresnel)["f_s"]
+
+
+def ggx_terms(normal: torch.Tensor, pts2c: torch.Tensor, pts2l: torch.Tensor,
+              roughness: torch.Tensor, fresnel: float = 0.04) -> dict:
+    """`ggx_specular`'s chain: f_s [P, S, 1] and the operands of its clips
+    before they are clipped, NoV [P, 1] and NoH, VoH and the denominator q
+    [P, S, 1], each of which the clip to [1e-6, ...] passes a gradient
+    only at or above 1e-6 (kernel K4 decides the same clips in its own
+    float32 rounding: ops/shading_cuda.py::k4_branch_operands)."""
     L = pts2l
     V = _normalize(pts2c)
     H = _normalize((L + V[:, None, :]) / 2.0)
     N = _normalize(normal)
     N = N * torch.sign((V * N).sum(-1, keepdim=True))
 
+    NoV_raw = (N * V).sum(-1, keepdim=True)                          # [P, 1]
+    NoH_raw = (N[:, None] * H).sum(-1, keepdim=True)
+    VoH_raw = (V[:, None] * H).sum(-1, keepdim=True)
     NoL = torch.clamp((N[:, None] * L).sum(-1, keepdim=True), 1e-6, 1.0)
-    NoV = torch.clamp((N * V).sum(-1, keepdim=True), 1e-6, 1.0)      # [P, 1]
-    NoH = torch.clamp((N[:, None] * H).sum(-1, keepdim=True), 1e-6, 1.0)
-    VoH = torch.clamp((V[:, None] * H).sum(-1, keepdim=True), 1e-6, 1.0)
+    NoV = torch.clamp(NoV_raw, 1e-6, 1.0)
+    NoH = torch.clamp(NoH_raw, 1e-6, 1.0)
+    VoH = torch.clamp(VoH_raw, 1e-6, 1.0)
 
     alpha = roughness * roughness
     alpha2 = alpha * alpha
@@ -52,9 +65,9 @@ def ggx_specular(normal: torch.Tensor, pts2c: torch.Tensor,
     nom0 = NoH * NoH * (alpha2[:, None] - 1) + 1
     nom1 = NoV * (1 - k) + k
     nom2 = NoL * (1 - k[:, None]) + k[:, None]
-    nom = torch.clamp(4 * math.pi * nom0 * nom0 * nom1[:, None] * nom2,
-                      1e-6, 4 * math.pi)
-    return frac / nom
+    q = 4 * math.pi * nom0 * nom0 * nom1[:, None] * nom2
+    return {"f_s": frac / torch.clamp(q, 1e-6, 4 * math.pi), "NoV": NoV_raw,
+            "NoH": NoH_raw, "VoH": VoH_raw, "q": q}
 
 
 def rendering_equation(base_color: torch.Tensor, roughness: torch.Tensor,

@@ -19,6 +19,7 @@ its local-light sign fix-up, one launch each).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -28,6 +29,9 @@ from .shading import rendering_equation
 KERNEL = "shading"
 N_SH = 16          # csrc/shading.cu kSH: degree-3 local-light SH
 POINTS_PER_BLOCK = 32   # csrc/shading.cu kPoints: a block's run of points
+FLOAT32_CLIP = float(torch.tensor(1e-6, dtype=torch.float32))    # 1e-6f
+FLOAT32_TINY = float(torch.tensor(1e-12, dtype=torch.float32))   # 1e-12f
+K4_PI4 = 4 * float(torch.tensor(math.pi, dtype=torch.float32))   # k4Pi
 LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
 
@@ -98,26 +102,78 @@ def view_side(normals: torch.Tensor, viewdirs: torch.Tensor
     a tie). K4 turns N to the viewer by this sign and zeroes N where it is
     0; where it is 0 or differs from the float64 sign, K4 shades another
     function than the float64 reference."""
-    def f32(t):
-        return t.float().double()
-
-    def unit(a):
-        a = a.double()
-        sq = f32(a[:, 0] * a[:, 0])
-        sq = f32(a[:, 1] * a[:, 1] + sq)
-        sq = f32(a[:, 2] * a[:, 2] + sq)
-        m = torch.clamp(f32(torch.sqrt(sq)),
-                        min=float(torch.tensor(1e-12, dtype=torch.float32)))
-        return f32(a / m[:, None])
-
-    v, n = unit(viewdirs), unit(normals)
-    s = f32(v[:, 0] * n[:, 0])
-    s = f32(v[:, 1] * n[:, 1] + s)
-    s = f32(v[:, 2] * n[:, 2] + s)
+    v, n = _unit32(viewdirs), _unit32(normals)
+    s = _dot32(v, n)
     n64, v64 = normals.double(), viewdirs.double()
     exact = ((v64 / v64.norm(dim=-1, keepdim=True))
              * (n64 / n64.norm(dim=-1, keepdim=True))).sum(-1)
     return torch.sign(s), torch.sign(exact)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A float64 tensor rounded to float32, kept in float64."""
+    return t.float().double()
+
+
+def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """((a0 b0 + a1 b1) + a2 b2) as nvcc contracts it into two FMAs, each
+    a float64 product and sum of float32 values rounded once to float32."""
+    s = _f32(a[..., 0] * b[..., 0])
+    s = _f32(a[..., 1] * b[..., 1] + s)
+    return _f32(a[..., 2] * b[..., 2] + s)
+
+
+def _unit32(a: torch.Tensor) -> torch.Tensor:
+    """a / max(sqrtf(a.a), 1e-12f) in K4's float32 (load_point)."""
+    a = a.double()
+    m = torch.clamp(_f32(torch.sqrt(_dot32(a, a))), min=FLOAT32_TINY)
+    return _f32(a / m[..., None])
+
+
+def k4_branch_operands(normals: torch.Tensor, viewdirs: torch.Tensor,
+                       roughness: torch.Tensor, incident_dirs: torch.Tensor
+                       ) -> dict:
+    """The operands of K4's clips as K4 rounds them in float32: NoV [P]
+    and NoH, VoH and the GGX denominator q [P, S] (csrc/shading.cu::
+    load_point and ::ggx, in their expression order, each FMA emulated as
+    in `view_side`), as float64 tensors. K4 passes a clip's gradient where
+    the operand is >= 1e-6f (q: within [1e-6f, 4 pi]); the plain version in
+    float64 (ops/shading.py::ggx_terms) where its own is >= 1e-6. Which of
+    two products nvcc fuses in a difference (the cross product) is a
+    guess, so the count of decisions this gives is an estimate."""
+    f32, dot = _f32, _dot32
+    vd = viewdirs.double()
+    v, nh = _unit32(vd), _unit32(normals)
+    # V's rounding error, kept per point from float64 (load_point: vl)
+    vl = f32(vd / torch.clamp(vd.norm(dim=-1, keepdim=True), min=1e-12) - v)
+    ns = nh * torch.sign(dot(v, nh))[:, None]
+    r = roughness.double().reshape(-1)
+    alpha = f32(r * r)
+    alpha2 = f32(alpha * alpha)
+    k = f32(f32(f32(alpha + 2 * r) + 1) / 8)
+    one_k = f32(1 - k)
+    nov = dot(ns, v)
+    nom1 = f32(torch.clamp(nov, FLOAT32_CLIP, 1.0) * one_k + k)
+
+    d = incident_dirs.double()
+    h0 = f32(f32(f32(d + v[:, None]) + vl[:, None]) * 0.5)
+    m_h = torch.clamp(f32(torch.sqrt(dot(h0, h0))), min=FLOAT32_TINY)
+    h = f32(h0 * f32(1 / m_h)[..., None])
+    nsb, vb = ns[:, None].expand_as(d), v[:, None].expand_as(d)
+    noh, voh, nol = dot(nsb, h), dot(vb, h), dot(nsb, d)
+    NoH = torch.clamp(noh, FLOAT32_CLIP, 1.0)
+
+    def cross(i, j):            # ns_i h_j - ns_j h_i: fma(ns_i, h_j, -ns_j h_i)
+        return f32(nsb[..., i] * h[..., j] - f32(nsb[..., j] * h[..., i]))
+
+    c = torch.stack([cross(1, 2), cross(2, 0), cross(0, 1)], -1)
+    NoH2 = f32(NoH * NoH)
+    sin2 = torch.where(noh >= FLOAT32_CLIP, dot(c, c), f32(1 - NoH2))
+    nom0 = f32(NoH2 * alpha2[:, None] + sin2)
+    nom2 = f32(torch.clamp(nol, FLOAT32_CLIP, 1.0) * one_k[:, None]
+               + k[:, None])
+    q = f32(f32(f32(f32(K4_PI4 * nom0) * nom0) * nom1[:, None]) * nom2)
+    return {"NoV": nov, "NoH": noh, "VoH": voh, "q": q}
 
 
 def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,

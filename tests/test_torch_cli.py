@@ -28,6 +28,7 @@ from relightable3dgaussian_tpu_torch.train import checkpoint, config
 from relightable3dgaussian_tpu_torch.train.optim import (learning_rates,
                                                          make_env_optimizer)
 from test_scene_io import write_blender_dataset
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 # The JAX CLI's budget flags (tests/test_cli.py), which the port accepts and
 # ignores: both CLIs run on the same command line.

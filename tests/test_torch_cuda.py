@@ -1559,6 +1559,22 @@ def test_k4_takes_the_local_lights_sign_from_float64_near_zero(cuda, delta):
         cs.check_k4(tuple(x), f"k4-light-zero-{seed}", seed, timed=False)
 
 
+@pytest.mark.parametrize("delta", [1e-8, 1e-6, 1e-5])
+@pytest.mark.parametrize("case", ["q-clip", "nov-clip", "noh-clip",
+                                  "voh-clip"])
+def test_k4_holds_float64_at_its_clips(cuda, case, delta):
+    """2000 points built as chip_smoke.k4_branch_case builds them (as
+    examples/k4_conditioning.py and the k4-branches phase do): the GGX
+    denominator q, NoV, NoH or VoH of each at 1e-6 (1 + delta) in float64,
+    alternating in sign, where float32 can decide the clip either way.
+    chip_smoke's K4 gate passes, with no point viewed at grazing."""
+    cs = chip_smoke_module()
+    x, _, reached = cs.k4_branch_case(case, 2000, 64, 700, cuda, (delta,))
+    assert (abs(reached) <= delta).all()
+    _, _, info = cs.check_k4(x, f"k4-{case}-{delta:g}", 7, timed=False)
+    assert info["grazing_points"] == 0
+
+
 # ---------------------------------------------------------------------------
 # the dense oracle and two ranks sharing the card
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from relightable3dgaussian_tpu_torch.models.lights import DirectLightMap
 from relightable3dgaussian_tpu_torch.scene.image_io import read_png
 from test_gui_window import FakeDPG, fake_dpg  # noqa: F401
 from test_scene_io import write_blender_dataset
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 N, SIZE, FRAMES = 400, 40, 3
 

@@ -14,6 +14,7 @@ from relightable3dgaussian_tpu.utils import sh as jax_sh
 from relightable3dgaussian_tpu_torch.scene import cameras
 from relightable3dgaussian_tpu_torch.train import checkpoint
 from relightable3dgaussian_tpu_torch.utils import quaternions, sh, timing
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 
 def test_timing_prints_and_keeps_the_elapsed_ms(capsys, monkeypatch):

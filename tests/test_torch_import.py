@@ -10,6 +10,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "relightable3dgaussian_tpu_torch"
 

@@ -34,6 +34,7 @@ from relightable3dgaussian_tpu_torch.mvs import (filter_fuse, formats,
 from relightable3dgaussian_tpu_torch.mvs.colmap_to_mvs import colmap_to_mvs
 from relightable3dgaussian_tpu_torch.scene import colmap_loader, image_io
 from test_mvs import FOCAL, SIZE, _K, _extrinsic, _plane_depth, _render
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 imageio = pytest.importorskip("imageio.v2")
 BORDER = 6          # at the sweep's 48² scale of the 96² scene

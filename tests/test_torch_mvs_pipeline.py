@@ -29,6 +29,7 @@ from relightable3dgaussian_tpu_torch.mvs import formats, infer_depth
 from relightable3dgaussian_tpu_torch.scene import image_io
 from test_mvs import _K, _extrinsic, _render
 from test_mvs_pipeline import dataset  # noqa: F401  (the JAX test's scene)
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 BORDER = 12         # pixels of the 96² scene (the sweep's 6 at 48²)
 PIPELINE = dict(num_src=2, vthresh=2, pthresh=(0.05, 0.05, 0.05),

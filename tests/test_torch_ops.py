@@ -4,6 +4,8 @@ The same seeded numpy inputs go through each JAX function and its port
 counterpart. The compositor reference is `ops/composite.py::composite`, which
 is what the JAX `rasterize` runs off the TPU.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,22 @@ from relightable3dgaussian_tpu_torch.utils import graphics, quaternions, sh
 
 SIZE = 64
 N = 300
+
+
+def share_cpu_threads() -> int:
+    """Gives torch's intra-op pool this process's share of the cores,
+    cpu_count // PYTEST_XDIST_WORKER_COUNT (1 without pytest-xdist), as
+    parallel/data_parallel.py gives CPU ranks theirs: pytest-xdist's workers
+    run side by side, and each torch pool the size of the machine contends
+    for every core. Called on import, so every test file of the port that
+    runs torch on the CPU imports this module."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = max(1, (os.cpu_count() or 1) // workers)
+    torch.set_num_threads(threads)
+    return threads
+
+
+share_cpu_threads()
 
 
 def random_scene(seed: int, n: int = N, deg: int = 0, spread: float = 1.2):

@@ -16,6 +16,7 @@ from relightable3dgaussian_tpu.scene import image_io as jax_image_io
 from relightable3dgaussian_tpu.scene import ply_io as jax_ply_io
 from relightable3dgaussian_tpu_torch.scene import Scene, cameras, image_io, ply_io
 from test_scene_io import make_params, write_blender_dataset
+from test_torch_ops import share_cpu_threads  # noqa: F401  (torch threads)
 
 imageio = pytest.importorskip("imageio.v2")
 

@@ -3,7 +3,11 @@ equation (the eval path and the plain version of kernel K4) against
 `ops/shading.py::rendering_equation` and against the TPU kernels
 themselves (`ops/shading_pallas.py::rendering_equation_train`, run in
 Pallas interpret mode as tests/test_shading_fused.py runs it), outputs and
-gradients, from the same seeded numpy inputs."""
+gradients, from the same seeded numpy inputs; and at the clips of K4's
+float32 chain that chip_smoke.py's k4-branches phase forces."""
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,9 @@ from relightable3dgaussian_tpu.utils import graphics as jax_graphics
 from relightable3dgaussian_tpu_torch.models import lights
 from relightable3dgaussian_tpu_torch.ops import shading, shading_cuda
 from test_torch_ops import t
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (k4_branch_case: the forced inputs)
 
 NAMES = ("pbr", "diffuse", "specular")
 GRAD_NAMES = ("base_color", "roughness", "viewdirs", "shs", "env")
@@ -185,3 +192,96 @@ def test_train_wrapper_rejects_mixed_devices():
         shading_cuda.rendering_equation_train(
             *args, t(x["dirs"]).to("meta"), t(x["vis"]), t(x["dirs"]),
             t(x["areas"]))
+
+
+def forced_inputs(case: str, P: int, S: int, seed: int,
+                  dtype=np.float32) -> dict:
+    """make_inputs with every point forced onto `case`'s clip as
+    chip_smoke.k4_branch_case forces it (chip_smoke.k4_branch_geometry, in
+    numpy): its normal, view direction and roughness, its samples made anew
+    about the normal by the JAX package's Fibonacci sampling, its last
+    sample (but for nov-clip) the forced one."""
+    x = make_inputs(P, S, seed)
+    g = cs.k4_branch_geometry(case, cs.k4_branch_deltas(P), seed)
+    x.update(normals=g["normals"], viewdirs=g["viewdirs"],
+             roughness=g["roughness"][:, None])
+    dirs, _ = jax_graphics.fibonacci_sphere_sampling(g["normals"], S)
+    x["dirs"] = np.array(dirs)
+    if g.get("dirs") is not None:
+        x["dirs"][:, -1] = g["dirs"]
+    return {k: v.astype(dtype) for k, v in x.items()}
+
+
+@pytest.mark.parametrize("case", cs.K4_BRANCH_CASES)
+def test_forced_clip_inputs_put_the_operand_at_its_bound(case):
+    """The k4-branches phase's inputs (its 2000 points, seeds and samples):
+    the case's operand of a K4 clip in the plain version in float64
+    (ops/shading.py::ggx_terms) lies at 1e-6 (1 + d') with d' on delta's
+    side and within it (0.8 delta <= d' <= delta), both signs at every
+    |delta| of the grid 1e-8 to 1e-5, and so on the [P, S] tensors
+    k4_branch_case hands K4; no point is viewed at grazing; q-clip's
+    roughness lies in [0.09, 0.2]; noh-clip and voh-clip view the point
+    from behind its normal, and the forced sample lights it (n.d > 0)."""
+    i = cs.K4_BRANCH_CASES.index(case)
+    x, delta, reached = cs.k4_branch_case(case, cs.K4_BRANCH_P, 64,
+                                          cs.SEED + 500 + i, "cpu")
+    ratio = reached / delta
+    assert ((ratio >= 0.8) & (ratio <= 1.0)).all(), (ratio.min(), ratio.max())
+    for d in cs.K4_BRANCH_DELTAS:
+        assert {1.0, -1.0} <= set(np.sign(delta[np.isclose(abs(delta), d)]))
+    terms = shading.ggx_terms(*(x[k].double() for k in (2, 3, 7, 1)))
+    op = cs.K4_BRANCHES[case]
+    forced = terms[op][:, -1, 0] if op != "NoV" else terms[op][:, 0]
+    port_ratio = (forced.numpy() / cs.K4_CLIP - 1) / delta
+    assert ((port_ratio > 0.75) & (port_ratio <= 1.0)).all(), (
+        port_ratio.min(), port_ratio.max())
+    side32, side64 = shading_cuda.view_side(x[2], x[3])
+    assert bool(((side32 == side64) & (side64 != 0)).all())
+    n = x[2].double()
+    if case == "q-clip":
+        assert 0.09 <= float(x[1].min()) and float(x[1].max()) <= 0.2
+    if case in ("noh-clip", "voh-clip"):
+        assert bool(((n * x[3]).sum(-1) < 0).all())
+        assert bool(((n * x[7][:, -1]).sum(-1) > 0).all())
+
+
+@pytest.mark.parametrize("case", cs.K4_BRANCH_CASES)
+def test_train_shading_matches_jax_at_the_forced_clips(case):
+    """On the forced inputs (128 points, 16 samples) the plain version
+    against the JAX jnp chain (the JAX package's rendering equation with the
+    same precomputed light), outputs and gradients, env map included, at
+    this file's tolerances. Both in float64, where the operand's place on
+    either side of 1e-6 is what the case sets: in float32 each rounds it
+    its own way and decides the clip by its own rounding (the jump is then
+    ~0.7 of the roughness gradient's largest entry at q-clip)."""
+    x = forced_inputs(case, 128, 16, 3, np.float64)
+    got, got_g = port_train_shading(x)
+    with jax.enable_x64(True):
+        want, want_g = jax_train_shading(
+            x, jax_shading_pallas.rendering_equation_train_reference)
+    assert got_g[1].dtype == want_g[1].dtype == np.float64
+    assert_outputs_close(got, want)
+    assert_grads_close(got_g, want_g)
+
+
+def test_upper_clip_tie_passes_no_gradient_that_matters():
+    """V = N = (0, 0, 1): Fibonacci sample 0 is N exactly, so NoV, NoL, NoH
+    and VoH sit at the clip's upper bound 1 exactly. jnp.clip passes half
+    the gradient at that tie, torch.clamp all of it (and K4, which masks
+    only the lower bound, all): the port's float32 gradients stay within
+    1e-5 of the largest entry of JAX's, because at the top of a dot product
+    of unit vectors the gradient projected onto the sphere is 0."""
+    x = make_inputs(37, 8, 9)
+    x["normals"][:] = x["viewdirs"][:] = (0.0, 0.0, 1.0)
+    dirs, _ = jax_graphics.fibonacci_sphere_sampling(x["normals"], 8)
+    x["dirs"] = np.array(dirs)
+    terms = shading.ggx_terms(t(x["normals"]), t(x["viewdirs"]),
+                              t(x["dirs"]), t(x["roughness"]))
+    for name in ("NoV", "NoH", "VoH"):
+        assert bool((terms[name].reshape(37, -1)[:, 0] == 1.0).all()), name
+    got, got_g = port_train_shading(x)
+    want, want_g = jax_train_shading(
+        x, jax_shading_pallas.rendering_equation_train_reference)
+    assert_outputs_close(got, want)
+    for name, g, w in zip(GRAD_NAMES, got_g, want_g):
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), name
