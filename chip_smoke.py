@@ -93,7 +93,7 @@ no result line is printed):
               order visibility_rays gives, and sample-major; its bound
               counted on all of them;
  14. k4-main  K4 against the plain shading at the train step's shapes
-              (outside the points K4 views at grazing, as every K4 gate);
+              (at every point, as every K4 gate);
  15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
               the 8 views at 800x800 (32 splatted channels);
  16. stage2-profile  two windows of further stage-2 steps: without a
@@ -155,19 +155,19 @@ no result line is printed):
  25. k4-seeds  k4-main's gate on 20 fresh sets of sample directions (each
               point's samples turned about its normal by a seeded angle;
               --k4-seeds N for more) and the 8 views: K4 held against
-              float64 outside the points K4 views at grazing (its float32
-              sign of V.N 0 or apart from float64's); the fields that fail
-              with those points in are printed with their worst points,
-              and each seed's view-direction error, K4's and the plain
-              version's.
+              float64 at every point; each seed's view-direction error,
+              K4's and the plain version's, and the points whose sign(V.N)
+              float32 alone would have turned the other way.
      k4-branches  K4's float32 clips forced (k4_branch_case): at 2000
               points x 64 samples each, the GGX denominator q (roughness
               0.09-0.15), NoV, NoH or VoH put at 1e-6 (1 + delta) in
-              float64, delta from 1e-8 to 1e-5 in both signs; per case the
-              clip decisions that differ from float64's (K4's emulated in
-              float32, shading_cuda.k4_branch_operands, and the plain
+              float64, delta from 1e-8 to 2e-3 in both signs; per case the
+              decisions that differ from float64's (K4's by its rule,
+              shading_cuda.k4_clip_passes, which must find none for the
+              sign, NoV, q and VoH; K4's float32 chain's alone; the plain
               float32 version's) and K4's and the plain version's error
-              from float64 per field; each case under check_k4's gate.
+              from float64 per field; each case under check_k4's gate,
+              q-clip, nov-clip and voh-clip on K4's tolerance alone.
  26. dense    ops.rasterize (K1 forward, K2 backward) against the dense
               oracle ops.rasterize_dense on the card in float32, on
               tests/test_rasterizer_parity.py's scene (300 gaussians, 64x64)
@@ -435,25 +435,29 @@ VIS_ATOL, SPLIT_SHARE, SPLIT_BAND = 1e-5, 1e-4, 1e-4
 # held against the plain version in float64: K4 within that tolerance (the
 # backward: per field within K4_BWD_TOL of the largest entry, sums over
 # samples in another order), or within K4_SLACK times the plain float32
-# version's own error, whichever is larger.
-# K4 and the plain version turn the normal to the viewer by sign(V.N), each
-# in its own rounding: at a point where K4's float32 sign is 0 (the normal
-# zeroed) or apart from float64's, K4 shades another function than float64
-# (examples/k4_grazing.py: a viewdirs gradient of 10.81 against 0.0013).
-# Those points, and only those (ops/shading_cuda.py::view_side), are left
-# out of the gate.
+# version's own error, whichever is larger. Every point counts: K4 takes
+# sign(V.N), by which it turns the normal to the viewer, from float64, so at
+# a grazing view it shades the reference's function (examples/
+# k4_grazing.py; where float32's sign was 0 or the other one, K4 shaded
+# another: a viewdirs gradient of 10.81 against 0.0013).
 K4_RTOL, K4_ATOL, K4_BWD_TOL, K4_SLACK = 1e-4, 1e-5, 1e-4, 2.0
 # k4-branches: each case puts one operand of a float32 clip of K4
 # (csrc/shading.cu: the GGX denominator q, NoV, NoH or VoH against 1e-6) at
 # K4_CLIP (1 + delta) in float64, point i's delta the (i // 2)-th of
 # K4_BRANCH_DELTAS in turn, + on even i and - on odd: the grid passes
-# through float32's own rounding of the operand, so float32 decides the
-# clip either way on some points.
+# through float32's own rounding of the operand, so float32 alone decides
+# the clip either way on some points; 1e-4, 5e-4 and 2e-3 lie inside, at
+# and beyond the edge of K4's band about 1e-6 for q (shading_cuda.Q_BAND:
+# inside it K4 decides q's clip from float64, beyond it from float32). K4
+# decides the clips of K4_SLACK_FREE's operands from float64 where float32
+# could err, so there it is held to its tolerance alone, without K4_SLACK.
 K4_CLIP = 1e-6
 K4_BRANCHES = {"q-clip": "q", "nov-clip": "NoV", "noh-clip": "NoH",
                "voh-clip": "VoH"}          # case: the operand it forces
 K4_BRANCH_CASES = tuple(K4_BRANCHES)
-K4_BRANCH_DELTAS = (1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5)
+K4_BRANCH_DELTAS = (1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6, 1e-5, 1e-4, 5e-4,
+                    2e-3)
+K4_SLACK_FREE = ("q-clip", "nov-clip", "voh-clip")
 K4_BRANCH_P = 2000
 
 
@@ -1243,9 +1247,9 @@ def train_shading_case(model: GaussianModel, env, vis, view: ViewInputs):
 def k4_worst_points(x, got, plain, exact, rows, n: int = 4) -> list[dict]:
     """For a K4 failure report: of the points `rows` ([P] bool), the n
     where `got` is farthest from `exact` ([P, ...]), with the view-normal
-    cosine in float32 and float64, K4's float32 sign of it
-    (shading_cuda.view_side), the roughness, and the kernel's, the plain
-    and the float64 values there."""
+    cosine in float32 and float64, its sign as float32 alone takes it and
+    as K4 takes it, from float64 (shading_cuda.view_side), the roughness,
+    and the kernel's, the plain and the float64 values there."""
     far = (got.double() - exact).abs().reshape(got.shape[0], -1).amax(1)
     far = torch.where(rows, far, -1.0)
     side32, side64 = shading_cuda.view_side(x[2], x[3])
@@ -1257,7 +1261,7 @@ def k4_worst_points(x, got, plain, exact, rows, n: int = 4) -> list[dict]:
         cos64 = float((n64 / n64.norm()) @ (v64 / v64.norm()))
         out.append({"point": i, "cos_nv32": f"{cos32:.3e}",
                     "cos_nv64": f"{cos64:.3e}",
-                    "k4_sign": int(side32[i]), "sign64": int(side64[i]),
+                    "sign32": int(side32[i]), "k4_sign": int(side64[i]),
                     "roughness": f"{float(x[1][i]):.4f}",
                     "got": got[i].flatten()[:3].tolist(),
                     "plain": plain[i].flatten()[:3].tolist(),
@@ -1276,17 +1280,18 @@ def plain_shading_graph(x, cot):
 
 
 def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
-             min_dshs: float | None = None, timed: bool = True):
+             min_dshs: float | None = None, timed: bool = True,
+             slack: bool = True):
     """K4-fwd and K4-bwd against the plain shading on the same inputs and a
-    seeded cotangent, each held against the plain shading in float64 beside
-    the plain float32 version's own error (K4_SLACK), and with `min_dshs`
-    the SH gradient's largest entry above it; raises on disagreement. The
-    points K4 views at grazing (its float32 sign of V·N 0 or apart from
-    float64's, shading_cuda.view_side) shade another function than float64
-    and are left out of the gate; the gate is also computed with them in,
-    and the fields it would fail reported. Returns the numbers for the
-    kernels line, fwd and bwd (without `timed`, no times), and the
-    grazing points and fields failing with them in."""
+    seeded cotangent, at every point, each held against the plain shading
+    in float64 beside the plain float32 version's own error (K4_SLACK;
+    without `slack`, to K4's tolerance alone), and with `min_dshs` the SH
+    gradient's largest entry above it; raises on disagreement. Returns the
+    numbers for the kernels line, fwd and bwd (without `timed`, no times),
+    and a report: each field's error, K4's and the plain version's, whether
+    K4 is within its tolerance alone, and how many points float32 alone
+    would have turned the other way at sign(V·N) (shading_cuda.view_side;
+    K4 takes that sign from float64)."""
     P = x[0].shape[0]
     gen = torch.Generator().manual_seed(seed)
     cot = [torch.randn((P, 3), generator=gen).to(x[0].device) for _ in range(3)]
@@ -1303,18 +1308,18 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
         leaves64, loss64 = plain_shading_graph(x64, cot64)
         exact_g = torch.autograd.grad(loss64, leaves64)
     side32, side64 = shading_cuda.view_side(x[2], x[3])
-    grazing = (side32 == 0) | (side32 != side64)
-    every = torch.ones_like(grazing)
+    every = torch.ones_like(side64, dtype=torch.bool)
 
-    def fwd_err(a, e, rows):
+    def fwd_err(a, e):
         return float(((a.double() - e).abs()
-                      / (K4_ATOL + K4_RTOL * e.abs()))[rows].max())
+                      / (K4_ATOL + K4_RTOL * e.abs())).max())
 
-    def bwd_err(a, e, rows):
-        return float((a.double() - e)[rows].abs().max()
-                     / e[rows].abs().max().clamp(min=1e-30))
+    def bwd_err(a, e):
+        return float((a.double() - e).abs().max()
+                     / e.abs().max().clamp(min=1e-30))
 
-    errs, abs_err, fails_all, failures = {}, {"fwd": 0.0, "bwd": 0.0}, [], []
+    errs, within_tol, failures = {}, {}, []
+    abs_err = {"fwd": 0.0, "bwd": 0.0}
     for kind, names, outs, plains, exacts, err, tol in (
             ("fwd", ("pbr", "diffuse", "specular"), got, plain, exact,
              fwd_err, 1.0),
@@ -1323,24 +1328,18 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
         for name, g, p, e in zip(names, outs, plains, exacts):
             if not bool(torch.isfinite(g).all()):
                 raise AssertionError(f"{label}: K4-{kind} {name} not finite")
-            if err(g, e, every) > max(tol, K4_SLACK * err(p, e, every)):
-                fails_all.append(f"{kind}.{name}")
-                say(f"{label}-with-grazing", field=f"{kind}.{name}",
-                    kernel=f"{err(g, e, every):.3e}",
-                    plain=f"{err(p, e, every):.3e}",
-                    worst_points=k4_worst_points(x, g, p, e, every))
-            keep = ~grazing
-            e_kernel, e_plain = err(g, e, keep), err(p, e, keep)
+            e_kernel, e_plain = err(g, e), err(p, e)
             errs[f"{kind}.{name}"] = (f"{e_kernel:.3e}", f"{e_plain:.3e}")
-            if e_kernel > max(tol, K4_SLACK * e_plain):
+            within_tol[f"{kind}.{name}"] = e_kernel <= tol
+            limit = max(tol, K4_SLACK * e_plain) if slack else tol
+            if e_kernel > limit:
                 failures.append(
                     f"K4-{kind} {name} is {e_kernel} from float64, the plain "
-                    f"float32 version {e_plain} (limit max({tol}, {K4_SLACK} "
-                    f"x that)) outside the {int(grazing.sum())} grazing "
-                    f"points; worst points "
-                    f"{k4_worst_points(x, g, p, e, keep)}")
-            abs_err[kind] = max(abs_err[kind],
-                                float((g - p)[keep].abs().max()))
+                    f"float32 version {e_plain} (limit {limit}: "
+                    + (f"max({tol}, {K4_SLACK} x that)" if slack
+                       else "its tolerance alone")
+                    + f"); worst points {k4_worst_points(x, g, p, e, every)}")
+            abs_err[kind] = max(abs_err[kind], float((g - p).abs().max()))
     if failures:
         raise AssertionError(f"{label}: " + "; ".join(failures)
                              + f" (every field, K4's and the plain version's "
@@ -1348,8 +1347,9 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
     if min_dshs is not None and not float(dshs.abs().max()) > min_dshs:
         raise AssertionError(f"{label}: K4-bwd's SH gradient "
                              f"{float(dshs.abs().max())} is not above {min_dshs}")
-    info = {"grazing_points": int(grazing.sum()),
-            "fails_without_exemption": fails_all, "errs": errs}
+    info = {"float32_sign_flips": int(((side32 == 0)
+                                       | (side32 != side64)).sum()),
+            "errs": errs, "within_tol": within_tol}
     if not timed:
         return None, None, info
     fwd_ms = cuda_ms(lambda: shading_cuda.shade_fwd(*kin), reps)
@@ -1366,8 +1366,7 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
                       P * S * K4_BWD_OPS)
     say(label, points=P, samples=S,
         visibility_mean=f"{float(x[6].mean()):.4f}",
-        grazing_points=info["grazing_points"],
-        fails_with_grazing_points=fails_all,
+        float32_sign_flips=info["float32_sign_flips"],
         err_kernel_plain_vs_float64=errs,
         fwd_max_abs_err=f"{abs_err['fwd']:.3e}",
         bwd_max_abs_err=f"{abs_err['bwd']:.3e}",
@@ -1629,60 +1628,83 @@ def k4_branch_case(case: str, P: int, S: int, seed: int, device,
 
 
 def clip_decisions_apart(x) -> dict:
-    """How many clip decisions (NoV a point; NoH, VoH and q a sample) K4 and
-    the plain float32 version take otherwise than the plain version in
-    float64, on rendering_equation_train's inputs x: K4's as shading_cuda.
-    k4_branch_operands emulates them. NoV, NoH and VoH pass their gradient
-    at or above 1e-6, q within [1e-6, 4 pi]."""
+    """How many decisions (sign(V·N) and NoV's clip a point; NoH's, VoH's
+    and q's a sample) are taken otherwise than by the plain version in
+    float64, on rendering_equation_train's inputs x: by K4
+    (shading_cuda.k4_clip_passes emulates its rule, view_side its sign),
+    by K4's float32 chain alone (shading_cuda.k4_branch_operands, the sign
+    from view_side), and by the plain float32 version; and how many samples
+    K4 sends to its double branch. NoV, NoH and VoH pass their gradient at
+    or above 1e-6, q within [1e-6, 4 pi]."""
     rough, nrm, vdir, dirs = x[1], x[2], x[3], x[7]
-    exact = ggx_terms(nrm.double(), vdir.double(), dirs.double(),
-                      rough.double())
-    sides = {"k4": (shading_cuda.k4_branch_operands(nrm, vdir, rough, dirs),
-                    shading_cuda.FLOAT32_CLIP, shading_cuda.K4_PI4),
-             "plain": (ggx_terms(nrm, vdir, dirs, rough), K4_CLIP,
-                       4 * math.pi)}
+    P = nrm.shape[0]
 
     def passes(ops, lo, hi):
-        out = {k: ops[k].reshape(nrm.shape[0], -1) >= lo
-               for k in ("NoV", "NoH", "VoH")}
-        q = ops["q"].reshape(nrm.shape[0], -1)
+        out = {k: ops[k].reshape(P, -1) >= lo for k in ("NoV", "NoH", "VoH")}
+        q = ops["q"].reshape(P, -1)
         out["q"] = (q >= lo) & (q <= hi)
         return out
 
-    want = passes(exact, K4_CLIP, 4 * math.pi)
-    return {who: {k: int((v != want[k]).sum())
-                  for k, v in passes(*side).items()}
-            for who, side in sides.items()}
+    exact = ggx_terms(nrm.double(), vdir.double(), dirs.double(),
+                      rough.double())
+    side32, side64 = shading_cuda.view_side(nrm, vdir)
+    plain_sign = torch.sign((torch.nn.functional.normalize(vdir, dim=-1)
+                             * torch.nn.functional.normalize(nrm, dim=-1)
+                             ).sum(-1))
+    k4 = shading_cuda.k4_clip_passes(nrm, vdir, rough, dirs)
+    double = int(k4.pop("double").sum())
+    want = {"sign": side64, **passes(exact, K4_CLIP, 4 * math.pi)}
+    sides = {
+        "k4": {"sign": side64, **k4},
+        "k4_float32": {"sign": side32, **passes(
+            shading_cuda.k4_branch_operands(nrm, vdir, rough, dirs),
+            shading_cuda.FLOAT32_CLIP, shading_cuda.K4_PI4)},
+        "plain": {"sign": plain_sign, **passes(
+            ggx_terms(nrm, vdir, dirs, rough), K4_CLIP, 4 * math.pi)}}
+    out = {who: {k: int((v.reshape(want[k].shape) != want[k]).sum())
+                 for k, v in side.items()} for who, side in sides.items()}
+    out["k4_double_branch_samples"] = double
+    return out
 
 
 def k4_branches_phase(device) -> None:
     """K4 on the four forced clip cases (k4_branch_case), K4_BRANCH_P
-    points x SAMPLE_NUM samples each, under check_k4's gate: one line a
-    case (where the float64 operands lie, the clip decisions that differ
-    from float64's, K4's and the plain version's error per field); raises
-    after the last case if any failed."""
+    points x SAMPLE_NUM samples each, under check_k4's gate, and the cases
+    of K4_SLACK_FREE on K4's tolerance alone: one line a case (where the
+    float64 operands lie, the decisions that differ from float64's, K4's
+    and the plain version's error per field and whether K4's is within its
+    tolerance); raises after the last case if any failed or if K4's rule
+    (shading_cuda.k4_clip_passes) decides a sign or a clip of NoV, q or VoH
+    otherwise than float64."""
     t0 = time.perf_counter()
     failed = []
     for i, case in enumerate(K4_BRANCH_CASES):
         x, delta, reached = k4_branch_case(case, K4_BRANCH_P, SAMPLE_NUM,
                                            SEED + 500 + i, device)
         ratio = reached / delta
+        apart = clip_decisions_apart(x)
         line = {"points": K4_BRANCH_P, "samples": SAMPLE_NUM,
                 "abs_delta": f"{min(K4_BRANCH_DELTAS):g}-"
                              f"{max(K4_BRANCH_DELTAS):g}",
                 "reached_over_delta": f"{ratio.min():.3f}-{ratio.max():.3f}",
-                "decisions_apart_from_float64": clip_decisions_apart(x)}
+                "decisions_apart_from_float64": apart,
+                "slack": case not in K4_SLACK_FREE}
+        k4_apart = {k: v for k, v in apart["k4"].items()
+                    if k != "NoH" and v}
         try:
+            if k4_apart:
+                raise AssertionError(f"K4's rule decides {k4_apart} "
+                                     f"otherwise than float64")
             _, _, info = check_k4(x, f"k4-branches-{case}", SEED + 510 + i,
-                                  timed=False)
+                                  timed=False,
+                                  slack=case not in K4_SLACK_FREE)
         except AssertionError as e:
             failed.append(case)
             say(f"k4-branches-{case}", **line, FAILED=str(e))
             continue
         say(f"k4-branches-{case}", **line,
-            grazing_points=info["grazing_points"],
-            fails_with_grazing_points=info["fails_without_exemption"],
-            err_kernel_plain_vs_float64=info["errs"])
+            err_kernel_plain_vs_float64=info["errs"],
+            k4_within_tolerance_alone=info["within_tol"])
     say("k4-branches", cases=len(K4_BRANCH_CASES), failed=failed,
         wall_s=f"{time.perf_counter() - t0:.2f}")
     if failed:
@@ -2952,10 +2974,7 @@ def k4_seeds_phase(s2: dict, seeds: int = K4_SEEDS) -> None:
         viewdirs_err_kernel=[r["errs"]["bwd.viewdirs"][0] for r in rows],
         viewdirs_err_plain=[r["errs"]["bwd.viewdirs"][1] for r in rows],
         worst_seed_errs=rows[worst]["errs"],
-        grazing_points=[r["grazing_points"] for r in rows],
-        failing_without_exemption=[
-            (i, r["fails_without_exemption"]) for i, r in enumerate(rows)
-            if r["fails_without_exemption"]])
+        float32_sign_flips=[r["float32_sign_flips"] for r in rows])
 
 
 # ---------------------------------------------------------------------------
@@ -3762,14 +3781,16 @@ def prune_only_phase(trained: dict, device) -> dict:
 
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
     """Builds K1 to K5 and the check kernel composite_decisions from the
-    checkout's sources, one nvcc each, all at once, and prints ptxas's report of csrc/shading.cu and of each source in
+    checkout's sources, one nvcc each, all at once, and prints ptxas's
+    report of K3's, K4's and K5's sources and of each source in
     `ptxas_also`, compiled beside them."""
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
                composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL)
     ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
-        ray_trace_cuda.KERNEL, composite_cuda.TWO_WALK_KERNEL)), *ptxas_also)
+        ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
+        composite_cuda.TWO_WALK_KERNEL)), *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
         reports = pool.map(_build.ptxas_report, ptxas_sources)
         list(pool.map(_build.load_library, kernels))
@@ -3938,7 +3959,7 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     profile_phase("stage2-profile", stage2_step, model.num_points, False,
                   named={"K4-fwd": "shade_fwd_kernel",
                          "K4-bwd": "shade_bwd_kernel",
-                         "K4-bwd-sign-fix": "shade_bwd_sign_fix_kernel"})
+                         "K4-bwd-fix": "shade_bwd_fix_kernel"})
 
     # 17. the README's commands through the CLIs
     cli = cli_phase(scene_model, device)

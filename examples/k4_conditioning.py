@@ -23,15 +23,18 @@ whole case under chip_smoke.check_k4's gate:
 Four more, the lower clips of K4's float32 chain (chip_smoke.k4_branch_case,
 2000 points x 64 samples, all forced, three seeds each): the GGX
 denominator q (q-clip, roughness 0.09-0.15), NoV (nov-clip), NoH
-(noh-clip) and VoH (voh-clip) at 1e-6 (1 + delta) in float64, delta from
-1e-8 to 1e-5, alternating in sign point by point. Each prints, per
-gradient field, K4's and the plain float32 version's error from float64
-(units of the field's largest entry), and how many clip decisions K4 (its
-float32 expression order emulated, shading_cuda.k4_branch_operands) and
-the plain float32 version take otherwise than float64; then the case is
-held under chip_smoke.check_k4's gate.
+(noh-clip) and VoH (voh-clip) at 1e-6 (1 + delta) in float64, |delta| each
+of chip_smoke.K4_BRANCH_DELTAS (1e-8 to 2e-3), alternating in sign point by
+point. Each prints, per gradient field, K4's and the plain float32
+version's error from float64 (units of the field's largest entry), and how
+many decisions K4 (by its rule, shading_cuda.k4_clip_passes), K4's float32
+chain alone and the plain float32 version take otherwise than float64;
+then the case is held under chip_smoke.check_k4's gate, every point in,
+and q-clip, nov-clip and voh-clip on K4's tolerance alone
+(chip_smoke.K4_SLACK_FREE).
 
-Needs an NVIDIA GPU and nvcc.
+Ends with a count of the runs that failed the gate, and exits 1 if any
+did. Needs an NVIDIA GPU and nvcc.
 """
 from __future__ import annotations
 
@@ -106,10 +109,14 @@ def field_errors(x: tuple, near: int, seed: int) -> dict:
     return out
 
 
-def gate(x: tuple, label: str, seed: int) -> None:
+FAILED: list[str] = []
+
+
+def gate(x: tuple, label: str, seed: int, slack: bool = True) -> None:
     try:
-        cs.check_k4(x, label, seed, timed=False)
+        cs.check_k4(x, label, seed, timed=False, slack=slack)
     except AssertionError as e:
+        FAILED.append(label)
         print("FAIL", e, flush=True)
 
 
@@ -136,13 +143,17 @@ def run_branch(case: str, dev) -> None:
                   f"reached={float(abs(reached).min()):.3e}-"
                   f"{float(abs(reached).max()):.3e} "
                   f"decisions_apart_k4={apart['k4']} "
+                  f"decisions_apart_k4_float32={apart['k4_float32']} "
                   f"decisions_apart_plain={apart['plain']} "
+                  f"k4_double_branch_samples="
+                  f"{apart['k4_double_branch_samples']} "
                   + " ".join(f"{f}_err_k4={k:.3e} {f}_err_plain={p:.3e}"
                              for f, (k, p) in errs.items()), flush=True)
-            gate(x, f"k4-{case} delta={delta:g} seed={seed}", seed)
+            gate(x, f"k4-{case} delta={delta:g} seed={seed}", seed,
+                 slack=case not in cs.K4_SLACK_FREE)
 
 
-def main() -> None:
+def main() -> int:
     dev = torch.device("cuda:0")
     cs.build_phase()
     run("antipodal", antipodal_case,
@@ -151,7 +162,9 @@ def main() -> None:
         "shs", dev)
     for case in cs.K4_BRANCH_CASES:
         run_branch(case, dev)
+    print(f"[k4-conditioning] failed={FAILED}", flush=True)
+    return 1 if FAILED else 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -35,34 +35,71 @@
 //     max(e, 0)'s branch from e in float64 (light64): float32's sign moved
 //     one point's SH gradient by ~2e-3.
 //
-// Every float32 branch of the chain, where K4 can decide otherwise than the
-// plain version in float64 (line numbers in this file; chip_smoke.py's
-// k4-branches phase forces the four clips at 1e-6, examples/k4_conditioning.py
-// sweeps them):
-//   * decided from float64 (above): max(e, 0) of the local light (:626,
-//     marked :627, corrected in shade_bwd_sign_fix_kernel :816).
-//   * the lower clips at 1e-6. The value is continuous across each, the
-//     gradient 0 below it. Forced with the float64 operand at 1e-6 (1 + d),
-//     |d| from 1e-8 to 1e-5, K4 decides about half the forced samples
-//     otherwise than float64, as the plain float32 version does, and passes
-//     check_k4's gate on each as it stands (within K4_SLACK of the plain
-//     version's error; PERF.md, Findings), so they stay in float32:
-//       q = 4 pi nom0^2 nom1 nom2, the GGX denominator: clip :428, mask
-//         :632. Reached near the specular peak where r < ~0.17 (at
-//         r = 0.2 q stays above ~1.0e-6). The jump is -f_s dq / q, all of
-//         the sample's roughness and view-direction gradient through q:
-//         ~1 of those fields' largest entry on the forced points.
-//       NoV: clip :376, mask :706 (views near grazing). The jump is
-//         gnom1 (1 - k) into V: ~6e-2 of the view gradient's largest entry.
-//       NoH: clip :406, mask :644, and the cross-product branch :416
-//         (continuous: |ns x h|^2 = 1 - NoH^2 there). The jump,
-//         2 NoH gnom0 (alpha^2 - 1), carries the factor NoH = 1e-6.
-//       VoH: clip :407, mask :637 (a sample a few 1e-4 off the opposite of
-//         the view: in float32, VoH = (1 + V.d) / |d + V| falls to 1e-6
-//         only where |d| > 1). Jumps ~1e-3 of the view gradient.
-//   * value only, no gradient crosses them: NoL's clip :405 (N and
-//     the sample are constants), max(n.d, 0) in the transport (:462,
-//     :794), and the upper clips of NoV, NoH and VoH at 1, which dot
+// Every float32 branch of the chain, where K4 could decide otherwise than
+// the plain version in float64 (line numbers in this file; chip_smoke.py's
+// k4-branches phase forces the four lower clips at 1e-6 (1 + delta),
+// examples/k4_conditioning.py sweeps them, examples/k4_grazing.py sets
+// views within 2e-6 of grazing):
+//   * decided from float64. The value is continuous across each clip, so
+//     the arithmetic stays float32; only the branch is taken from float64:
+//       max(e, 0) of the local light (above; :793, marked :794,
+//         corrected in shade_bwd_fix_kernel :981).
+//       sign(V.N) (:413, in load_point, so forward, backward and fix-up
+//         alike): V and N normalised in double and dotted in double, N
+//         zeroed only where that dot is exactly 0, as the reference zeroes
+//         it. Where float32's sign was 0 or the other one, K4 shaded another
+//         function: a view-direction gradient of 10.81 against 0.0013.
+//       NoV's lower clip, mask :617, from the same double dot (:415):
+//         NoV = |V.N|. A few double operations a point. The jump it
+//         decides, gnom1 (1 - k) into V, was ~6e-2 of the view gradient's
+//         largest entry.
+//       q = 4 pi nom0^2 nom1 nom2, the GGX denominator (clip :472, mask
+//         :803), and VoH (clip :451, mask :804): a sample whose float32
+//         operand lies within its band about 1e-6 (in_band :563) puts its
+//         point on the list (:800), and shade_bwd_fix_kernel recomputes
+//         the sample's h, VoH and q in double (clips64 :510) and corrects
+//         the gradients where either decision differs (backward only). q
+//         reaches 1e-6 near the specular peak
+//         where r < ~0.17 (at r = 0.2 q stays above ~1.0e-6); its jump,
+//         -f_s dq / q, is all of the sample's roughness and view-direction
+//         gradient through q (~1 of those fields' largest entry on the
+//         forced points). VoH reaches it a few 1e-4 off the opposite of the
+//         view where |d| > 1 (VoH = (1 + V.d) / |d + V|); it jumps ~1e-4 of
+//         the view gradient's largest entry. There 1 + V.d cancels to
+//         ~3e-10 in any precision: float64's own VoH is within ~8e-6 of
+//         1e-6 of the exact value, so two float64 evaluations (clips64 and
+//         the reference) can decide a sample forced within 1e-5 of the clip
+//         each their own way.
+//     The bands, from the float32 error of each operand (u = 2^-24). v, ns
+//     and h are each within ~4.5u of float64's unit vectors (a sum of
+//     squares, a square root and a division; h0 = (d + V) / 2 keeps V's
+//     rounding, see above), and a dot of two of them adds 2u (two FMAs):
+//       VoH: |v.h - V.H| <= 4.5u + 4.5u + 2u ~ 11u = 6.6e-7; band 2e-6.
+//       q: its relative error is at most 2 e0 + e1 + e2 + 4u (four
+//         products). nom1 and nom2 are at least k >= 1/8 and NoV, NoL are
+//         within 11u, so e1, e2 <= 11u (1 - k) / k + 2u < 80u. nom0 =
+//         |ns x h|^2 + NoH^2 alpha^2, with |ns x h| within 12u and NoH
+//         within 11u, so e0 <= 24u |ns x h| / nom0 + 26u; at q = 1e-6,
+//         nom0 >= (1e-6 / (4 pi))^(1/2) = 2.8e-4 and |ns x h|^2 <= nom0,
+//         so e0 <= 24u / 0.0168 + 26u < 1460u. In all q is within ~3100u
+//         = 1.8e-4 of itself; band 5e-4 of 1e-6 (kQBand).
+//     The records put a floor under the bands: before them, K4's q went
+//     apart from float64 on 3-6 of 2000 forced samples at |delta| = 1e-5,
+//     its VoH on 425-451 (PERF.md). A trained model puts few samples in
+//     either band. The double branch inline in the sample loop, as a call
+//     to clips64 or inlined, took K4-bwd from 0.31-0.35 ms a launch to
+//     0.41-0.46 and 0.43-0.49 at 101,675 points x 64 samples on an H100
+//     (ptxas: 260 and 316 bytes spilled against 48): its code pushed the
+//     loop's state out of registers. So the loop only marks the sample,
+//     and the fix-up launch, which already lists points and recomputes a
+//     listed point's samples, takes the decisions.
+//   * left in float32: NoH's lower clip (:450, mask :588, and the
+//     cross-product branch :460, continuous: |ns x h|^2 = 1 - NoH^2
+//     there). Its jump, 2 NoH gnom0 (alpha^2 - 1), carries the factor
+//     NoH = 1e-6: K4 measured <= 5.5e-7 of the largest entry there.
+//   * value only, no gradient crosses them: NoL's clip :449 (N and
+//     the sample are constants), max(n.d, 0) in the transport (:548,
+//     :930), and the upper clips of NoV, NoH and VoH at 1, which dot
 //     products of unit vectors pass only by rounding: unmasked, where the
 //     plain version's torch.clamp passes all the gradient at the tie and
 //     JAX's jnp.clip half; at the tie the gradient projected onto the
@@ -70,13 +107,12 @@
 //   * unreachable: q's upper clip 4 pi needs nom0 = nom1 = nom2 = 1, i.e.
 //     NoV = NoL = 1 with NoH <= 1e-6 (NoV = NoL = 1 puts H on N), or r = 1,
 //     past the roughness activation's 0.99. The 1e-12 floors of |V|
-//     (:358, :360, :713), |N| (:366) and |h0| (:400, :651) need
-//     a zero-length view direction or normal, or a sample opposite the view
-//     to 1e-12, which float32's grid meets only when both are exactly on it
-//     (an axis-aligned view); such inputs are not forced.
-//   * left out of the gate: sign(V.N) (:369), where K4's float32 sign is
-//     0 or apart from float64's, K4 shades another function
-//     (ops/shading_cuda.py::view_side, examples/k4_grazing.py).
+//     (:396, :398, :624), |N| (:405) and |h0| (:444,
+//     :595) need a zero-length view direction or normal, or a sample
+//     opposite the view to 1e-12, which float32's grid meets only when both
+//     are exactly on it (an axis-aligned view); such inputs are not forced.
+// The plain PyTorch version (ops/shading.py) stays the float32 chain that is
+// held to JAX on the CPU: it decides every branch in float32.
 // The backward recomputes the forward chain, as the TPU kernel does, and
 // returns the analytic VJP for base colour, roughness, view direction, the
 // local-light SH and the per-sample global light (dgl [P, S, 3]); torch chains
@@ -138,11 +174,12 @@
 // attribute is set: 5 blocks an SM by shared memory; the launch bounds ask
 // ptxas for registers that keep 5 (forward) and 4 (backward) blocks resident.
 //
-// The local light's branch: the backward's lanes mark a sample whose |e_c|
-// is below kSignTol sum_k |shs_kc| (the bound sits in the SH row's padding);
-// a point with one goes on a list (a count and the points, kept by the
-// caller), and shade_bwd_sign_fix_kernel, launched after, corrects those
-// points' SH gradients on a warp each. Marking is a compare a sample; a
+// The branches taken from float64 per sample: the backward's lanes mark a
+// sample whose |e_c| is below kSignTol sum_k |shs_kc| (the bound sits in the
+// SH row's padding), or whose q or VoH lies in its band about 1e-6
+// (in_band); a point with one goes on a list (a count and the points, kept
+// by the caller), and shade_bwd_fix_kernel, launched after, corrects those
+// points' gradients on a warp each. Marking is a few compares a sample; a
 // trained stage-2 model lists few points, so the second launch is short.
 //
 // Plain C interface (built by nvcc into a shared library, bound with ctypes):
@@ -344,7 +381,8 @@ struct Point {
   float vlx, vly, vlz;              // its rounding error (see ggx)
   float nsx, nsy, nsz;              // unit normal flipped towards v
   float r, alpha, alpha2, k;
-  float NoV_raw, NoV, nom1;
+  float NoV, nom1;
+  bool nov_pass;                    // NoV >= 1e-6 in float64: d NoV passes
 };
 
 __device__ __forceinline__ Point load_point(const float* __restrict__ nrm,
@@ -360,20 +398,26 @@ __device__ __forceinline__ Point load_point(const float* __restrict__ nrm,
   const double M_vd = fmax(sqrt(static_cast<double>(vdx) * vdx
                                 + static_cast<double>(vdy) * vdy
                                 + static_cast<double>(vdz) * vdz), 1e-12);
-  q.vlx = static_cast<float>(vdx / M_vd - q.vx);
-  q.vly = static_cast<float>(vdy / M_vd - q.vy);
-  q.vlz = static_cast<float>(vdz / M_vd - q.vz);
+  const double Vx = vdx / M_vd, Vy = vdy / M_vd, Vz = vdz / M_vd;
+  q.vlx = static_cast<float>(Vx - q.vx);
+  q.vly = static_cast<float>(Vy - q.vy);
+  q.vlz = static_cast<float>(Vz - q.vz);
   const float M_n = fmaxf(sqrtf(q.nx * q.nx + q.ny * q.ny + q.nz * q.nz), 1e-12f);
   const float nhx = q.nx / M_n, nhy = q.ny / M_n, nhz = q.nz / M_n;
-  const float s = q.vx * nhx + q.vy * nhy + q.vz * nhz;
-  const float sgn = s > 0.f ? 1.f : (s < 0.f ? -1.f : 0.f);
+  // sign(V.N) and NoV's clip decision from float64 (see the branch list):
+  // V and N normalised in double, as the reference normalises them.
+  const double M_nd = fmax(sqrt(static_cast<double>(q.nx) * q.nx
+                                + static_cast<double>(q.ny) * q.ny
+                                + static_cast<double>(q.nz) * q.nz), 1e-12);
+  const double s = Vx * (q.nx / M_nd) + Vy * (q.ny / M_nd) + Vz * (q.nz / M_nd);
+  const float sgn = s > 0.0 ? 1.f : (s < 0.0 ? -1.f : 0.f);
   q.nsx = nhx * sgn; q.nsy = nhy * sgn; q.nsz = nhz * sgn;
+  q.nov_pass = sgn * s >= 1e-6;
   q.r = rough[p];
   q.alpha = q.r * q.r;
   q.alpha2 = q.alpha * q.alpha;
   q.k = (q.alpha + 2.f * q.r + 1.f) / 8.f;
-  q.NoV_raw = q.nsx * q.vx + q.nsy * q.vy + q.nsz * q.vz;
-  q.NoV = clip(q.NoV_raw, 1e-6f, 1.f);
+  q.NoV = clip(q.nsx * q.vx + q.nsy * q.vy + q.nsz * q.vz, 1e-6f, 1.f);
   q.nom1 = q.NoV * (1.f - q.k) + q.k;
   return q;
 }
@@ -450,6 +494,48 @@ __device__ __forceinline__ double light64(float x, float y, float z,
   return e;
 }
 
+// The bands about 1e-6 inside which float32 can decide q's and VoH's lower
+// clips otherwise than float64 (derived in the branch list): |q - 1e-6|
+// within kQBand of 1e-6, |VoH - 1e-6| within kVoHBand.
+constexpr float kQBand = 5e-4f;
+constexpr float kVoHBand = 2e-6f;
+
+struct Clips {
+  bool q, voh;                      // the gradient passes q's, VoH's clip
+};
+
+// q's and VoH's lower-clip decisions of one sample in float64, from the
+// float32 inputs in the plain version's form (ops/shading.py::ggx_terms):
+// V, N and h normalised in double, nom0 = NoH^2 (alpha^2 - 1) + 1.
+__device__ __forceinline__ Clips clips64(const float* __restrict__ nrm,
+                                      const float* __restrict__ vdir,
+                                      float r, int p, float dx, float dy,
+                                      float dz) {
+  const double v0 = vdir[3 * p], v1 = vdir[3 * p + 1], v2 = vdir[3 * p + 2];
+  const double n0 = nrm[3 * p], n1 = nrm[3 * p + 1], n2 = nrm[3 * p + 2];
+  const double mv = fmax(sqrt(v0 * v0 + v1 * v1 + v2 * v2), 1e-12);
+  const double mn = fmax(sqrt(n0 * n0 + n1 * n1 + n2 * n2), 1e-12);
+  const double vx = v0 / mv, vy = v1 / mv, vz = v2 / mv;
+  double nx = n0 / mn, ny = n1 / mn, nz = n2 / mn;
+  const double s = vx * nx + vy * ny + vz * nz;
+  const double sgn = s > 0.0 ? 1.0 : (s < 0.0 ? -1.0 : 0.0);
+  nx *= sgn; ny *= sgn; nz *= sgn;
+  double hx = (dx + vx) / 2.0, hy = (dy + vy) / 2.0, hz = (dz + vz) / 2.0;
+  const double mh = fmax(sqrt(hx * hx + hy * hy + hz * hz), 1e-12);
+  hx /= mh; hy /= mh; hz /= mh;
+  const double NoV = fmin(fmax(nx * vx + ny * vy + nz * vz, 1e-6), 1.0);
+  const double NoH = fmin(fmax(nx * hx + ny * hy + nz * hz, 1e-6), 1.0);
+  const double NoL = fmin(fmax(nx * dx + ny * dy + nz * dz, 1e-6), 1.0);
+  const double VoH = vx * hx + vy * hy + vz * hz;
+  const double rd = r, alpha = rd * rd, alpha2 = alpha * alpha;
+  const double k = (alpha + 2.0 * rd + 1.0) / 8.0;
+  const double nom0 = NoH * NoH * (alpha2 - 1.0) + 1.0;
+  const double pi4 = 4.0 * 3.14159265358979323846;
+  const double q = pi4 * nom0 * nom0 * (NoV * (1.0 - k) + k)
+                   * (NoL * (1.0 - k) + k);
+  return {q >= 1e-6 && q <= pi4, VoH >= 1e-6};
+}
+
 // One sample's local light e_c (before the clip) and transport factor
 // an = area max(n . d, 0).
 __device__ __forceinline__ void light_terms(const Point& pt, float dx,
@@ -460,6 +546,97 @@ __device__ __forceinline__ void light_terms(const Point& pt, float dx,
   sh_basis<float>(dx, dy, dz, basis);
   sh_light(basis, shs_row, e);
   an = area * fmaxf(pt.nx * dx + pt.ny * dy + pt.nz * dz, 0.f);
+}
+
+// Slots of the backward's per-lane sums: the 48 SH gradients first, so the
+// group's reduce-scatter leaves lane g < 3 with SH gradients [16 g, 16 g + 16)
+// and lane 3 with the rest.
+constexpr int kDif = kSHC;          // 3: sum of trans_c
+constexpr int kGAlpha2 = kDif + 3;  // d alpha2
+constexpr int kGNom1 = kGAlpha2 + 1;
+constexpr int kGK2 = kGNom1 + 1;    // d k through nom2
+constexpr int kGV = kGK2 + 1;       // 3: d v-hat through VoH and h
+constexpr int kSums = 64;           // 57 used
+
+// Whether float32 could decide q's or VoH's lower clip otherwise than
+// float64: the operand lies within its band about 1e-6.
+__device__ __forceinline__ bool in_band(const Ggx& s) {
+  return fabsf(s.q - 1e-6f) <= kQBand * 1e-6f
+         || fabsf(s.VoH_raw - 1e-6f) <= kVoHBand;
+}
+
+// VoH's gradient through the Fresnel term, for gu = d f_s / q.
+__device__ __forceinline__ float voh_grad(const Point& pt, const Ggx& s,
+                                          float gu) {
+  return gu * pt.alpha2 * (1.f - kFresnel) * kLn2 * s.e2
+         * (-2.f * 5.55473f * s.VoH - 6.98316f);
+}
+
+// The part of one sample's GGX backward that q's and VoH's clips mask: for
+// the denominator's gradient gq and VoH's gVoH (each 0 where its clip
+// masks it), adds into the point's sums g[0, 6) (slots kGAlpha2 to kGV + 2:
+// d alpha2, d nom1, d k through nom2, d v-hat). Linear in gq and gVoH, so
+// the fix-up kernel corrects a decision by the difference.
+__device__ __forceinline__ void ggx_bwd(const Point& pt, const Ggx& s,
+                                        float gq, float gVoH, float* g) {
+  const float gnom0 = gq * k4Pi * 2.f * s.nom0 * pt.nom1 * s.nom2;
+  g[kGNom1 - kGAlpha2] += gq * k4Pi * s.nom0 * s.nom0 * s.nom2;
+  const float gnom2 = gq * k4Pi * s.nom0 * s.nom0 * pt.nom1;
+  g[0] += gnom0 * s.NoH * s.NoH;
+  // NoH, VoH and NoV are dot products of unit vectors: they pass 1 only by
+  // rounding, so only the lower clip masks their gradients.
+  const float gNoH = s.NoH_raw >= 1e-6f
+      ? gnom0 * 2.f * s.NoH * (pt.alpha2 - 1.f) : 0.f;
+  g[kGK2 - kGAlpha2] += gnom2 * (1.f - s.NoL);
+  // H = h0 / max(|h0|, eps), h0 = (d + v) / 2: gh0 = (gH - (gH.h) h) / |h0|
+  // for gH = gNoH ns + gVoH v. Near the peak ns - NoH h cancels, so it is
+  // taken as h x (ns x h). Below |h0| = 1e-12, gh0 = gH / 1e-12.
+  float ghx, ghy, ghz;
+  if (s.m_h > 1e-12f) {
+    ghx = gNoH * (s.hy * s.cz - s.hz * s.cy) + gVoH * (pt.vx - s.VoH_raw * s.hx);
+    ghy = gNoH * (s.hz * s.cx - s.hx * s.cz) + gVoH * (pt.vy - s.VoH_raw * s.hy);
+    ghz = gNoH * (s.hx * s.cy - s.hy * s.cx) + gVoH * (pt.vz - s.VoH_raw * s.hz);
+  } else {
+    ghx = gNoH * pt.nsx + gVoH * pt.vx;
+    ghy = gNoH * pt.nsy + gVoH * pt.vy;
+    ghz = gNoH * pt.nsz + gVoH * pt.vz;
+  }
+  g[kGV - kGAlpha2] += gVoH * s.hx + 0.5f * ghx * s.rM_h;
+  g[kGV + 1 - kGAlpha2] += gVoH * s.hy + 0.5f * ghy * s.rM_h;
+  g[kGV + 2 - kGAlpha2] += gVoH * s.hz + 0.5f * ghz * s.rM_h;
+}
+
+// A point's d roughness and d view direction from its GGX sums g[0, 6) (as
+// ggx_bwd adds them); linear in them.
+__device__ __forceinline__ void point_grads(const Point& pt, const float* g,
+                                            float& drough, float* dvdir) {
+  const float gnom1 = g[kGNom1 - kGAlpha2];
+  const float gk = gnom1 * (1.f - pt.NoV) + g[kGK2 - kGAlpha2];
+  const float gvhx = g[kGV - kGAlpha2], gvhy = g[kGV + 1 - kGAlpha2],
+              gvhz = g[kGV + 2 - kGAlpha2];
+  const float gNoV = pt.nov_pass ? gnom1 * (1.f - pt.k) : 0.f;
+  const float galpha = g[0] * 2.f * pt.alpha + gk * (1.f / 8.f);
+  drough = galpha * 2.f * pt.r + gk * 0.25f;
+  // V-hat = vdir / max(|vdir|, eps): dvdir = (gvh - (gvh.v) v) / |vdir| for
+  // gvh = gNoV ns + (the sums above). Viewed head-on, ns - NoV v cancels, so
+  // it is taken as v x (ns x v). Below |vdir| = 1e-12, dvdir = gvh / 1e-12.
+  float dvx, dvy, dvz;
+  if (pt.m_v > 1e-12f) {
+    const float ex = pt.nsy * pt.vz - pt.nsz * pt.vy;
+    const float ey = pt.nsz * pt.vx - pt.nsx * pt.vz;
+    const float ez = pt.nsx * pt.vy - pt.nsy * pt.vx;
+    const float rv = gvhx * pt.vx + gvhy * pt.vy + gvhz * pt.vz;
+    dvx = gNoV * (pt.vy * ez - pt.vz * ey) + gvhx - rv * pt.vx;
+    dvy = gNoV * (pt.vz * ex - pt.vx * ez) + gvhy - rv * pt.vy;
+    dvz = gNoV * (pt.vx * ey - pt.vy * ex) + gvhz - rv * pt.vz;
+  } else {
+    dvx = gvhx + gNoV * pt.nsx;
+    dvy = gvhy + gNoV * pt.nsy;
+    dvz = gvhz + gNoV * pt.nsz;
+  }
+  dvdir[0] = dvx / pt.M_v;
+  dvdir[1] = dvy / pt.M_v;
+  dvdir[2] = dvz / pt.M_v;
 }
 
 __global__ void __launch_bounds__(kThreads, 5)
@@ -530,16 +707,6 @@ shade_fwd_kernel(const float* __restrict__ dirs,   // [P, S, 3]
   }
 }
 
-// Slots of the backward's per-lane sums: the 48 SH gradients first, so the
-// group's reduce-scatter leaves lane g < 3 with SH gradients [16 g, 16 g + 16)
-// and lane 3 with the rest.
-constexpr int kDif = kSHC;          // 3: sum of trans_c
-constexpr int kGAlpha2 = kDif + 3;  // d alpha2
-constexpr int kGNom1 = kGAlpha2 + 1;
-constexpr int kGK2 = kGNom1 + 1;    // d k through nom2
-constexpr int kGV = kGK2 + 1;       // 3: d v-hat through VoH and h
-constexpr int kSums = 64;           // 57 used
-
 __global__ void __launch_bounds__(kThreads, 4)
 shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
                  const float* __restrict__ area, const float* __restrict__ gl,
@@ -582,7 +749,7 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
     }
   }
   float* shs_row = sm.shs + pt * kRowSH;   // [48] SH, [48, 51) sign_tol
-  int unsure = 0;               // a sample with |e_c| below sign_tol_c
+  int unsure = 0;               // a sample for shade_bwd_fix_kernel
 
   float acc[kSums];
 #pragma unroll
@@ -627,39 +794,15 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
           unsure |= fabsf(e[c]) < shs_row[kSHC + c];
         }
 
-        // GGX backward
+        // GGX backward. A sample whose q or VoH lies in its band about 1e-6
+        // puts its point on the list: shade_bwd_fix_kernel takes those
+        // clips' decisions from float64.
+        unsure |= in_band(s);
         const float gu = gf * s.r_nom;
-        const float gq = inside(s.q, 1e-6f, k4Pi) ? -gf * s.f_s * s.r_nom : 0.f;
-        const float gfrac0 = gu * ptc.alpha2;
         acc[kGAlpha2] += gu * s.frac0;
-        // NoH, VoH and NoV are dot products of unit vectors: they pass 1 only
-        // by rounding, so only the lower clip masks their gradients.
-        const float gVoH = s.VoH_raw >= 1e-6f
-            ? gfrac0 * (1.f - kFresnel) * kLn2 * s.e2 * (-2.f * 5.55473f * s.VoH - 6.98316f)
-            : 0.f;
-        const float gnom0 = gq * k4Pi * 2.f * s.nom0 * ptc.nom1 * s.nom2;
-        acc[kGNom1] += gq * k4Pi * s.nom0 * s.nom0 * s.nom2;
-        const float gnom2 = gq * k4Pi * s.nom0 * s.nom0 * ptc.nom1;
-        acc[kGAlpha2] += gnom0 * s.NoH * s.NoH;
-        const float gNoH = s.NoH_raw >= 1e-6f
-            ? gnom0 * 2.f * s.NoH * (ptc.alpha2 - 1.f) : 0.f;
-        acc[kGK2] += gnom2 * (1.f - s.NoL);
-        // H = h0 / max(|h0|, eps), h0 = (d + v) / 2: gh0 = (gH - (gH.h) h) / |h0|
-        // for gH = gNoH ns + gVoH v. Near the peak ns - NoH h cancels, so it is
-        // taken as h x (ns x h). Below |h0| = 1e-12, gh0 = gH / 1e-12.
-        float ghx, ghy, ghz;
-        if (s.m_h > 1e-12f) {
-          ghx = gNoH * (s.hy * s.cz - s.hz * s.cy) + gVoH * (ptc.vx - s.VoH_raw * s.hx);
-          ghy = gNoH * (s.hz * s.cx - s.hx * s.cz) + gVoH * (ptc.vy - s.VoH_raw * s.hy);
-          ghz = gNoH * (s.hx * s.cy - s.hy * s.cx) + gVoH * (ptc.vz - s.VoH_raw * s.hz);
-        } else {
-          ghx = gNoH * ptc.nsx + gVoH * ptc.vx;
-          ghy = gNoH * ptc.nsy + gVoH * ptc.vy;
-          ghz = gNoH * ptc.nsz + gVoH * ptc.vz;
-        }
-        acc[kGV] += gVoH * s.hx + 0.5f * ghx * s.rM_h;
-        acc[kGV + 1] += gVoH * s.hy + 0.5f * ghy * s.rM_h;
-        acc[kGV + 2] += gVoH * s.hz + 0.5f * ghz * s.rM_h;
+        ggx_bwd(ptc, s, inside(s.q, 1e-6f, k4Pi) ? -gf * s.f_s * s.r_nom : 0.f,
+                s.VoH_raw >= 1e-6f ? voh_grad(ptc, s, gu) : 0.f,
+                &acc[kGAlpha2]);
 
         // SH gradients, from the basis evaluated again
         float basis[kSH];
@@ -681,8 +824,7 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
   }
 
   // The points with an unsure sample on any lane of their group go on a
-  // list; shade_bwd_sign_fix_kernel takes those samples' branch from
-  // float64.
+  // list; shade_bwd_fix_kernel takes those samples' branches from float64.
   unsure |= __shfl_xor_sync(r3dg::kFullMask, unsure, 1);
   unsure |= __shfl_xor_sync(r3dg::kFullMask, unsure, 2);
   if (active && g == 0 && unsure)
@@ -698,57 +840,41 @@ shade_bwd_kernel(const float* __restrict__ dirs, const float* __restrict__ vis,
     return;
   }
   // lane 3: acc[i] is the group's sum of slot kDif + i
-  const float galpha2 = acc[kGAlpha2 - kDif];
-  const float gnom1 = acc[kGNom1 - kDif];
-  const float gk = gnom1 * (1.f - ptc.NoV) + acc[kGK2 - kDif];
-  const float gvhx = acc[kGV - kDif], gvhy = acc[kGV + 1 - kDif],
-              gvhz = acc[kGV + 2 - kDif];
-  const float gNoV = ptc.NoV_raw >= 1e-6f ? gnom1 * (1.f - ptc.k) : 0.f;
-  const float galpha = galpha2 * 2.f * ptc.alpha + gk * (1.f / 8.f);
-  drough[p] = galpha * 2.f * ptc.r + gk * 0.25f;
-  // V-hat = vdir / max(|vdir|, eps): dvdir = (gvh - (gvh.v) v) / |vdir| for
-  // gvh = gNoV ns + (the sums above). Viewed head-on, ns - NoV v cancels, so
-  // it is taken as v x (ns x v). Below |vdir| = 1e-12, dvdir = gvh / 1e-12.
-  float dvx, dvy, dvz;
-  if (ptc.m_v > 1e-12f) {
-    const float ex = ptc.nsy * ptc.vz - ptc.nsz * ptc.vy;
-    const float ey = ptc.nsz * ptc.vx - ptc.nsx * ptc.vz;
-    const float ez = ptc.nsx * ptc.vy - ptc.nsy * ptc.vx;
-    const float rv = gvhx * ptc.vx + gvhy * ptc.vy + gvhz * ptc.vz;
-    dvx = gNoV * (ptc.vy * ez - ptc.vz * ey) + gvhx - rv * ptc.vx;
-    dvy = gNoV * (ptc.vz * ex - ptc.vx * ez) + gvhy - rv * ptc.vy;
-    dvz = gNoV * (ptc.vx * ey - ptc.vy * ex) + gvhz - rv * ptc.vz;
-  } else {
-    dvx = gvhx + gNoV * ptc.nsx;
-    dvy = gvhy + gNoV * ptc.nsy;
-    dvz = gvhz + gNoV * ptc.nsz;
-  }
-  dvdir[3 * p] = dvx / ptc.M_v;
-  dvdir[3 * p + 1] = dvy / ptc.M_v;
-  dvdir[3 * p + 2] = dvz / ptc.M_v;
+  float dr, dv[3];
+  point_grads(ptc, &acc[kGAlpha2 - kDif], dr, dv);
+  drough[p] = dr;
+  dvdir[3 * p] = dv[0];
+  dvdir[3 * p + 1] = dv[1];
+  dvdir[3 * p + 2] = dv[2];
 #pragma unroll
   for (int c = 0; c < 3; ++c)
     dbc[3 * p + c] = gpbr[3 * p + c] * (acc[c] / S) / kPi;
 }
 
-// The SH gradients of the points on K4-bwd's unsure list, a warp a point
-// (kFixWarps warps take the list in turn), lane l taking samples l,
-// l + 32, ...: every sample whose |e_c| is below sign_tol_c (as
-// shade_bwd_kernel finds it, in the same order) takes max(e, 0)'s branch
-// from e in float64, and where that branch differs from float32's, dshs
-// moves by the difference times the sample's light gradient, summed over
-// the warp in a fixed order. The list's order does not matter: each point
-// is one warp's.
+// The points on K4-bwd's unsure list, a warp a point (kFixWarps warps take
+// the list in turn), lane l taking samples l, l + 32, ..., each found as
+// shade_bwd_kernel finds it, in the same order:
+//   * a sample whose |e_c| is below sign_tol_c takes max(e, 0)'s branch
+//     from e in float64, and where that branch differs from float32's,
+//     dshs moves by the difference times the sample's light gradient;
+//   * a sample whose q or VoH lies in its band (in_band) takes both clips'
+//     decisions from float64 (clips64), and where one differs from
+//     float32's, the GGX sums move by ggx_bwd of the difference, and
+//     d roughness and d view direction by point_grads of that.
+// Each correction is summed over the warp in a fixed order and added by
+// lane 0. The list's order does not matter: each point is one warp's.
 constexpr int kFixWarps = 512;
 
-// One point of shade_bwd_sign_fix_kernel, on one warp.
-__device__ __forceinline__ void sign_fix_point(
-    const float* __restrict__ dirs, const float* __restrict__ area,
+// One point of shade_bwd_fix_kernel, on one warp.
+__device__ __forceinline__ void fix_point(
+    const float* __restrict__ dirs, const float* __restrict__ vis,
+    const float* __restrict__ area, const float* __restrict__ gl,
     const float* __restrict__ bc, const float* __restrict__ rough,
     const float* __restrict__ nrm, const float* __restrict__ vdir,
     const float* __restrict__ shs, const float* __restrict__ gpbr,
     const float* __restrict__ gdif, const float* __restrict__ gspec, int p,
-    int S, int lane, float* __restrict__ dshs) {
+    int S, int lane, float* __restrict__ drough, float* __restrict__ dvdir,
+    float* __restrict__ dshs) {
   const float* row = shs + static_cast<size_t>(p) * kSHC;
   float tol[3] = {0.f, 0.f, 0.f};
   for (int k = 0; k < kSH; ++k) {
@@ -765,10 +891,12 @@ __device__ __forceinline__ void sign_fix_point(
     gD[c] = (gdif[3 * p + c] + gpc * bc[3 * p + c] / kPi) * inv_s;
     gS[c] = (gspec[3 * p + c] + gpc) * inv_s;
   }
-  float fix_sum[kSHC];
+  float fix_sum[kSHC], clip_sum[6];
 #pragma unroll
   for (int i = 0; i < kSHC; ++i) fix_sum[i] = 0.f;
-  bool moved_any = false;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) clip_sum[i] = 0.f;
+  bool moved_any = false, clipped_any = false;
   for (int j = lane; j < S; j += 32) {
     const size_t at = static_cast<size_t>(p) * S + j;
     const float dx = dirs[3 * at], dy = dirs[3 * at + 1], dz = dirs[3 * at + 2];
@@ -788,49 +916,89 @@ __device__ __forceinline__ void sign_fix_point(
         moved |= fix[c] != 0.f;
       }
     }
-    if (!moved) continue;
-    moved_any = true;
     const Ggx s = ggx(ptc, dx, dy, dz);
+    float fq = 0.f, fv = 0.f;   // float64's decision minus float32's
+    if (in_band(s)) {
+      const Clips c64 = clips64(nrm, vdir, ptc.r, p, dx, dy, dz);
+      fq = static_cast<float>(c64.q)
+           - static_cast<float>(inside(s.q, 1e-6f, k4Pi));
+      fv = static_cast<float>(c64.voh)
+           - static_cast<float>(s.VoH_raw >= 1e-6f);
+    }
+    const bool clipped = fq != 0.f || fv != 0.f;
+    if (!moved && !clipped) continue;
     const float an = area[at] * fmaxf(ptc.nx * dx + ptc.ny * dy + ptc.nz * dz, 0.f);
+    if (moved) {
+      moved_any = true;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float gfix = fix[c] * (gD[c] + gS[c] * s.f_s) * an;
+      for (int c = 0; c < 3; ++c) {
+        const float gfix = fix[c] * (gD[c] + gS[c] * s.f_s) * an;
 #pragma unroll
-      for (int k = 0; k < kSH; ++k) fix_sum[3 * k + c] += basis[k] * gfix;
+        for (int k = 0; k < kSH; ++k) fix_sum[3 * k + c] += basis[k] * gfix;
+      }
+    }
+    if (clipped) {              // gf as shade_bwd_kernel sums it
+      clipped_any = true;
+      float gf = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        gf += gS[c] * ((fmaxf(e[c], 0.f) + gl[3 * at + c] * vis[at]) * an);
+      ggx_bwd(ptc, s, fq * (-gf * s.f_s * s.r_nom),
+              fv * voh_grad(ptc, s, gf * s.r_nom), clip_sum);
     }
   }
-  if (!__any_sync(r3dg::kFullMask, moved_any)) return;
+  if (__any_sync(r3dg::kFullMask, moved_any)) {
 #pragma unroll
-  for (int i = 0; i < kSHC; ++i) {
+    for (int i = 0; i < kSHC; ++i) {
 #pragma unroll
-    for (int off = 16; off >= 1; off /= 2)
-      fix_sum[i] += __shfl_xor_sync(r3dg::kFullMask, fix_sum[i], off);
+      for (int off = 16; off >= 1; off /= 2)
+        fix_sum[i] += __shfl_xor_sync(r3dg::kFullMask, fix_sum[i], off);
+    }
+    if (lane == 0) {
+      float* out = dshs + static_cast<size_t>(p) * kSHC;
+#pragma unroll
+      for (int i = 0; i < kSHC; ++i) out[i] += fix_sum[i];
+    }
   }
-  if (lane != 0) return;
-  float* out = dshs + static_cast<size_t>(p) * kSHC;
+  if (__any_sync(r3dg::kFullMask, clipped_any)) {
 #pragma unroll
-  for (int i = 0; i < kSHC; ++i) out[i] += fix_sum[i];
+    for (int i = 0; i < 6; ++i) {
+#pragma unroll
+      for (int off = 16; off >= 1; off /= 2)
+        clip_sum[i] += __shfl_xor_sync(r3dg::kFullMask, clip_sum[i], off);
+    }
+    if (lane == 0) {
+      float dr, dv[3];
+      point_grads(ptc, clip_sum, dr, dv);
+      drough[p] += dr;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) dvdir[3 * p + i] += dv[i];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-shade_bwd_sign_fix_kernel(const float* __restrict__ dirs,
-                          const float* __restrict__ area,
-                          const float* __restrict__ bc,
-                          const float* __restrict__ rough,
-                          const float* __restrict__ nrm,
-                          const float* __restrict__ vdir,
-                          const float* __restrict__ shs,
-                          const float* __restrict__ gpbr,
-                          const float* __restrict__ gdif,
-                          const float* __restrict__ gspec,
-                          const int* __restrict__ unsure_list,
-                          int S, float* __restrict__ dshs) {
+shade_bwd_fix_kernel(const float* __restrict__ dirs,
+                     const float* __restrict__ vis,
+                     const float* __restrict__ area,
+                     const float* __restrict__ gl,
+                     const float* __restrict__ bc,
+                     const float* __restrict__ rough,
+                     const float* __restrict__ nrm,
+                     const float* __restrict__ vdir,
+                     const float* __restrict__ shs,
+                     const float* __restrict__ gpbr,
+                     const float* __restrict__ gdif,
+                     const float* __restrict__ gspec,
+                     const int* __restrict__ unsure_list, int S,
+                     float* __restrict__ drough, float* __restrict__ dvdir,
+                     float* __restrict__ dshs) {
   const int lane = threadIdx.x & 31;
   const int n = unsure_list[0];
   for (int w = blockIdx.x * (kThreads / 32) + threadIdx.x / 32; w < n;
        w += kFixWarps) {
-    sign_fix_point(dirs, area, bc, rough, nrm, vdir, shs, gpbr, gdif, gspec,
-                   unsure_list[1 + w], S, lane, dshs);
+    fix_point(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, gpbr, gdif,
+              gspec, unsure_list[1 + w], S, lane, drough, dvdir, dshs);
   }
 }
 
@@ -880,13 +1048,15 @@ extern "C" int r3dg_shade_bwd(const void* dirs, const void* vis,
       static_cast<float*>(dgl), static_cast<int*>(unsure));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  shade_bwd_sign_fix_kernel<<<kFixWarps / (kThreads / 32), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dirs), static_cast<const float*>(area),
+  shade_bwd_fix_kernel<<<kFixWarps / (kThreads / 32), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dirs), static_cast<const float*>(vis),
+      static_cast<const float*>(area), static_cast<const float*>(gl),
       static_cast<const float*>(bc), static_cast<const float*>(rough),
       static_cast<const float*>(nrm), static_cast<const float*>(vdir),
       static_cast<const float*>(shs), static_cast<const float*>(gpbr),
       static_cast<const float*>(gdif), static_cast<const float*>(gspec),
-      static_cast<const int*>(unsure), S, static_cast<float*>(dshs));
+      static_cast<const int*>(unsure), S, static_cast<float*>(drough),
+      static_cast<float*>(dvdir), static_cast<float*>(dshs));
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,8 @@ returns (pbr, diffuse_light, specular), each [P, 3]:
 As in the train step, normals, visibility, directions and areas are
 constants: K4 gives them no gradient. `LAUNCHES` counts K4-fwd's launches
 and `BWD_LAUNCHES` K4-bwd's (a call of `shade_bwd`: the backward kernel and
-its local-light sign fix-up, one launch each).
+its fix-up, which takes a listed point's unsure branches from float64, one
+launch each).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import math
 import torch
 
 from . import _build
-from .shading import rendering_equation
+from .shading import ggx_terms, rendering_equation
 
 KERNEL = "shading"
 N_SH = 16          # csrc/shading.cu kSH: degree-3 local-light SH
@@ -32,6 +33,10 @@ POINTS_PER_BLOCK = 32   # csrc/shading.cu kPoints: a block's run of points
 FLOAT32_CLIP = float(torch.tensor(1e-6, dtype=torch.float32))    # 1e-6f
 FLOAT32_TINY = float(torch.tensor(1e-12, dtype=torch.float32))   # 1e-12f
 K4_PI4 = 4 * float(torch.tensor(math.pi, dtype=torch.float32))   # k4Pi
+# csrc/shading.cu kQBand, kVoHBand: where K4's float32 q lies within
+# Q_BAND of 1e-6 (relative), or its VoH within VOH_BAND, K4 takes both
+# clips' decisions from float64 (k4_clip_passes)
+Q_BAND, VOH_BAND = 5e-4, float(torch.tensor(2e-6, dtype=torch.float32))
 LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
 
@@ -92,22 +97,30 @@ class ShadeFunction(torch.autograd.Function):
 
 def view_side(normals: torch.Tensor, viewdirs: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """sign(V·N) a point [P] as K4 rounds it in float32, and in float64.
+    """sign(V·N) a point [P] as float32 alone rounds it, and K4's, which is
+    the float64 reference's.
 
-    K4 (csrc/shading.cu::load_point) normalises V and N by IEEE sqrt and
-    division and sums the products with FMAs, as nvcc contracts them:
-    ((vx nx + vy ny) + vz nz) is fma(vz, nz, fma(vy, ny, vx·nx)). Each
-    FMA is one float64 product and sum of float32 values rounded once to
+    K4 (csrc/shading.cu::load_point) normalises V and N in double from the
+    float32 inputs and takes the sign of their dot in double, as the
+    reference does; it turns N to the viewer by that sign and zeroes N only
+    where it is 0. The first sign is K4's float32 chain's, for a report of
+    the points float32 alone would turn the other way or zero: IEEE sqrt
+    and division, the products summed with FMAs as nvcc contracts them,
+    ((vx nx + vy ny) + vz nz) as fma(vz, nz, fma(vy, ny, vx·nx)). Each FMA
+    is one float64 product and sum of float32 values rounded once to
     float32 here (a double rounding, which can differ from the FMA only at
-    a tie). K4 turns N to the viewer by this sign and zeroes N where it is
-    0; where it is 0 or differs from the float64 sign, K4 shades another
-    function than the float64 reference."""
-    v, n = _unit32(viewdirs), _unit32(normals)
-    s = _dot32(v, n)
+    a tie)."""
+    s = _dot32(_unit32(viewdirs), _unit32(normals))
+    return torch.sign(s), _sign64(normals, viewdirs)
+
+
+def _sign64(normals: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+    """sign(V·N) [P] with V and N normalised in float64, as the reference
+    and K4 take it."""
     n64, v64 = normals.double(), viewdirs.double()
     exact = ((v64 / v64.norm(dim=-1, keepdim=True))
              * (n64 / n64.norm(dim=-1, keepdim=True))).sum(-1)
-    return torch.sign(s), torch.sign(exact)
+    return torch.sign(exact)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -136,17 +149,16 @@ def k4_branch_operands(normals: torch.Tensor, viewdirs: torch.Tensor,
     """The operands of K4's clips as K4 rounds them in float32: NoV [P]
     and NoH, VoH and the GGX denominator q [P, S] (csrc/shading.cu::
     load_point and ::ggx, in their expression order, each FMA emulated as
-    in `view_side`), as float64 tensors. K4 passes a clip's gradient where
-    the operand is >= 1e-6f (q: within [1e-6f, 4 pi]); the plain version in
-    float64 (ops/shading.py::ggx_terms) where its own is >= 1e-6. Which of
-    two products nvcc fuses in a difference (the cross product) is a
-    guess, so the count of decisions this gives is an estimate."""
+    in `view_side`, N turned by K4's sign from float64), as float64
+    tensors. Which of two products nvcc fuses in a difference (the cross
+    product) is a guess, so the operands are an estimate within their
+    float32 error. `k4_clip_passes` takes K4's decisions from them."""
     f32, dot = _f32, _dot32
     vd = viewdirs.double()
     v, nh = _unit32(vd), _unit32(normals)
     # V's rounding error, kept per point from float64 (load_point: vl)
     vl = f32(vd / torch.clamp(vd.norm(dim=-1, keepdim=True), min=1e-12) - v)
-    ns = nh * torch.sign(dot(v, nh))[:, None]
+    ns = nh * _sign64(normals, viewdirs)[:, None]
     r = roughness.double().reshape(-1)
     alpha = f32(r * r)
     alpha2 = f32(alpha * alpha)
@@ -174,6 +186,38 @@ def k4_branch_operands(normals: torch.Tensor, viewdirs: torch.Tensor,
                + k[:, None])
     q = f32(f32(f32(f32(K4_PI4 * nom0) * nom0) * nom1[:, None]) * nom2)
     return {"NoV": nov, "NoH": noh, "VoH": voh, "q": q}
+
+
+def k4_clip_passes(normals: torch.Tensor, viewdirs: torch.Tensor,
+                   roughness: torch.Tensor, incident_dirs: torch.Tensor
+                   ) -> dict:
+    """K4's lower-clip decisions, True where the clip passes the gradient:
+    NoV [P] and NoH, VoH and q [P, S] (q within [1e-6, 4 pi]), by K4's rule
+    (csrc/shading.cu, branch list): NoV from float64; q and VoH from
+    float64 at a sample where K4's float32 q lies within Q_BAND of 1e-6
+    or its VoH within VOH_BAND of 1e-6 (`k4_branch_operands`), from
+    float32 elsewhere; NoH from float32. The float64 operands are the
+    plain version's in float64 (ops/shading.py::ggx_terms), whose form
+    K4's fix-up kernel repeats in double. "double" [P, S] marks the
+    samples whose q and VoH decisions K4 takes from float64."""
+    P = normals.shape[0]
+    ops = k4_branch_operands(normals, viewdirs, roughness, incident_dirs)
+    ex = {k: v.reshape(P, -1) for k, v in ggx_terms(
+        normals.double(), viewdirs.double(), incident_dirs.double(),
+        roughness.double().reshape(P, 1)).items()}
+    q, voh = ops["q"], ops["VoH"]
+    q_band = float(torch.tensor(Q_BAND, dtype=torch.float32)
+                   * torch.tensor(1e-6, dtype=torch.float32))  # kQBand * 1e-6f
+    double = ((_f32(q - FLOAT32_CLIP).abs() <= q_band)
+              | (_f32(voh - FLOAT32_CLIP).abs() <= VOH_BAND))
+    q64 = (ex["q"] >= 1e-6) & (ex["q"] <= 4 * math.pi)
+    return {"NoV": ex["NoV"][:, 0] >= 1e-6,
+            "NoH": ops["NoH"] >= FLOAT32_CLIP,
+            "VoH": torch.where(double, ex["VoH"] >= 1e-6,
+                               voh >= FLOAT32_CLIP),
+            "q": torch.where(double, q64,
+                             (q >= FLOAT32_CLIP) & (q <= K4_PI4)),
+            "double": double}
 
 
 def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,

@@ -1345,7 +1345,7 @@ def test_lpips_on_the_card_matches_cpu(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# MVS, the viewer and K4's grazing points (chip_smoke.py's helpers)
+# MVS, the viewer and K4 at grazing views (chip_smoke.py's helpers)
 # ---------------------------------------------------------------------------
 
 def chip_smoke_module():
@@ -1455,16 +1455,15 @@ def test_viewer_frame_on_the_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("eps", [0.0, 1e-9])
-def test_k4_gate_leaves_out_exactly_the_grazing_points(cuda, eps):
+def test_k4_holds_float64_at_every_grazing_point(cuda, eps):
     """Inputs built as examples/k4_grazing.py builds them (the first 200 of
-    2000 points viewed at V.N = +-eps): chip_smoke's K4 gate passes outside
-    the points K4 views at grazing (its float32 sign of V.N 0 or apart
-    from float64's, shading_cuda.view_side), every such point is one of the
-    200, and with them in the gate fails on some seed (K4 shades another
-    function there)."""
+    2000 points viewed at V.N = +-eps): float32 alone would turn some of
+    those normals the other way or zero them (shading_cuda.view_side's
+    first sign, none outside the 200), and K4, which takes sign(V.N) and
+    NoV's clip from float64, passes chip_smoke's K4 gate with every point
+    in, on three seeds."""
     cs = chip_smoke_module()
     grazing, P = 200, 2000
-    fails = []
     for seed in range(3):
         x = list(cs.shading_case(P, 64, 100 + seed, cuda))
         n, v = x[2][:grazing], x[3].clone()
@@ -1480,9 +1479,7 @@ def test_k4_gate_leaves_out_exactly_the_grazing_points(cuda, eps):
         assert flagged.numel() > 0 and int(flagged.max()) < grazing
         _, _, info = cs.check_k4(tuple(x), f"k4-grazing-{seed}", seed,
                                  timed=False)
-        assert info["grazing_points"] == flagged.numel()
-        fails += info["fails_without_exemption"]
-    assert fails, "no grazing point moved the gate"
+        assert info["float32_sign_flips"] == flagged.numel()
 
 
 @pytest.mark.parametrize("theta", [1e-4, 1e-3])
@@ -1521,7 +1518,7 @@ def test_k4_half_vector_keeps_its_precision_opposite_the_view(cuda, theta):
             theta, seed, e_kernel, e_plain)
         _, _, info = cs.check_k4(tuple(x), f"k4-antipodal-{seed}", seed,
                                  timed=False)
-        assert info["grazing_points"] == 0
+        assert info["float32_sign_flips"] == 0
 
 
 @pytest.mark.parametrize("delta", [0.0, 1e-7])
@@ -1559,20 +1556,25 @@ def test_k4_takes_the_local_lights_sign_from_float64_near_zero(cuda, delta):
         cs.check_k4(tuple(x), f"k4-light-zero-{seed}", seed, timed=False)
 
 
-@pytest.mark.parametrize("delta", [1e-8, 1e-6, 1e-5])
+@pytest.mark.parametrize("delta", [1e-8, 1e-6, 1e-5, 5e-4, 2e-3])
 @pytest.mark.parametrize("case", ["q-clip", "nov-clip", "noh-clip",
                                   "voh-clip"])
 def test_k4_holds_float64_at_its_clips(cuda, case, delta):
     """2000 points built as chip_smoke.k4_branch_case builds them (as
     examples/k4_conditioning.py and the k4-branches phase do): the GGX
     denominator q, NoV, NoH or VoH of each at 1e-6 (1 + delta) in float64,
-    alternating in sign, where float32 can decide the clip either way.
-    chip_smoke's K4 gate passes, with no point viewed at grazing."""
+    alternating in sign, where float32 can decide the clip either way
+    (5e-4 at the edge of K4's band for q, 2e-3 beyond it). K4 takes the
+    clips of q, NoV and VoH from float64 where float32 could err, so there
+    chip_smoke's K4 gate passes on K4's tolerance alone, without K4_SLACK;
+    at NoH's clip, whose jump carries the factor NoH = 1e-6, as the gate
+    stands. No point is viewed at grazing."""
     cs = chip_smoke_module()
     x, _, reached = cs.k4_branch_case(case, 2000, 64, 700, cuda, (delta,))
     assert (abs(reached) <= delta).all()
-    _, _, info = cs.check_k4(x, f"k4-{case}-{delta:g}", 7, timed=False)
-    assert info["grazing_points"] == 0
+    _, _, info = cs.check_k4(x, f"k4-{case}-{delta:g}", 7, timed=False,
+                             slack=case not in cs.K4_SLACK_FREE)
+    assert info["float32_sign_flips"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -285,3 +285,68 @@ def test_upper_clip_tie_passes_no_gradient_that_matters():
     assert_outputs_close(got, want)
     for name, g, w in zip(GRAD_NAMES, got_g, want_g):
         assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max(), name
+
+
+def grazing_inputs(P: int, S: int, n_grazing: int, eps: float, seed: int):
+    """chip_smoke.shading_case's inputs with the view direction of the
+    first `n_grazing` points set at V·N = +-eps (alternating signs), as
+    examples/k4_grazing.py sets them."""
+    x = list(cs.shading_case(P, S, 100 + seed, "cpu"))
+    n, v = x[2][:n_grazing], x[3].clone()
+    g = torch.Generator().manual_seed(seed)
+    tang = torch.linalg.cross(n, torch.randn((n_grazing, 3), generator=g))
+    tang = tang / tang.norm(dim=-1, keepdim=True)
+    sign = 1.0 - 2.0 * (torch.arange(n_grazing) % 2)
+    w = tang + (sign * eps)[:, None] * n
+    v[:n_grazing] = w / w.norm(dim=-1, keepdim=True)
+    x[3] = v.contiguous()
+    return tuple(x)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-9])
+def test_k4_takes_sign_and_nov_from_float64_at_grazing_views(eps):
+    """Views within eps of grazing on 200 of 2000 points: float32 alone
+    turns some normals the other way or zeroes them (view_side's first
+    sign), K4's sign (its second) is numpy's float64 sign at every point,
+    and K4's float32 NoV (k4_branch_operands, N turned by that sign) lies
+    within 1e-6 of the float64 NoV = |V·N| everywhere, so K4's NoV clip
+    decision (k4_clip_passes) is float64's."""
+    x = grazing_inputs(2000, 16, 200, eps, 0)
+    side32, k4_sign = shading_cuda.view_side(x[2], x[3])
+    n, v = x[2].numpy().astype(np.float64), x[3].numpy().astype(np.float64)
+    dot = ((v / np.linalg.norm(v, axis=-1, keepdims=True))
+           * (n / np.linalg.norm(n, axis=-1, keepdims=True))).sum(-1)
+    np.testing.assert_array_equal(k4_sign.numpy(), np.sign(dot))
+    flipped = ((side32 == 0) | (side32 != k4_sign)).numpy()
+    assert flipped.any() and not flipped[200:].any()
+    ops = shading_cuda.k4_branch_operands(x[2], x[3], x[1], x[7])
+    np.testing.assert_allclose(ops["NoV"].numpy(), np.abs(dot), rtol=0,
+                               atol=1e-6)
+    passes = shading_cuda.k4_clip_passes(x[2], x[3], x[1], x[7])
+    np.testing.assert_array_equal(passes["NoV"].numpy(), np.abs(dot) >= 1e-6)
+
+
+@pytest.mark.parametrize("case", cs.K4_BRANCH_CASES)
+def test_k4_rule_decides_the_forced_clips_as_float64(case):
+    """The k4-branches phase's inputs (2000 points, every |delta| of the
+    grid in both signs): K4's decisions by its rule (k4_clip_passes: the
+    sign and NoV's clip from float64, q's and VoH's from float64 inside
+    their bands) equal the plain version's in float64 (ops/shading.py::
+    ggx_terms) for the sign, NoV, q and VoH at every delta, where K4's
+    float32 chain alone (k4_branch_operands) decides the forced clip
+    otherwise on some points. At q-clip the forced samples lie inside the
+    band at every delta up to 5e-4 and beyond it at 2e-3."""
+    i = cs.K4_BRANCH_CASES.index(case)
+    x, delta, _ = cs.k4_branch_case(case, cs.K4_BRANCH_P, 64,
+                                    cs.SEED + 500 + i, "cpu")
+    apart = cs.clip_decisions_apart(x)
+    assert {k: apart["k4"][k] for k in ("sign", "NoV", "q", "VoH")} == {
+        "sign": 0, "NoV": 0, "q": 0, "VoH": 0}, apart
+    op = cs.K4_BRANCHES[case]
+    assert apart["k4_float32"][op] > 0, apart
+    if case == "q-clip":
+        double = shading_cuda.k4_clip_passes(
+            x[2], x[3], x[1], x[7])["double"][:, -1].numpy()
+        beyond = np.isclose(abs(delta), 2e-3)
+        assert beyond.any() and not double[beyond].any()
+        assert double[abs(delta) <= 5e-4].all()
