@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
-[--ptxas-also OTHER_KERNEL_CU ...]
+"""Smoke run of the PyTorch port on NVIDIA GPUs (one or more): python3
+chip_smoke.py [--ptxas-also OTHER_KERNEL_CU ...]
 
 Drives the port's main paths, the stage-1 render of a checkpoint, stage-1
 training and stage-2 (PBR) training with its eval render, through the entry
@@ -8,7 +8,9 @@ plain PyTorch version. Phases, in the order they run (each prints one line,
 the train phases a few; any failure raises, so the exit code is non-zero and
 no result line is printed):
 
-  1. device   needs torch.cuda; prints the card's name and power limit;
+  1. device   needs torch.cuda; prints how the cards are joined (nvidia-smi
+              topo -m, NVLink status, peer access) and the card's name
+              and power limit;
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
               (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu),
@@ -186,30 +188,52 @@ no result line is printed):
               unpacked): the same render bitwise but the weights, and K2's
               gradient into each layout, the full one's symmetrized within
               K2_TOL of the packed one's;
- 28. dp-stage1  two ranks on the one card (gloo), started by
-              parallel.spawn: DP1_STEPS data-parallel stage-1 steps
-              (parallel.make_dp_train_step) from the train phase's model and
-              views, two cameras a step, a densify and an opacity reset
-              inside; both replicas bitwise equal after every step (sha256
-              of the model, statistics and Adam state), K1 and K2 once per
-              rank per step, the first step against a hand combination in
-              this process (each view's gradients and statistics alone,
-              gradients averaged, statistics summed, radii maxed, one Adam
-              step) under tests/test_torch_train.py's tolerances; ms per
-              data-parallel step (utils.timing). Two ranks sharing one card
-              measure no scaling;
+ 28. dp-stage1  at each rank layout (dp_layouts: with two or more cards
+              one rank a card over NCCL at 1, 2 and min(count, 4) ranks;
+              with one card two ranks on it over gloo, and a line saying
+              the NCCL layouts need two cards), one parallel.spawn a
+              layout, every line naming its layout: DP1_STEPS
+              data-parallel stage-1 steps (parallel.make_dp_train_step)
+              from the train phase's model and views, a camera a rank a
+              step, a densify and an opacity reset inside; every replica
+              bitwise equal after every step (sha256 of the model,
+              statistics and Adam state, parallel.replica_digest), K1 and
+              K2 once per rank per step, the first step against a hand
+              combination in this process (each view's gradients and
+              statistics alone, gradients averaged, statistics summed,
+              radii maxed, one Adam step) under tests/test_torch_train.py's
+              tolerances; ms per data-parallel step (utils.timing) and
+              views per second, ms of parallel.replicate, and the ms
+              (CUDA events) and bytes of the step's gradient all_reduce;
  29. dp-stage2  the same for DP2_STEPS steps of make_dp_train_step_stage2
               from the stage2 phase's state, its visibility traced anew
               through the ray-sharded trace; K4-fwd and K4-bwd once per rank
               per step, the env maps bitwise equal;
- 30. sharded  make_sharded_trace over the two ranks on the stage-2 model's
-              rays (~6.5M): each ray's visibility bitwise equal to one K3
-              launch on all rays; make_sharded_shading(full_extras=True)
-              through render_neilf._shade_points against the unsharded
-              shading within 1e-6; a render_neilf(is_training=False) view
-              with both hooks against the unsharded view under k1-main's
-              gate. Phases 28 to 30 share one spawn.
- 31. prune-only  stage-1 steps of a copy of the train phase's model (its
+ 30. sharded  make_sharded_trace over the layout's ranks on the stage-2
+              model's rays (~6.5M): each ray's visibility bitwise equal to
+              one K3 launch on all rays; make_sharded_shading(full_extras=
+              True) through render_neilf._shade_points against the
+              unsharded shading within 1e-6 (and whether bitwise); a
+              render_neilf(is_training=False) view with both hooks against
+              the unsharded view under k1-main's gate. Phases 28 to 30
+              share one spawn a layout; then parallel-scaling: each
+              layout's stage-1 and stage-2 ms a step and views per second
+              (and over one rank's), all_reduce and replicate ms, the
+              sharded trace's ms a rank against one launch, beside the
+              card's name and power limit;
+ 31. cli-ranks  (two or more cards) the cli phase's scene through the
+              CLIs' mains at --n_devices min(count, 4), one rank a card
+              over NCCL, each rank counting its launches and holding each
+              ray-sharded trace bitwise against one K3 launch on its rays
+              (cli_rank): cli.train stage 1 (20 steps, a densify at 10),
+              -t neilf (10 steps), cli.eval_nvs -t neilf against its own
+              one-rank run (images bitwise, or within one u8 level and
+              1e-4 dB), cli.relighting against the relight phase's
+              frames; the replicas bitwise equal at the end of each
+              training (parallel.check_replicas), the losses finite and
+              falling, K1, K2 (and K4) once a step on every rank; the
+              eval's ms a view at n ranks and at one;
+ 32. prune-only  stage-1 steps of a copy of the train phase's model (its
               statistics and Adam state, through save_checkpoint and
               load_train_state) on its views (K1, K2): 10 steps, models.
               gaussians.prune_only with max_screen_size inf, 10 steps, again
@@ -234,6 +258,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import decimal
+import functools
 import hashlib
 import itertools
 import json
@@ -254,6 +280,7 @@ from relightable3dgaussian_tpu_torch.cli import (eval_nvs,
                                                  eval_relighting_syn4,
                                                  relighting)
 from relightable3dgaussian_tpu_torch.cli import train as train_cli
+from relightable3dgaussian_tpu_torch.cli.arguments import rank_devices
 from relightable3dgaussian_tpu_torch.models.gaussians import STATS as G_STATS
 from relightable3dgaussian_tpu_torch.models.gaussians import (
     WEIGHTS_PRUNE, GaussianModel, StatContribs, apply_stat_contribs,
@@ -286,8 +313,9 @@ from relightable3dgaussian_tpu_torch.ops.tiles import Binning
 from relightable3dgaussian_tpu_torch.parallel import (make_dp_train_step,
                                                       make_dp_train_step_stage2,
                                                       replicate, spawn)
-from relightable3dgaussian_tpu_torch.parallel.data_parallel import \
-    choose_backend
+from relightable3dgaussian_tpu_torch.parallel import data_parallel
+from relightable3dgaussian_tpu_torch.parallel.data_parallel import (
+    all_reduce_, choose_backend, replica_digest)
 from relightable3dgaussian_tpu_torch.parallel.point_sharded import (
     make_sharded_shading, make_sharded_trace)
 from relightable3dgaussian_tpu_torch.raster import (
@@ -320,6 +348,7 @@ from relightable3dgaussian_tpu_torch.utils.timing import Timing
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 SEED = 0
+CARD = ""    # nvidia-smi's name and power limit of the card, set by main
 N_MAIN, SIZE_MAIN, VIEWS = 100_000, 800, 8
 N_MID, SIZE_MID = 20_000, 400
 CAM_RADIUS, FOV = 3.0, 0.9
@@ -578,8 +607,17 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     if agree_frac < COUNT_AGREE:
         raise AssertionError(f"{label}: n_contrib equal on {agree_frac:.6f} "
                              f"of pixels < {COUNT_AGREE}")
-    torch.testing.assert_close(got.image[agree], want.image[agree],
-                               atol=IMG_ATOL, rtol=IMG_RTOL)
+    try:
+        torch.testing.assert_close(got.image[agree], want.image[agree],
+                                   atol=IMG_ATOL, rtol=IMG_RTOL)
+    except AssertionError as e:
+        far = agree & ((got.image - want.image).abs()
+                       > IMG_ATOL + IMG_RTOL * want.image.abs()).any(-1)
+        raise AssertionError(
+            f"{label}: K1's image apart from the plain compositor's at "
+            f"{int(far.sum())} pixels of equal counts, {int((far & split).sum())}"
+            f" of them split pixels (their stops or final T apart: "
+            f"ops/composite.py::split_pixels); {e}") from None
     img_err = float((got.image[agree] - want.image[agree]).abs().max())
     # the gaussians with a pair in the range of a tile that holds a split
     # pixel; every other weight is held to W_RTOL, W_ATOL
@@ -1269,14 +1307,57 @@ def k4_worst_points(x, got, plain, exact, rows, n: int = 4) -> list[dict]:
     return out
 
 
-def plain_shading_graph(x, cot):
+def plain_shading_graph(x, cot, voh_pass=None):
     """The plain shading's forward under autograd: (leaves base_color,
-    roughness, viewdirs, shs, global_light; Σ cot · outputs)."""
+    roughness, viewdirs, shs, global_light; Σ cot · outputs); `voh_pass`
+    [P, S, 1], where given, decides VoH's lower clip (reference_voh_pass)."""
     leaves = [x[i].detach().clone().requires_grad_() for i in (0, 1, 3, 4, 5)]
     bc, rough, vdir, shs, gl = leaves
     outs = shading_cuda.rendering_equation_train_reference(
-        bc, rough, x[2], vdir, shs, gl, *x[6:])
+        bc, rough, x[2], vdir, shs, gl, *x[6:], voh_pass=voh_pass)
     return leaves, sum((c * o).sum() for c, o in zip(cot, outs))
+
+
+def exact_voh(v, d) -> decimal.Decimal:
+    """V.H with V = v / |v| and H = (d + V) / |d + V|, in 60 digits, from
+    the float32 view direction v [3] and sample d [3]."""
+    with decimal.localcontext() as ctx:
+        ctx.prec = 60
+        v = [decimal.Decimal(float(a)) for a in v]
+        d = [decimal.Decimal(float(a)) for a in d]
+        m = sum(a * a for a in v).sqrt()
+        V = [a / m for a in v]
+        s = [a + b for a, b in zip(d, V)]
+        return sum(a * b for a, b in zip(V, s)) / sum(a * a for a in s).sqrt()
+
+
+def reference_voh_pass(x) -> tuple[torch.Tensor, dict]:
+    """VoH's lower-clip decision [P, S, 1] for check_k4's float64
+    reference, on rendering_equation_train's inputs x: at the samples K4
+    takes to its fix-up (shading_cuda.k4_clip_passes' "double"), the exact
+    one (exact_voh in 60 digits: there 1 + V.d cancels to ~3e-10, and
+    float64's own decision can go either way within ~8e-6 of 1e-6 of the
+    clip); elsewhere float64's. Returns it and a count of those samples and
+    of the ones where float64 decides otherwise."""
+    vdir, dirs = x[3], x[7]
+    voh64 = ggx_terms(x[2].double(), vdir.double(), dirs.double(),
+                      x[1].double())["VoH"]
+    want = voh64 >= K4_CLIP
+    marked = shading_cuda.k4_clip_passes(x[2], vdir, x[1], dirs)["double"]
+    rows = marked.nonzero().cpu().numpy()
+    if len(rows):
+        v, d = vdir.cpu().numpy(), dirs.cpu().numpy()
+        clip = decimal.Decimal(K4_CLIP)
+        exact = torch.tensor([exact_voh(v[p], d[p, j]) >= clip
+                              for p, j in rows], device=want.device)
+        idx = torch.as_tensor(rows.T, device=want.device)
+        apart = int((want[idx[0], idx[1], 0] != exact).sum())
+        want = want.clone()
+        want[idx[0], idx[1], 0] = exact
+    else:
+        apart = 0
+    return want, {"voh_exact_samples": len(rows),
+                  "float64_voh_apart_from_exact": apart}
 
 
 def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
@@ -1284,14 +1365,15 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
              slack: bool = True):
     """K4-fwd and K4-bwd against the plain shading on the same inputs and a
     seeded cotangent, at every point, each held against the plain shading
-    in float64 beside the plain float32 version's own error (K4_SLACK;
+    in float64 (VoH's clip decided exactly where K4 takes it past float64:
+    reference_voh_pass) beside the plain float32 version's own error (K4_SLACK;
     without `slack`, to K4's tolerance alone), and with `min_dshs` the SH
     gradient's largest entry above it; raises on disagreement. Returns the
     numbers for the kernels line, fwd and bwd (without `timed`, no times),
     and a report: each field's error, K4's and the plain version's, whether
     K4 is within its tolerance alone, and how many points float32 alone
     would have turned the other way at sign(V·N) (shading_cuda.view_side;
-    K4 takes that sign from float64)."""
+    K4 takes that sign from float64), and reference_voh_pass' counts."""
     P = x[0].shape[0]
     gen = torch.Generator().manual_seed(seed)
     cot = [torch.randn((P, 3), generator=gen).to(x[0].device) for _ in range(3)]
@@ -1302,10 +1384,11 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
     got_g = (dbc, drough[:, None], dvdir, dshs.view(P, -1, 3), dgl)
     plain = shading_cuda.rendering_equation_train_reference(*x)
     exact = shading_cuda.rendering_equation_train_reference(*x64)
+    voh_pass, voh_info = reference_voh_pass(x)
     with torch.enable_grad():
         leaves, loss = plain_shading_graph(x, cot)
         plain_g = torch.autograd.grad(loss, leaves)
-        leaves64, loss64 = plain_shading_graph(x64, cot64)
+        leaves64, loss64 = plain_shading_graph(x64, cot64, voh_pass)
         exact_g = torch.autograd.grad(loss64, leaves64)
     side32, side64 = shading_cuda.view_side(x[2], x[3])
     every = torch.ones_like(side64, dtype=torch.bool)
@@ -1349,7 +1432,7 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
                              f"{float(dshs.abs().max())} is not above {min_dshs}")
     info = {"float32_sign_flips": int(((side32 == 0)
                                        | (side32 != side64)).sum()),
-            "errs": errs, "within_tol": within_tol}
+            "errs": errs, "within_tol": within_tol, **voh_info}
     if not timed:
         return None, None, info
     fwd_ms = cuda_ms(lambda: shading_cuda.shade_fwd(*kin), reps)
@@ -1367,6 +1450,8 @@ def check_k4(x, label: str, seed: int, reps: int = 10, plain_reps: int = 3,
     say(label, points=P, samples=S,
         visibility_mean=f"{float(x[6].mean()):.4f}",
         float32_sign_flips=info["float32_sign_flips"],
+        voh_exact_samples=info["voh_exact_samples"],
+        float64_voh_apart_from_exact=info["float64_voh_apart_from_exact"],
         err_kernel_plain_vs_float64=errs,
         fwd_max_abs_err=f"{abs_err['fwd']:.3e}",
         bwd_max_abs_err=f"{abs_err['bwd']:.3e}",
@@ -1629,13 +1714,15 @@ def k4_branch_case(case: str, P: int, S: int, seed: int, device,
 
 def clip_decisions_apart(x) -> dict:
     """How many decisions (sign(V·N) and NoV's clip a point; NoH's, VoH's
-    and q's a sample) are taken otherwise than by the plain version in
-    float64, on rendering_equation_train's inputs x: by K4
+    and q's a sample) are taken otherwise than by check_k4's reference (the
+    plain version in float64, VoH's clip exact where K4 takes it past
+    float64: reference_voh_pass), on rendering_equation_train's inputs x: by K4
     (shading_cuda.k4_clip_passes emulates its rule, view_side its sign),
     by K4's float32 chain alone (shading_cuda.k4_branch_operands, the sign
     from view_side), and by the plain float32 version; and how many samples
-    K4 sends to its double branch. NoV, NoH and VoH pass their gradient at
-    or above 1e-6, q within [1e-6, 4 pi]."""
+    K4 sends to its double branch, and at how many of them float64's own
+    VoH decision is not the exact one. NoV, NoH and VoH pass their gradient
+    at or above 1e-6, q within [1e-6, 4 pi]."""
     rough, nrm, vdir, dirs = x[1], x[2], x[3], x[7]
     P = nrm.shape[0]
 
@@ -1647,13 +1734,15 @@ def clip_decisions_apart(x) -> dict:
 
     exact = ggx_terms(nrm.double(), vdir.double(), dirs.double(),
                       rough.double())
+    voh_pass, voh_info = reference_voh_pass(x)
     side32, side64 = shading_cuda.view_side(nrm, vdir)
     plain_sign = torch.sign((torch.nn.functional.normalize(vdir, dim=-1)
                              * torch.nn.functional.normalize(nrm, dim=-1)
                              ).sum(-1))
     k4 = shading_cuda.k4_clip_passes(nrm, vdir, rough, dirs)
     double = int(k4.pop("double").sum())
-    want = {"sign": side64, **passes(exact, K4_CLIP, 4 * math.pi)}
+    want = {"sign": side64, **passes(exact, K4_CLIP, 4 * math.pi),
+            "VoH": voh_pass.reshape(P, -1)}
     sides = {
         "k4": {"sign": side64, **k4},
         "k4_float32": {"sign": side32, **passes(
@@ -1664,6 +1753,8 @@ def clip_decisions_apart(x) -> dict:
     out = {who: {k: int((v.reshape(want[k].shape) != want[k]).sum())
                  for k, v in side.items()} for who, side in sides.items()}
     out["k4_double_branch_samples"] = double
+    out["float64_voh_apart_from_exact"] = voh_info[
+        "float64_voh_apart_from_exact"]
     return out
 
 
@@ -2318,7 +2409,7 @@ def relight_phase(s2: dict, cli: dict, device) -> dict:
         own_bvh_above_share=f"{own_above:.6f}",
         own_bvh_lower_share=f"{own_lower:.5f}")
     return {"launches": launches, "k3_ms": k3_ms, "k3_rays": k3_rays,
-            **traced_k3}
+            "root": root, "env": env, **traced_k3}
 
 
 def write_syn4(root: Path, cli: dict) -> tuple[Path, Path]:
@@ -2998,8 +3089,16 @@ DENSE_BG = (0.1, 0.2, 0.3)
 DENSE_NEAR = 1e-4
 DENSE_TOL = {"color": 2e-5, "opacity": 2e-5, "depth": 1e-4, "feature": 5e-5}
 DENSE_W_TOL, DENSE_COUNT_AGREE, DENSE_GRAD_TOL = 1e-3, 0.999, 2e-3
-# Two ranks on the one card (gloo): parallel.spawn's own processes.
-DP_DEVICES = ("cuda:0", "cuda:0")
+# The parallel phases' rank layouts (dp_layouts): with two or more cards,
+# one rank a card over NCCL at 1 rank (the single-rank step, the baseline of
+# the scaling numbers), 2 and min(count, DP_MAX_RANKS); with one card, two
+# ranks on it over gloo (parallel.spawn's own processes), which measure no
+# scaling.
+DP_MAX_RANKS = 4
+# Seconds a rank of the parallel and cli-ranks phases waits in one
+# collective before it fails (parallel.spawn's collective_timeout_s).
+DP_COLLECTIVE_TIMEOUT_S = 180.0
+DP_ALLREDUCE_REPS = 10
 DP1_STEPS, DP1_DENSIFY_AT, DP1_RESET_AT = 20, 8, 14
 DP2_STEPS = 10
 # One data-parallel step against the hand combination: tests/
@@ -3275,20 +3374,43 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
     return {"K1": sum(launches), "full": full_launches}
 
 
-def state_digest(model: GaussianModel, optimizers, env=None) -> str:
-    """sha256 of a replica: the model's fields and statistics, the Adam
-    state of each of `optimizers` and the env map."""
-    h = hashlib.sha256()
-    tensors = [getattr(model, k) for k in model.fields + G_STATS]
-    if env is not None:
-        tensors.append(env.env)
-    for opt in optimizers:
-        for group in opt.param_groups:
-            state = opt.state[group["params"][0]]
-            tensors += [state[k] for k in sorted(state)]
-    for t in tensors:
-        h.update(t.detach().cpu().numpy().tobytes())
-    return h.hexdigest()
+def dp_layouts(count: int) -> list[tuple[str, ...]]:
+    """The rank layouts of the parallel phases on `count` cards: one rank a
+    card at 1, 2 and min(count, DP_MAX_RANKS) ranks, or two ranks on cuda:0
+    with one card."""
+    if count < 2:
+        return [("cuda:0", "cuda:0")]
+    return [tuple(f"cuda:{r}" for r in range(n))
+            for n in sorted({1, 2, min(count, DP_MAX_RANKS)})]
+
+
+def layout_name(devices) -> str:
+    """"nccl-2", "gloo-2" (ranks sharing a card), "single" (one rank)."""
+    if len(devices) == 1:
+        return "single"
+    return f"{choose_backend(devices)}-{len(devices)}"
+
+
+def allreduce_reading(group, grads) -> dict:
+    """The gradient all_reduce of a data-parallel step (parallel.mean_'s
+    flat buffer of `grads`): its bytes and its ms, CUDA events around each
+    of DP_ALLREDUCE_REPS launches after a warm-up (none for one rank)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    out = {"allreduce_bytes": nbytes(flat), "allreduce_ms": None}
+    if group.size > 1:
+        out["allreduce_ms"] = cuda_ms(lambda: all_reduce_(flat, group),
+                                      DP_ALLREDUCE_REPS)
+    return out
+
+
+def timed_replicate(group, *replica) -> float:
+    """parallel.replicate(group, *replica) and its ms (host clock, the
+    card synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replicate(group, *replica)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def step_state(model: GaussianModel, env=None) -> dict:
@@ -3327,7 +3449,7 @@ def dp_stage1_rank(group, ckpt: str, views_file: str, step1_file: str
     device = group.device
     it0, model, optimizer = load_train_state(ckpt, TRAIN_OPT,
                                              1.1 * CAM_RADIUS, device=device)
-    replicate(group, model, optimizer)
+    replicate_ms = timed_replicate(group, model, optimizer)
     views = dp_views(Path(views_file), device)
     step = make_dp_train_step(group, cfg=RasterConfig(SIZE_MAIN, SIZE_MAIN),
                               opt=TRAIN_OPT, spatial_lr_scale=1.1 * CAM_RADIUS)
@@ -3350,9 +3472,12 @@ def dp_stage1_rank(group, ckpt: str, views_file: str, step1_file: str
         if i + 1 == DP1_RESET_AT:
             reset_opacity_step(model, optimizer)
         points.append(model.num_points)
-        digests.append(state_digest(model, (optimizer,)))
-    return {"launches": read_launches(), "digests": digests, "ms": ms,
-            "loss": losses, "points": points, "it0": it0}
+        digests.append(replica_digest(model, optimizer))
+    launches = read_launches()
+    return {"launches": launches, "digests": digests, "ms": ms,
+            "loss": losses, "points": points, "it0": it0,
+            "replicate_ms": replicate_ms, **allreduce_reading(
+                group, [getattr(model, k).grad for k in model.fields])}
 
 
 def dp_stage2_rank(group, ckpt: str, env_ckpt: str, views_file: str,
@@ -3365,7 +3490,8 @@ def dp_stage2_rank(group, ckpt: str, env_ckpt: str, views_file: str,
                                              1.1 * CAM_RADIUS, device=device)
     _, env, env_optimizer = load_env_checkpoint(env_ckpt, STAGE2_OPT,
                                                 device=device)
-    replicate(group, model, optimizer, env, env_optimizer)
+    replicate_ms = timed_replicate(group, model, optimizer, env,
+                                   env_optimizer)
     vis = update_visibility(model, SAMPLE_NUM,
                             sharded_trace=make_sharded_trace(group))
     views = dp_views(Path(views_file), device)
@@ -3384,11 +3510,14 @@ def dp_stage2_rank(group, ckpt: str, env_ckpt: str, views_file: str,
         losses.append(float(metrics["loss"]))
         if i == 0 and group.rank == 0:
             np.savez(step1_file, **step_state(model, env))
-        digests.append(state_digest(model, (optimizer, env_optimizer), env))
-    return {"launches": read_launches(), "digests": digests, "ms": ms,
-            "loss": losses, "it0": it0,
+        digests.append(replica_digest(model, optimizer, env, env_optimizer))
+    launches = read_launches()
+    grads = [getattr(model, k).grad for k in model.fields] + [env.env.grad]
+    return {"launches": launches, "digests": digests, "ms": ms,
+            "loss": losses, "it0": it0, "replicate_ms": replicate_ms,
             "env_digest": hashlib.sha256(
-                env.env.detach().cpu().numpy().tobytes()).hexdigest()}
+                env.env.detach().cpu().numpy().tobytes()).hexdigest(),
+            **allreduce_reading(group, grads)}
 
 
 @torch.no_grad()
@@ -3528,97 +3657,156 @@ def check_hand_step(label: str, got_file: str, want: dict) -> dict:
             for kind in ("params", "grad", "stats")}
 
 
-def parallel_phases(trained: dict, s2: dict, device) -> dict:
-    """dp-stage1, dp-stage2 and sharded: a rank on each of DP_DEVICES (two
-    on the one card, over gloo), one spawn of parallel.spawn for all three;
-    each gated against this process's own computation. Returns each phase's
-    launches (a list, one entry a rank)."""
-    os.environ.pop("R3DG_BWD_TWO_WALK", None)
+def parallel_files(trained: dict, s2: dict) -> dict:
+    """The parallel phases' inputs on disk: the train phase's views and
+    checkpoint, the stage2 phase's checkpoint and env map."""
     root = WORK / "parallel"
     root.mkdir(parents=True, exist_ok=True)
     views = trained["views"]
-    views_file = root / "views.npz"
-    np.savez(views_file, image=torch.stack([v.image for v in views]).cpu().numpy(),
+    files = {"views": root / "views.npz",
+             "ckpt1": root / f"chkpnt{TRAIN_OPT.iterations}.npz",
+             "ckpt2": root / f"chkpnt{STAGE2_OPT.iterations}.npz",
+             "env2": root / f"env_light_chkpnt{STAGE2_OPT.iterations}.npz"}
+    np.savez(files["views"],
+             image=torch.stack([v.image for v in views]).cpu().numpy(),
              mask=torch.stack([v.image_mask for v in views]).cpu().numpy())
-    ckpt1 = root / f"chkpnt{TRAIN_OPT.iterations}.npz"
-    save_checkpoint(str(ckpt1), TRAIN_OPT.iterations, trained["model"],
-                    trained["optimizer"])
-    ckpt2 = root / f"chkpnt{STAGE2_OPT.iterations}.npz"
-    env2 = root / f"env_light_chkpnt{STAGE2_OPT.iterations}.npz"
-    save_checkpoint(str(ckpt2), STAGE2_OPT.iterations, s2["model"],
+    save_checkpoint(str(files["ckpt1"]), TRAIN_OPT.iterations,
+                    trained["model"], trained["optimizer"])
+    save_checkpoint(str(files["ckpt2"]), STAGE2_OPT.iterations, s2["model"],
                     s2["optimizer"])
-    save_env_checkpoint(str(env2), STAGE2_OPT.iterations, s2["env"],
+    save_env_checkpoint(str(files["env2"]), STAGE2_OPT.iterations, s2["env"],
                         s2["env_optimizer"])
-    files = {k: str(root / f"{k}.npz") for k in ("dp1_step1", "dp2_step1",
-                                                 "sharded")}
-    jobs = [("dp_stage1_rank", (str(ckpt1), str(views_file),
-                                files["dp1_step1"])),
-            ("dp_stage2_rank", (str(ckpt2), str(env2), str(views_file),
-                                files["dp2_step1"])),
-            ("sharded_rank", (str(ckpt2), str(env2), files["sharded"]))]
+    return {k: str(v) for k, v in files.items()}
+
+
+def parallel_phases(trained: dict, s2: dict, device) -> dict:
+    """dp-stage1, dp-stage2 and sharded at each rank layout of dp_layouts
+    (one spawn of parallel.spawn a layout), each gated against this
+    process's own computation, then the scaling line. Returns each layout's
+    launches of each phase (a list, one entry a rank), by layout name."""
+    os.environ.pop("R3DG_BWD_TWO_WALK", None)
+    files = parallel_files(trained, s2)
+    count = torch.cuda.device_count()
+    layouts = dp_layouts(count)
+    if count < 2:
+        say("parallel", cards=count, layouts=[list(d) for d in layouts],
+            nccl="not run: the NCCL layouts need two cards (one rank a card)")
+    with torch.no_grad():
+        _, model2 = load_checkpoint(files["ckpt2"], device=device)
+        vis2 = update_visibility(model2, SAMPLE_NUM)
+    out, readings = {}, {}
+    for devices in layouts:
+        name = layout_name(devices)
+        out[name], readings[name] = parallel_layout(
+            devices, files, trained["views"], model2, vis2, device)
+    base = readings.get("single")
+    scaling = {}
+    for name, r in readings.items():
+        scaling[name] = {
+            "ranks": r["ranks"],
+            "stage1_ms_per_step": f"{r['dp1_ms']:.3f}",
+            "stage1_views_per_s": f"{r['ranks'] * 1e3 / r['dp1_ms']:.2f}",
+            "stage2_ms_per_step": f"{r['dp2_ms']:.3f}",
+            "stage2_views_per_s": f"{r['ranks'] * 1e3 / r['dp2_ms']:.2f}",
+            "allreduce_ms_stage1": r["allreduce1_ms"],
+            "allreduce_bytes_stage1": r["allreduce1_bytes"],
+            "allreduce_ms_stage2": r["allreduce2_ms"],
+            "allreduce_bytes_stage2": r["allreduce2_bytes"],
+            "replicate_ms_stage1": r["replicate1_ms"],
+            "replicate_ms_stage2": r["replicate2_ms"],
+            "trace_ms_per_rank": r["trace_ms"],
+            "trace_ms_one_launch": r["trace_one_ms"]}
+        if base is not None:
+            for st in ("stage1", "stage2"):
+                scaling[name][f"{st}_views_per_s_over_one_rank"] = (
+                    f"{r['ranks'] * base[f'dp{st[-1]}_ms'] / r[f'dp{st[-1]}_ms']:.3f}")
+    say("parallel-scaling", card=CARD, cards=count, layouts=scaling)
+    return out
+
+
+def parallel_layout(devices, files: dict, views: list, model2, vis2,
+                    device) -> tuple[dict, dict]:
+    """dp-stage1, dp-stage2 and sharded on one rank a `devices` entry, in
+    one spawn; each phase's line names the layout. Returns the launches of
+    each phase a rank, and the readings of the scaling line."""
+    n, name = len(devices), layout_name(devices)
+    backend = None if n == 1 else choose_backend(devices)
+    root = Path(files["views"]).parent / name
+    root.mkdir(parents=True, exist_ok=True)
+    out = {k: str(root / f"{k}.npz") for k in ("dp1_step1", "dp2_step1",
+                                               "sharded")}
+    ckpt1, ckpt2, env2 = files["ckpt1"], files["ckpt2"], files["env2"]
+    jobs = [("dp_stage1_rank", (ckpt1, files["views"], out["dp1_step1"])),
+            ("dp_stage2_rank", (ckpt2, env2, files["views"],
+                                out["dp2_step1"])),
+            ("sharded_rank", (ckpt2, env2, out["sharded"]))]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ranks = spawn(run_rank_jobs, DP_DEVICES, jobs, timeout_s=600)
+    ranks = spawn(run_rank_jobs, devices, jobs, timeout_s=600,
+                  collective_timeout_s=DP_COLLECTIVE_TIMEOUT_S)
     spawn_s = time.perf_counter() - t0
     dp1, dp2, shr = ([r[k] for r in ranks] for k in range(3))
     d1, d2 = dp1[0], dp2[0]
-    n = len(DP_DEVICES)
+    layout = {"layout": name, "ranks": n, "devices": list(devices),
+              "backend": backend}
 
     # dp-stage1
     for r in dp1[1:]:
         apart = [i + 1 for i, (a, b) in enumerate(zip(d1["digests"],
                                                       r["digests"])) if a != b]
         if apart:
-            raise AssertionError(f"dp-stage1: replicas apart after steps "
-                                 f"{apart}")
+            raise AssertionError(f"dp-stage1 {name}: replicas apart after "
+                                 f"steps {apart}")
     for r in dp1:
         if (r["launches"]["K1"], r["launches"]["K2"]) != (DP1_STEPS, DP1_STEPS):
-            raise AssertionError(f"dp-stage1: {DP1_STEPS} steps launched "
-                                 f"{r['launches']} on a rank")
+            raise AssertionError(f"dp-stage1 {name}: {DP1_STEPS} steps "
+                                 f"launched {r['launches']} on a rank")
     if not np.isfinite(d1["loss"]).all() or d1["points"][-1] == d1["points"][0]:
-        raise AssertionError(f"dp-stage1: loss {d1['loss'][:3]}..., points "
-                             f"{d1['points'][0]} -> {d1['points'][-1]}")
-    hand1 = hand_step(str(ckpt1), None, TRAIN_OPT, [
+        raise AssertionError(f"dp-stage1 {name}: loss {d1['loss'][:3]}..., "
+                             f"points {d1['points'][0]} -> {d1['points'][-1]}")
+    hand1 = hand_step(ckpt1, None, TRAIN_OPT, [
         views[v] for v in dp_batch(0, n)])
-    worst1 = check_hand_step("dp-stage1", files["dp1_step1"], hand1)
-    say("dp-stage1", ranks=n, devices=list(DP_DEVICES),
-        backend=choose_backend(DP_DEVICES),
-        steps=DP1_STEPS, densify_after=DP1_DENSIFY_AT,
+    worst1 = check_hand_step(f"dp-stage1 {name}", out["dp1_step1"], hand1)
+    dp1_ms = float(np.median(d1["ms"][1:]))
+    say("dp-stage1", **layout, steps=DP1_STEPS, densify_after=DP1_DENSIFY_AT,
         reset_after=DP1_RESET_AT, points=f"{d1['points'][0]}->{d1['points'][-1]}",
         replicas_bitwise_equal_every_step=True,
         launches=[r["launches"] for r in dp1],
         step1_vs_hand_in_bound_units=worst1,
-        ms_per_dp_step_median=f"{float(np.median(d1['ms'][1:])):.3f}",
+        ms_per_dp_step_median=f"{dp1_ms:.3f}",
+        views_per_s=f"{n * 1e3 / dp1_ms:.2f}",
         ms_per_dp_step=[round(m, 3) for m in d1["ms"]],
+        allreduce_ms=d1["allreduce_ms"], allreduce_bytes=d1["allreduce_bytes"],
+        replicate_ms=[round(r["replicate_ms"], 3) for r in dp1],
         loss_first=f"{d1['loss'][0]:.5f}", loss_last=f"{d1['loss'][-1]:.5f}")
 
     # dp-stage2
     if any(r["digests"] != d2["digests"] or r["env_digest"] != d2["env_digest"]
            for r in dp2):
-        raise AssertionError("dp-stage2: replicas (or env maps) apart")
+        raise AssertionError(f"dp-stage2 {name}: replicas (or env maps) apart")
     for r in dp2:
         per_step = [r["launches"][k] for k in ("K1", "K2", "K4-fwd", "K4-bwd")]
         if per_step != [DP2_STEPS] * 4:
-            raise AssertionError(f"dp-stage2: {DP2_STEPS} steps launched "
-                                 f"{r['launches']} on a rank")
-    with torch.no_grad():
-        _, model2 = load_checkpoint(str(ckpt2), device=device)
-        vis2 = update_visibility(model2, SAMPLE_NUM)
-    hand2 = hand_step(str(ckpt2), str(env2), STAGE2_OPT,
+            raise AssertionError(f"dp-stage2 {name}: {DP2_STEPS} steps "
+                                 f"launched {r['launches']} on a rank")
+    hand2 = hand_step(ckpt2, env2, STAGE2_OPT,
                       [views[v] for v in dp_batch(0, n)], vis2)
-    worst2 = check_hand_step("dp-stage2", files["dp2_step1"], hand2)
-    say("dp-stage2", ranks=n, steps=DP2_STEPS,
+    worst2 = check_hand_step(f"dp-stage2 {name}", out["dp2_step1"], hand2)
+    dp2_ms = float(np.median(d2["ms"][1:]))
+    say("dp-stage2", **layout, steps=DP2_STEPS,
         replicas_bitwise_equal_every_step=True, env_maps_bitwise_equal=True,
         launches=[r["launches"] for r in dp2],
         step1_vs_hand_in_bound_units=worst2,
-        ms_per_dp_step_median=f"{float(np.median(d2['ms'][1:])):.3f}",
+        ms_per_dp_step_median=f"{dp2_ms:.3f}",
+        views_per_s=f"{n * 1e3 / dp2_ms:.2f}",
         ms_per_dp_step=[round(m, 3) for m in d2["ms"]],
+        allreduce_ms=d2["allreduce_ms"], allreduce_bytes=d2["allreduce_bytes"],
+        replicate_ms=[round(r["replicate_ms"], 3) for r in dp2],
         loss_first=f"{d2['loss'][0]:.5f}", loss_last=f"{d2['loss'][-1]:.5f}")
 
     # sharded: against one K3 launch, the unsharded shading and render
-    with torch.no_grad(), np.load(files["sharded"]) as got:
-        _, env_model, _ = load_env_checkpoint(str(env2), STAGE2_OPT,
-                                              device=device)
+    with torch.no_grad(), np.load(out["sharded"]) as got:
+        _, env_model, _ = load_env_checkpoint(env2, STAGE2_OPT, device=device)
         dirs, _ = fibonacci_sphere_sampling(model2.get_normal, SAMPLE_NUM)
         bvh, rays_o, rays_d = visibility_rays(model2, dirs)
         reset_launches()
@@ -3626,8 +3814,8 @@ def parallel_phases(trained: dict, s2: dict, device) -> dict:
             bvh, rays_o, rays_d))
         if not np.array_equal(got["trace"], whole.cpu().numpy()):
             diff = int((got["trace"] != whole.cpu().numpy()).sum())
-            raise AssertionError(f"sharded: {diff} rays' T apart from one K3 "
-                                 "launch on all rays")
+            raise AssertionError(f"sharded {name}: {diff} rays' T apart from "
+                                 "one K3 launch on all rays")
         view0 = orbit_view(0, VIEWS, SIZE_MAIN, device)
         pbr, extras = neilf._shade_points(*sharded_shading_args(
             model2, env_model, vis2, view0))
@@ -3635,42 +3823,276 @@ def parallel_phases(trained: dict, s2: dict, device) -> dict:
                      for k, key, v in [("pbr", "pbr", pbr)] + [
                          (k, f"extra.{k}", v) for k, v in extras.items()]}
         if max(shade_err.values()) > SHARDED_SHADE_ATOL:
-            raise AssertionError(f"sharded: shading apart from _shade_points "
-                                 f"{shade_err} > {SHARDED_SHADE_ATOL}")
+            raise AssertionError(f"sharded {name}: shading apart from "
+                                 f"_shade_points {shade_err} > "
+                                 f"{SHARDED_SHADE_ATOL}")
         res = render_neilf(view0, model2, RasterConfig(SIZE_MAIN, SIZE_MAIN),
                            torch.zeros(3, device=device), env_model, vis2,
                            is_training=False)
         want_count = res["num_contrib"].cpu().numpy()
         agree = got["render.num_contrib"] == want_count
         if agree.mean() < COUNT_AGREE:
-            raise AssertionError(f"sharded: n_contrib equal on {agree.mean()}")
+            raise AssertionError(f"sharded {name}: n_contrib equal on "
+                                 f"{agree.mean()}")
         render_err = {}
         for k in SHARDED_RENDER_KEYS[:-1]:
             w = res[k].cpu().numpy()
             g = got[f"render.{k}"]
             if not np.allclose(g[:, agree], w[:, agree], atol=IMG_ATOL,
                                rtol=IMG_RTOL):
-                raise AssertionError(f"sharded: render {k} apart from the "
-                                     "unsharded view beyond k1-main's gate")
+                raise AssertionError(f"sharded {name}: render {k} apart from "
+                                     "the unsharded view beyond k1-main's "
+                                     "gate")
             render_err[k] = f"{float(np.abs(g - w)[:, agree].max()):.3e}"
     for r in shr:
         if (r["launches"]["trace"]["K3"], r["launches"]["render"]["K1"]) != (1, 1):
-            raise AssertionError(f"sharded: launches {r['launches']}")
-    say("sharded", ranks=n, rays=int(rays_o.shape[0]),
+            raise AssertionError(f"sharded {name}: launches {r['launches']}")
+    say("sharded", **layout, rays=int(rays_o.shape[0]),
         rays_per_rank=int(rays_o.shape[0]) // n,
         trace_bitwise_equal_one_launch=True,
         trace_ms_per_rank=[round(r["ms"]["trace"], 3) for r in shr],
         trace_ms_one_launch=f"{trace_ms:.3f}",
         shading_max_abs_err={k: f"{v:.3e}" for k, v in shade_err.items()},
+        shading_bitwise_equal=max(shade_err.values()) == 0.0,
         shading_ms=[round(r["ms"]["shading"], 3) for r in shr],
         render_n_contrib_equal=f"{agree.mean():.6f}",
         render_max_abs_err=render_err,
         render_ms=[round(r["ms"]["render"], 3) for r in shr],
         launches=[r["launches"] for r in shr],
         spawn_s=f"{spawn_s:.2f}")
-    return {"dp-stage1": [r["launches"] for r in dp1],
-            "dp-stage2": [r["launches"] for r in dp2],
-            "sharded": [r["launches"] for r in shr]}
+    readings = {"ranks": n, "dp1_ms": dp1_ms, "dp2_ms": dp2_ms,
+                "allreduce1_ms": d1["allreduce_ms"],
+                "allreduce1_bytes": d1["allreduce_bytes"],
+                "allreduce2_ms": d2["allreduce_ms"],
+                "allreduce2_bytes": d2["allreduce_bytes"],
+                "replicate1_ms": round(max(r["replicate_ms"] for r in dp1), 3),
+                "replicate2_ms": round(max(r["replicate_ms"] for r in dp2), 3),
+                "trace_ms": [round(r["ms"]["trace"], 3) for r in shr],
+                "trace_one_ms": round(trace_ms, 3)}
+    return ({"dp-stage1": [r["launches"] for r in dp1],
+             "dp-stage2": [r["launches"] for r in dp2],
+             "sharded": [r["launches"] for r in shr]}, readings)
+
+
+# cli-ranks (two or more cards): the cli phase's scene through the CLIs'
+# mains at --n_devices min(count, DP_MAX_RANKS), one rank a card over NCCL:
+# cli.train stage 1 for CLI_RANKS_STEPS1 steps from the scene's points (a
+# densify at step CLI_RANKS_DENSIFY_AT), -t neilf for CLI_RANKS_STEPS2 more,
+# cli.eval_nvs -t neilf on that checkpoint at n ranks and at one, and
+# cli.relighting on the relight phase's composition; every rank in cli_rank.
+CLI_RANKS_STEPS1, CLI_RANKS_DENSIFY_AT, CLI_RANKS_STEPS2 = 20, 10, 10
+
+
+class CheckedTrace:
+    """A ray-sharded trace (point_sharded.make_sharded_trace) that holds
+    what it gathers against one K3 launch on all of the call's rays,
+    bitwise; that launch is left out of the launch counts."""
+
+    def __init__(self, tracer):
+        self.tracer, self.group, self.calls = tracer, tracer.group, []
+        self.last_stats = tracer.last_stats
+
+    def __call__(self, bvh, rays_o, rays_d, *args, **kwargs):
+        out = self.tracer(bvh, rays_o, rays_d, *args, **kwargs)
+        self.last_stats = self.tracer.last_stats
+        vis = out[0] if isinstance(out, tuple) else out
+        launches = ray_trace_cuda.LAUNCHES
+        whole = ray_trace.trace_visibility(bvh, rays_o, rays_d)
+        ray_trace_cuda.LAUNCHES = launches
+        self.calls.append({"rays": int(rays_o.shape[0]),
+                           "bitwise_one_launch": bool(torch.equal(vis, whole))})
+        return out
+
+
+def cli_rank(fn, record: str, args, device, group):
+    """A rank of a CLI's run_ranks: the CLI's rank function fn(args,
+    device, group), its sharded traces checked (CheckedTrace) and its
+    launches counted from 0, both written to `record`.rank<r>.json; returns
+    fn's result."""
+    module = sys.modules[fn.__module__]
+    real, checked = module.sharded_trace_from_args, []
+
+    def traced(a, g):
+        tracer = real(a, g)
+        if tracer is not None:
+            checked.append(CheckedTrace(tracer))
+            return checked[-1]
+        return None
+
+    module.sharded_trace_from_args = traced
+    reset_launches()
+    try:
+        result = fn(args, device, group)
+    finally:
+        module.sharded_trace_from_args = real
+    with open(f"{record}.rank{group.rank}.json", "w") as f:
+        json.dump({"launches": read_launches(),
+                   "traces": [c for t in checked for c in t.calls]}, f)
+    return result
+
+
+def cli_on_ranks(cli_module, argv: list[str], n: int, record: Path,
+                 device) -> tuple:
+    """cli_module.main(argv + --n_devices n) on `device`, its run_ranks
+    running each rank in cli_rank: (main's result, each rank's record, wall
+    seconds)."""
+    real = cli_module.run_ranks
+    cli_module.run_ranks = lambda fn, args, device: real(
+        functools.partial(cli_rank, fn, str(record)), args, device)
+    t0 = time.perf_counter()
+    try:
+        result = cli_module.main(argv + ["--n_devices", str(n)],
+                                 device=device)
+    finally:
+        cli_module.run_ranks = real
+    wall = time.perf_counter() - t0
+    records = []
+    for r in range(n):
+        with open(f"{record}.rank{r}.json") as f:
+            records.append(json.load(f))
+    return result, records, wall
+
+
+def losses_of(model_path: Path) -> list[float]:
+    """The per-step losses cli.train logged to metrics.jsonl."""
+    with open(model_path / "metrics.jsonl") as f:
+        recs = sorted((r for r in map(json.loads, f) if "loss" in r),
+                      key=lambda r: r["step"])
+    return [r["loss"] for r in recs]
+
+
+def pngs_apart(a: Path, b: Path) -> dict:
+    """Of the PNGs under `a`, against the same names under `b`: how many
+    differ, their largest difference in u8 levels and their share of
+    values that differ."""
+    files = sorted(x.relative_to(a) for x in a.rglob("*.png"))
+    if not files or any(not (b / f).exists() for f in files):
+        raise AssertionError(f"{a}: PNGs missing against {b}")
+    diffs = [np.abs(read_png(str(a / f)).astype(np.int64)
+                    - read_png(str(b / f)).astype(np.int64)) for f in files]
+    return {"files": len(files),
+            "files_apart": sum(int(d.any()) for d in diffs),
+            "max_u8": max(int(d.max()) for d in diffs),
+            "values_apart_share": float(np.mean([(d > 0).mean()
+                                                 for d in diffs]))}
+
+
+def cli_ranks_phase(cli: dict, relight: dict, device) -> dict:
+    """The CLIs at --n_devices n over NCCL, gated: the replicas bitwise
+    equal after each training (parallel.check_replicas in cli.train), the
+    losses finite and falling, every sharded trace bitwise one K3 launch on
+    its rays, K1 and K2 a step on every rank (and K4 in stage 2), the eval
+    at n ranks the one-rank eval's images bitwise (or, where not, within
+    one u8 level and 1e-4 dB: the one-rank eval shades in chunks of
+    SHADE_CHUNK_SAMPLES, a rank its whole share in one call, and the
+    card's reductions over the samples may take another order at another
+    size), the relit frames those of the relight phase's one-rank run
+    bitwise (or as the eval). Returns each run's launches a rank."""
+    n = min(torch.cuda.device_count(), DP_MAX_RANKS)
+    devices = rank_devices(n, torch.device(device))
+    root = WORK / "cli_ranks"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    os.environ.pop("R3DG_BWD_TWO_WALK", None)
+    data, out1, out2 = cli["data"], root / "stage1", root / "stage2"
+    n1, n2 = CLI_RANKS_STEPS1, CLI_RANKS_STEPS1 + CLI_RANKS_STEPS2
+    opt1 = dataclasses.replace(
+        TRAIN_OPT, iterations=n1, position_lr_max_steps=n1,
+        densify_from_iter=CLI_RANKS_DENSIFY_AT - 1,
+        densification_interval=CLI_RANKS_DENSIFY_AT,
+        densify_until_iter=CLI_RANKS_DENSIFY_AT + 1)
+    opt2 = OptimizationConfig(**{**STAGE2_NERF_SYNTHETIC, "iterations": n2})
+    saved_timeout = data_parallel.COLLECTIVE_TIMEOUT_S
+    data_parallel.COLLECTIVE_TIMEOUT_S = DP_COLLECTIVE_TIMEOUT_S
+    try:
+        digests1, recs1, wall1 = cli_on_ranks(train_cli, [
+            "-s", str(data), "-m", str(out1), "--log_interval", "1",
+            "--save_interval", str(n1), "--checkpoint_interval", str(n1)]
+            + opt_flags(opt1), n, root / "stage1", device)
+        digests2, recs2, wall2 = cli_on_ranks(train_cli, [
+            "-s", str(data), "-m", str(out2), "-t", "neilf",
+            "-c", str(out1 / f"chkpnt{n1}.npz"), "--sample_num",
+            str(SAMPLE_NUM), "--log_interval", "1",
+            "--save_interval", str(n2), "--checkpoint_interval", str(n2)]
+            + opt_flags(opt2), n, root / "stage2", device)
+        eval_argv = ["-s", str(data), "-m", str(out2), "-t", "neilf",
+                     "-c", str(out2 / f"chkpnt{n2}.npz"), "--skip_train",
+                     "--sample_num", str(SAMPLE_NUM)]
+        reset_launches()
+        one = eval_nvs.main(eval_argv + ["--n_devices", "1"],
+                            device=device)["test"]
+        (out2 / "test").rename(out2 / "test_one_rank")
+        evaluated, recs3, wall3 = cli_on_ranks(eval_nvs, eval_argv, n,
+                                               root / "eval", device)
+        many = evaluated["test"]
+        _, recs4, wall4 = cli_on_ranks(relighting, [
+            "-co", str(relight["root"]), "-e", str(relight["env"]),
+            "--output", str(root / "relight"), "--sample_num",
+            str(SAMPLE_NUM), "--capture_list", ",".join(RELIGHT_CAPTURES)],
+            n, root / "relight", device)
+    finally:
+        data_parallel.COLLECTIVE_TIMEOUT_S = saved_timeout
+
+    runs = {"stage1": recs1, "neilf": recs2, "eval_nvs": recs3,
+            "relighting": recs4}
+    for label, digests in (("stage 1", digests1), ("neilf", digests2)):
+        if len(digests) != n or len(set(digests)) != 1:
+            raise AssertionError(f"cli-ranks {label}: replica digests "
+                                 f"{digests}")
+    want = {"stage1": {"K1": n1, "K2": n1},
+            "neilf": {"K1": CLI_RANKS_STEPS2, "K2": CLI_RANKS_STEPS2,
+                      "K4-fwd": CLI_RANKS_STEPS2, "K4-bwd": CLI_RANKS_STEPS2}}
+    for label, expect in want.items():
+        for r, rec in enumerate(runs[label]):
+            if any(rec["launches"][k] != v for k, v in expect.items()):
+                raise AssertionError(f"cli-ranks {label}: rank {r} launched "
+                                     f"{rec['launches']}, expected {expect}")
+    traces = {label: [c for rec in recs for c in rec["traces"]]
+              for label, recs in runs.items()}
+    for label in ("neilf", "eval_nvs", "relighting"):
+        per_rank = [len(rec["traces"]) for rec in runs[label]]
+        if min(per_rank) < 1 or not all(c["bitwise_one_launch"]
+                                        for c in traces[label]):
+            raise AssertionError(f"cli-ranks {label}: sharded traces "
+                                 f"{per_rank} a rank, {traces[label]}")
+        if any(rec["launches"]["K3"] < 1 for rec in runs[label]):
+            raise AssertionError(f"cli-ranks {label}: a rank launched no K3")
+    losses = {}
+    for label, out in (("stage1", out1), ("neilf", out2)):
+        values = losses_of(out)
+        if not np.isfinite(values).all() or not (
+                np.mean(values[-3:]) < np.mean(values[:3])):
+            raise AssertionError(f"cli-ranks {label}: losses {values} not "
+                                 "finite and falling")
+        losses[label] = f"{values[0]:.5f}->{values[-1]:.5f}"
+    evals = pngs_apart(out2 / "test", out2 / "test_one_rank")
+    evals_bitwise = evals["files_apart"] == 0 and all(
+        one[k] == many[k] for k in ("psnr", "ssim"))
+    if not evals_bitwise and (evals["max_u8"] > 1 or any(
+            abs(one[k] - many[k]) > 1e-4 for k in ("psnr", "ssim"))):
+        raise AssertionError(f"cli-ranks eval_nvs: {n} ranks against one: "
+                             f"{evals}, {many} against {one}")
+    frames = pngs_apart(root / "relight", relight["root"] / "capture")
+    if frames["max_u8"] > 1:
+        raise AssertionError(f"cli-ranks relighting: frames against the "
+                             f"one-rank run {frames}")
+    say("cli-ranks", card=CARD, ranks=n, devices=[str(d) for d in devices],
+        backend=choose_backend(devices),
+        stage1_steps=n1, stage2_steps=CLI_RANKS_STEPS2,
+        replicas_bitwise_equal=True, losses=losses,
+        sharded_traces_bitwise_one_launch={
+            k: len(v) for k, v in traces.items() if v},
+        eval_images_bitwise_one_rank=evals_bitwise, eval_pngs_apart=evals,
+        eval_psnr=f"{many['psnr']:.6f}", eval_psnr_one_rank=f"{one['psnr']:.6f}",
+        eval_ms_per_view_median=f"{float(np.median(many['view_ms'][1:])):.3f}",
+        eval_ms_per_view_median_one_rank=
+        f"{float(np.median(one['view_ms'][1:])):.3f}",
+        relit_frames_apart_from_one_rank=frames,
+        wall_s={"stage1": f"{wall1:.2f}", "neilf": f"{wall2:.2f}",
+                "eval_nvs": f"{wall3:.2f}", "relighting": f"{wall4:.2f}"},
+        launches={k: [rec["launches"] for rec in v] for k, v in runs.items()})
+    return {k: [rec["launches"] for rec in v] for k, v in runs.items()}
 
 
 # prune-only: stage-1 steps of a copy of cell 2's trained 800x800 model (a
@@ -3779,6 +4201,25 @@ def prune_only_phase(trained: dict, device) -> dict:
     return launches
 
 
+def print_interconnect() -> None:
+    """One line on how the cards are joined: `nvidia-smi topo -m` (or its
+    error), `nvidia-smi nvlink --status` per card and which pairs of cards
+    reach each other's memory (torch.cuda.can_device_access_peer)."""
+    def smi(*args) -> str:
+        proc = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                              text=True, timeout=60)
+        return (proc.stdout + proc.stderr).strip()
+
+    n = torch.cuda.device_count()
+    links = smi("nvlink", "--status")
+    say("interconnect", cards=n, topo_m=repr(smi("topo", "-m")),
+        nvlinks_per_card=[line.count("GB/s") for line in
+                          links.split("GPU ")[1:]] if links else [],
+        nvlink_status=repr(links.splitlines()[:3]),
+        peer_access=[[i, j] for i in range(n) for j in range(n)
+                     if i != j and torch.cuda.can_device_access_peer(i, j)])
+
+
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
     """Builds K1 to K5 and the check kernel composite_decisions from the
     checkout's sources, one nvcc each, all at once, and prints ptxas's
@@ -3810,7 +4251,9 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    card = smi.strip().splitlines()[0]
+    global CARD
+    card = CARD = smi.strip().splitlines()[0]
+    print_interconnect()
     print(card, flush=True)
     say("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
@@ -3987,14 +4430,29 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     dense = dense_phase(device)
     # 27. the reference-API facade against rasterize
     facade = facade_phase(scene_model, orbit_view(0, VIEWS, SIZE_MAIN, device))
-    # 28-30. data-parallel stages 1 and 2 and the sharded eval, two ranks on
-    # the card
+    # 28-30. data-parallel stages 1 and 2 and the sharded eval at each rank
+    # layout (dp_layouts)
     par = parallel_phases(trained, s2, device)
-    # 31. prune_only between stage-1 steps
+    # 31. the CLIs at --n_devices n, one rank a card (two or more cards)
+    if torch.cuda.device_count() >= 2:
+        cli_ranks = cli_ranks_phase(cli, relight, device)
+    else:
+        cli_ranks = {}
+        say("cli-ranks", cards=torch.cuda.device_count(),
+            nccl="not run: the CLIs' --n_devices N needs N cards, one rank "
+                 "a card")
+    # 32. prune_only between stage-1 steps
     prune = prune_only_phase(trained, device)
 
     def per_rank(phase, kernel, part=None):
-        return [(r[part] if part else r)[kernel] for r in par[phase]]
+        """{layout: [each rank's launches]} of a parallel phase."""
+        return {name: [(r[part] if part else r)[kernel] for r in phases[phase]]
+                for name, phases in par.items()}
+
+    def cli_per_rank(kernel):
+        """{CLI run: [each rank's launches]} of the cli-ranks phase."""
+        return {run: [r[kernel] for r in ranks]
+                for run, ranks in cli_ranks.items()}
 
     s2_launches = s2["launches"]
     print(json.dumps({"kernels": [
@@ -4010,14 +4468,16 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "prune_only_launches": prune["K1"],
          "dp_stage1_launches": per_rank("dp-stage1", "K1"),
          "dp_stage2_launches": per_rank("dp-stage2", "K1"),
-         "sharded_launches": per_rank("sharded", "K1", "render")},
+         "sharded_launches": per_rank("sharded", "K1", "render"),
+         "cli_ranks_launches": cli_per_rank("K1")},
         {"name": "K2 composite_bwd", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["K2"], **main_k2,
          "dense_launches": dense["K2"],
          "facade_full_launches": facade["full"]["K2"],
          "prune_only_launches": prune["K2"], **k2_split,
          "dp_stage1_launches": per_rank("dp-stage1", "K2"),
-         "dp_stage2_launches": per_rank("dp-stage2", "K2")},
+         "dp_stage2_launches": per_rank("dp-stage2", "K2"),
+         "cli_ranks_launches": cli_per_rank("K2")},
         {"name": "K3 ray_trace", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": s2_launches["K3"], **main_k3,
          "relight_launches": relight["launches"]["K3"],
@@ -4033,17 +4493,21 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "relight_eval_bound_by": relight_eval["k3_bound_by"],
          "gui_neilf_launches": gui_launches["neilf"]["K3"],
          "finetune_vis_launches": finetune["launches"]["K3"],
-         "sharded_launches": per_rank("sharded", "K3", "trace")},
+         "sharded_launches": per_rank("sharded", "K3", "trace"),
+         "cli_ranks_launches": cli_per_rank("K3")},
         {"name": "K4 shade_fwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4F_REPLACES, "launches": s2_launches["K4-fwd"],
-         **main_k4f, "dp_stage2_launches": per_rank("dp-stage2", "K4-fwd")},
+         **main_k4f, "dp_stage2_launches": per_rank("dp-stage2", "K4-fwd"),
+         "cli_ranks_launches": cli_per_rank("K4-fwd")},
         {"name": "K4 shade_bwd", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4B_REPLACES, "launches": s2_launches["K4-bwd"],
-         **main_k4b, "dp_stage2_launches": per_rank("dp-stage2", "K4-bwd")},
+         **main_k4b, "dp_stage2_launches": per_rank("dp-stage2", "K4-bwd"),
+         "cli_ranks_launches": cli_per_rank("K4-bwd")},
         {"name": "K5 composite_bwd_two_walk", "route": "cuda",
          "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": cli_launches["K5"], **main_k5,
-         "dp_stage1_launches": per_rank("dp-stage1", "K5")}]}), flush=True)
+         "dp_stage1_launches": per_rank("dp-stage1", "K5"),
+         "cli_ranks_launches": cli_per_rank("K5")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

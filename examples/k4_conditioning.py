@@ -87,9 +87,10 @@ def light_zero_case(P: int, S: int, near: int, delta: float, seed: int,
 
 
 def field_errors(x: tuple, near: int, seed: int) -> dict:
-    """{field: (K4, plain float32) error from float64} of every gradient
-    field over the first `near` points, in units of their largest float64
-    entry."""
+    """{field: (K4, plain float32) error from float64 (check_k4's
+    reference: VoH's clip exact where K4 takes it past float64)} of every
+    gradient field over the first `near` points, in units of their largest
+    float64 entry."""
     gen = torch.Generator().manual_seed(seed)
     cot = [torch.randn((x[0].shape[0], 3), generator=gen).to(x[0].device)
            for _ in range(3)]
@@ -98,7 +99,8 @@ def field_errors(x: tuple, near: int, seed: int) -> dict:
         leaves, loss = cs.plain_shading_graph(x, cot)
         plain = torch.autograd.grad(loss, leaves)
         leaves, loss = cs.plain_shading_graph([t.double() for t in x],
-                                              [c.double() for c in cot])
+                                              [c.double() for c in cot],
+                                              cs.reference_voh_pass(x)[0])
         exact = torch.autograd.grad(loss, leaves)
     out = {}
     for field, g, p, e in zip(FIELDS, got, plain, exact):

@@ -11,8 +11,10 @@ cancels to ~3e-10. This prints float64's VoH against exact arithmetic
 error in units of 1e-6, and per |delta| how many samples float64 decides
 the clip otherwise. With a card, it then holds K4's view-direction
 gradient (a seeded cotangent, as the k4-branches phase draws it) against
-the plain shading in float64 computed on the card and on the CPU, and the
-two references against each other, each in units of the field's largest
+the plain shading in float64 computed on the card and on the CPU, the
+two references against each other, and K4 against check_k4's reference
+(float64 with VoH's clip decided exactly where K4 takes it past float64,
+chip_smoke.reference_voh_pass), each in units of the field's largest
 entry: on the k4-branches phase's inputs, and on examples/
 k4_conditioning.py's voh-clip runs (three seeds at each |delta| up to
 1e-5, their cotangents). The CPU part needs no card; the card part needs
@@ -21,7 +23,6 @@ an NVIDIA GPU and nvcc.
 from __future__ import annotations
 
 import sys
-from decimal import Decimal, getcontext
 from pathlib import Path
 
 import numpy as np
@@ -38,31 +39,23 @@ CASE = "voh-clip"
 I_CASE = cs.K4_BRANCH_CASES.index(CASE)
 
 
-def exact_voh(v: np.ndarray, d: np.ndarray) -> float:
-    """V.H with V = v / |v| and H = (d + V) / |d + V|, in 60 digits."""
-    v = [Decimal(float(a)) for a in v]
-    d = [Decimal(float(a)) for a in d]
-    m = sum(a * a for a in v).sqrt()
-    V = [a / m for a in v]
-    s = [a + b for a, b in zip(d, V)]
-    return float(sum(a * b for a, b in zip(V, s)) / sum(a * a for a in s).sqrt())
-
-
-def view_grad(x, cot, device) -> torch.Tensor:
-    """The plain shading's view-direction gradient in float64 on `device`."""
+def view_grad(x, cot, device, voh_pass=None) -> torch.Tensor:
+    """The plain shading's view-direction gradient in float64 on `device`
+    (VoH's clip decided by `voh_pass` where given)."""
     x64 = [t.to(device).double() for t in x]
     with torch.enable_grad():
         leaves, loss = cs.plain_shading_graph(
-            x64, [c.to(device).double() for c in cot])
+            x64, [c.to(device).double() for c in cot],
+            None if voh_pass is None else voh_pass.to(device))
         return torch.autograd.grad(loss, leaves)[2].cpu()
 
 
 def main() -> None:
-    getcontext().prec = 60
     x, delta, _ = cs.k4_branch_case(CASE, cs.K4_BRANCH_P, cs.SAMPLE_NUM,
                                     cs.SEED + 500 + I_CASE, "cpu")
     vdir, d = x[3].numpy(), x[7][:, -1].numpy()
-    exact = np.array([exact_voh(vdir[i], d[i]) for i in range(len(vdir))])
+    exact = np.array([float(cs.exact_voh(vdir[i], d[i]))
+                      for i in range(len(vdir))])
     f64 = ggx_terms(x[2].double(), x[3].double(), x[7][:, -1:].double(),
                     x[1].double())["VoH"].reshape(-1).numpy()
     print(f"[k4-voh-reference] float64_voh_err_max="
@@ -96,6 +89,8 @@ def compare(x, cot_seed: int, label: str, dev) -> None:
     got = shading_cuda.shade_bwd(*shading_cuda.kernel_inputs(*x),
                                  *cot)[2].cpu().double()
     card, host = view_grad(x, cot, dev), view_grad(x, cot, "cpu")
+    voh_pass, _ = cs.reference_voh_pass(x)
+    ref = view_grad(x, cot, "cpu", voh_pass)
     scale = float(host.abs().max())
 
     def err(a, b):
@@ -103,7 +98,8 @@ def compare(x, cot_seed: int, label: str, dev) -> None:
 
     print(f"[k4-voh-reference] {label} k4_vs_card_float64={err(got, card)} "
           f"k4_vs_cpu_float64={err(got, host)} "
-          f"card_float64_vs_cpu_float64={err(card, host)}", flush=True)
+          f"card_float64_vs_cpu_float64={err(card, host)} "
+          f"k4_vs_exact_decision_reference={err(got, ref)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -53,7 +53,7 @@ from ..models import lights
 from ..models.render import render
 from ..models.render_neilf import render_neilf, update_visibility
 from ..ops.config import RasterConfig
-from ..parallel import replicate
+from ..parallel import check_replicas, replicate
 from ..scene import Scene
 from ..scene.image_io import save_image_u8
 from ..train import checkpoint as ckpt
@@ -130,9 +130,11 @@ def require_device(device: torch.device) -> None:
                            "caller may pass device='cpu' to main)")
 
 
-def training(args, device, group=None) -> None:
+def training(args, device, group=None) -> list[str]:
     """Train on `device`; with `group` (a rank of `--n_devices`), as one
-    rank of the data-parallel run, writing only on rank 0."""
+    rank of the data-parallel run, writing only on rank 0. Returns every
+    rank's replica digest after the last step (parallel.check_replicas,
+    which raises where the replicas are apart)."""
     require_device(device)
     refuse_unsupported(args)
     model_cfg, pipe, opt = extract_all(args)
@@ -203,10 +205,11 @@ def training(args, device, group=None) -> None:
                                 sharded_trace=sharded_trace)
 
     if not writer:
-        _run_rank(state_of(model, optimizer, env, env_optimizer, vis), views,
-                  cfg, opt, spatial_lr_scale, extent, first_iter, args, pipe,
-                  generator, is_pbr, group, sharded_trace)
-        return
+        state = state_of(model, optimizer, env, env_optimizer, vis)
+        _run_rank(state, views, cfg, opt, spatial_lr_scale, extent,
+                  first_iter, args, pipe, generator, is_pbr, group,
+                  sharded_trace)
+        return check_replicas(group, *replica_of(state))
     logger = MetricsLogger(model_cfg.model_path)
     state = state_of(model, optimizer, env, env_optimizer, vis)
     best = {"psnr": -1.0, "iter": 0}
@@ -359,16 +362,24 @@ def training(args, device, group=None) -> None:
             gui.close_window()
     print(f"Training complete in {time.time() - t0:.0f}s; "
           f"{state['model'].num_points} gaussians")
+    digests = check_replicas(group, *replica_of(state))
 
     if model_cfg.eval and scene.get_test_cameras():
         evaluate(scene, state["model"], state["env"], state["vis"],
                  model_cfg, device)
+    return digests
 
 
 def state_of(model, optimizer, env, env_optimizer, vis) -> dict:
     """The training state the loops update in place."""
     return {"model": model, "optimizer": optimizer, "env": env,
             "env_optimizer": env_optimizer, "vis": vis}
+
+
+def replica_of(state: dict) -> tuple:
+    """`state`'s replica, as parallel.check_replicas takes it."""
+    return (state["model"], state["optimizer"], state["env"],
+            state["env_optimizer"])
 
 
 def _run_stages(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
@@ -679,12 +690,12 @@ def build_train_parser():
     return parser
 
 
-def main(argv=None, device: torch.device | str = "cuda") -> None:
+def main(argv=None, device: torch.device | str = "cuda") -> list[str]:
     """Parse `argv` (sys.argv when None) and train on `device`, on
-    `--n_devices` ranks."""
+    `--n_devices` ranks; returns the replicas' digests (`training`)."""
     args = build_train_parser().parse_args(argv)
     np.random.seed(args.seed)
-    run_ranks(training, args, device)
+    return run_ranks(training, args, device)
 
 
 if __name__ == "__main__":

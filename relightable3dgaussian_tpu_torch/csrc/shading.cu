@@ -42,23 +42,24 @@
 // views within 2e-6 of grazing):
 //   * decided from float64. The value is continuous across each clip, so
 //     the arithmetic stays float32; only the branch is taken from float64:
-//       max(e, 0) of the local light (above; :793, marked :794,
-//         corrected in shade_bwd_fix_kernel :981).
-//       sign(V.N) (:413, in load_point, so forward, backward and fix-up
+//       max(e, 0) of the local light (above; :851, marked :852,
+//         corrected in shade_bwd_fix_kernel :1039).
+//       sign(V.N) (:415, in load_point, so forward, backward and fix-up
 //         alike): V and N normalised in double and dotted in double, N
 //         zeroed only where that dot is exactly 0, as the reference zeroes
 //         it. Where float32's sign was 0 or the other one, K4 shaded another
 //         function: a view-direction gradient of 10.81 against 0.0013.
-//       NoV's lower clip, mask :617, from the same double dot (:415):
+//       NoV's lower clip, mask :675, from the same double dot (:417):
 //         NoV = |V.N|. A few double operations a point. The jump it
 //         decides, gnom1 (1 - k) into V, was ~6e-2 of the view gradient's
 //         largest entry.
-//       q = 4 pi nom0^2 nom1 nom2, the GGX denominator (clip :472, mask
-//         :803), and VoH (clip :451, mask :804): a sample whose float32
-//         operand lies within its band about 1e-6 (in_band :563) puts its
-//         point on the list (:800), and shade_bwd_fix_kernel recomputes
-//         the sample's h, VoH and q in double (clips64 :510) and corrects
-//         the gradients where either decision differs (backward only). q
+//       q = 4 pi nom0^2 nom1 nom2, the GGX denominator (clip :474, mask
+//         :861), and VoH (clip :453, mask :862): a sample whose float32
+//         operand lies within its band about 1e-6 (in_band :621) puts its
+//         point on the list (:858), and shade_bwd_fix_kernel recomputes
+//         the sample's h and q in double and VoH's decision past double
+//         (clips64 :569) and corrects the gradients where either decision
+//         differs from float32's (backward only). q
 //         reaches 1e-6 near the specular peak
 //         where r < ~0.17 (at r = 0.2 q stays above ~1.0e-6); its jump,
 //         -f_s dq / q, is all of the sample's roughness and view-direction
@@ -66,10 +67,11 @@
 //         forced points). VoH reaches it a few 1e-4 off the opposite of the
 //         view where |d| > 1 (VoH = (1 + V.d) / |d + V|); it jumps ~1e-4 of
 //         the view gradient's largest entry. There 1 + V.d cancels to
-//         ~3e-10 in any precision: float64's own VoH is within ~8e-6 of
-//         1e-6 of the exact value, so two float64 evaluations (clips64 and
-//         the reference) can decide a sample forced within 1e-5 of the clip
-//         each their own way.
+//         ~3e-10: float64's own VoH is within ~8e-6 of 1e-6 of the exact
+//         value, so two float64 evaluations could decide a sample forced
+//         within 1e-5 of the clip each their own way. So VoH's decision is
+//         taken in double-double (voh_passes :552), whose error is ~1e-22
+//         against the 3e-10: the exact decision on the float32 inputs.
 //     The bands, from the float32 error of each operand (u = 2^-24). v, ns
 //     and h are each within ~4.5u of float64's unit vectors (a sum of
 //     squares, a square root and a division; h0 = (d + V) / 2 keeps V's
@@ -93,13 +95,13 @@
 //     loop's state out of registers. So the loop only marks the sample,
 //     and the fix-up launch, which already lists points and recomputes a
 //     listed point's samples, takes the decisions.
-//   * left in float32: NoH's lower clip (:450, mask :588, and the
-//     cross-product branch :460, continuous: |ns x h|^2 = 1 - NoH^2
+//   * left in float32: NoH's lower clip (:452, mask :646, and the
+//     cross-product branch :462, continuous: |ns x h|^2 = 1 - NoH^2
 //     there). Its jump, 2 NoH gnom0 (alpha^2 - 1), carries the factor
 //     NoH = 1e-6: K4 measured <= 5.5e-7 of the largest entry there.
-//   * value only, no gradient crosses them: NoL's clip :449 (N and
-//     the sample are constants), max(n.d, 0) in the transport (:548,
-//     :930), and the upper clips of NoV, NoH and VoH at 1, which dot
+//   * value only, no gradient crosses them: NoL's clip :451 (N and
+//     the sample are constants), max(n.d, 0) in the transport (:606,
+//     :988), and the upper clips of NoV, NoH and VoH at 1, which dot
 //     products of unit vectors pass only by rounding: unmasked, where the
 //     plain version's torch.clamp passes all the gradient at the tie and
 //     JAX's jnp.clip half; at the tie the gradient projected onto the
@@ -107,8 +109,8 @@
 //   * unreachable: q's upper clip 4 pi needs nom0 = nom1 = nom2 = 1, i.e.
 //     NoV = NoL = 1 with NoH <= 1e-6 (NoV = NoL = 1 puts H on N), or r = 1,
 //     past the roughness activation's 0.99. The 1e-12 floors of |V|
-//     (:396, :398, :624), |N| (:405) and |h0| (:444,
-//     :595) need a zero-length view direction or normal, or a sample
+//     (:398, :400, :682), |N| (:407) and |h0| (:446,
+//     :653) need a zero-length view direction or normal, or a sample
 //     opposite the view to 1e-12, which float32's grid meets only when both
 //     are exactly on it (an axis-aligned view); such inputs are not forced.
 // The plain PyTorch version (ops/shading.py) stays the float32 chain that is
@@ -504,9 +506,69 @@ struct Clips {
   bool q, voh;                      // the gradient passes q's, VoH's clip
 };
 
-// q's and VoH's lower-clip decisions of one sample in float64, from the
-// float32 inputs in the plain version's form (ops/shading.py::ggx_terms):
-// V, N and h normalised in double, nom0 = NoH^2 (alpha^2 - 1) + 1.
+// Double-double: the unevaluated sum hi + lo of two doubles, ~106 bits.
+struct DD {
+  double hi, lo;
+};
+
+__device__ __forceinline__ DD two_sum(double a, double b) {   // exact
+  const double s = a + b, bb = s - a;
+  return {s, (a - (s - bb)) + (b - bb)};
+}
+
+__device__ __forceinline__ DD dd_add(DD a, DD b) {
+  DD s = two_sum(a.hi, b.hi);
+  const DD t = two_sum(a.lo, b.lo);
+  s = two_sum(s.hi, s.lo + t.hi);
+  return two_sum(s.hi, s.lo + t.lo);
+}
+
+// a . b of float32 vectors: each product is exact in double, the sum is
+// within 2^-106 of the exact one.
+__device__ __forceinline__ DD dot3_dd(float a0, float a1, float a2, float b0,
+                                      float b1, float b2) {
+  const DD s = two_sum(static_cast<double>(a0) * b0,
+                       static_cast<double>(a1) * b1);
+  const DD t = two_sum(s.hi, static_cast<double>(a2) * b2);
+  return two_sum(t.hi, t.lo + s.lo);
+}
+
+__device__ __forceinline__ DD dd_sqrt(DD a) {
+  const double r = sqrt(a.hi);
+  const double e = fma(-r, r, a.hi) + a.lo;    // a - r^2, r^2 exact by fma
+  return two_sum(r, e / (2.0 * r));
+}
+
+// VoH >= 1e-6 for the float32 view direction V and sample d. VoH =
+// V.(d + V) / |d + V| with V and d normalised is (V.d + |V|) / ||V| d + V|
+// with V as it is, so the decision is the sign of V.d + |V| - 1e-6
+// ||V| d + V|. V.d + |V| cancels to ~3e-10 |V| where VoH reaches 1e-6, and
+// is taken in double-double (error ~1e-32 |V|); ||V| d + V| is ~3e-4 |V|
+// there and its double's relative error ~1e-12, so the right side is within
+// ~1e-22 |V|, ~1e-12 of 1e-6 in VoH: the decision is the exact one on the
+// inputs wherever VoH lies farther from 1e-6 than that (the k4-branches
+// phase forces it to 1e-8 of 1e-6). ops/shading_cuda.py::voh_passes_dd
+// repeats it.
+__device__ __forceinline__ bool voh_passes(const float* __restrict__ vdir,
+                                           int p, float dx, float dy,
+                                           float dz) {
+  const float v0 = vdir[3 * p], v1 = vdir[3 * p + 1], v2 = vdir[3 * p + 2];
+  const DD m = dd_sqrt(dot3_dd(v0, v1, v2, v0, v1, v2));          // |V|
+  const DD a = dd_add(dot3_dd(v0, v1, v2, dx, dy, dz), m);
+  const double wx = fma(m.hi, static_cast<double>(dx),
+                        static_cast<double>(v0));
+  const double wy = fma(m.hi, static_cast<double>(dy),
+                        static_cast<double>(v1));
+  const double wz = fma(m.hi, static_cast<double>(dz),
+                        static_cast<double>(v2));
+  const DD diff = dd_add(a, {-1e-6 * sqrt(wx * wx + wy * wy + wz * wz), 0.0});
+  return diff.hi > 0.0 || (diff.hi == 0.0 && diff.lo >= 0.0);
+}
+
+// q's lower-clip decision of one sample in float64, from the float32 inputs
+// in the plain version's form (ops/shading.py::ggx_terms): V, N and h
+// normalised in double, nom0 = NoH^2 (alpha^2 - 1) + 1; VoH's from
+// voh_passes.
 __device__ __forceinline__ Clips clips64(const float* __restrict__ nrm,
                                       const float* __restrict__ vdir,
                                       float r, int p, float dx, float dy,
@@ -526,14 +588,13 @@ __device__ __forceinline__ Clips clips64(const float* __restrict__ nrm,
   const double NoV = fmin(fmax(nx * vx + ny * vy + nz * vz, 1e-6), 1.0);
   const double NoH = fmin(fmax(nx * hx + ny * hy + nz * hz, 1e-6), 1.0);
   const double NoL = fmin(fmax(nx * dx + ny * dy + nz * dz, 1e-6), 1.0);
-  const double VoH = vx * hx + vy * hy + vz * hz;
   const double rd = r, alpha = rd * rd, alpha2 = alpha * alpha;
   const double k = (alpha + 2.0 * rd + 1.0) / 8.0;
   const double nom0 = NoH * NoH * (alpha2 - 1.0) + 1.0;
   const double pi4 = 4.0 * 3.14159265358979323846;
   const double q = pi4 * nom0 * nom0 * (NoV * (1.0 - k) + k)
                    * (NoL * (1.0 - k) + k);
-  return {q >= 1e-6 && q <= pi4, VoH >= 1e-6};
+  return {q >= 1e-6 && q <= pi4, voh_passes(vdir, p, dx, dy, dz)};
 }
 
 // One sample's local light e_c (before the clip) and transport factor

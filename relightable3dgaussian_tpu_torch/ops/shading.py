@@ -29,20 +29,28 @@ def _normalize(v: torch.Tensor) -> torch.Tensor:
 
 def ggx_specular(normal: torch.Tensor, pts2c: torch.Tensor,
                  pts2l: torch.Tensor, roughness: torch.Tensor,
-                 fresnel: float = 0.04) -> torch.Tensor:
+                 fresnel: float = 0.04,
+                 voh_pass: torch.Tensor | None = None) -> torch.Tensor:
     """GGX specular reflectance [P, S, 1] for normals [P, 3], view
     directions [P, 3], unit light directions [P, S, 3] and roughness
-    [P, 1]."""
-    return ggx_terms(normal, pts2c, pts2l, roughness, fresnel)["f_s"]
+    [P, 1] (`voh_pass`: ggx_terms')."""
+    return ggx_terms(normal, pts2c, pts2l, roughness, fresnel,
+                     voh_pass)["f_s"]
 
 
 def ggx_terms(normal: torch.Tensor, pts2c: torch.Tensor, pts2l: torch.Tensor,
-              roughness: torch.Tensor, fresnel: float = 0.04) -> dict:
+              roughness: torch.Tensor, fresnel: float = 0.04,
+              voh_pass: torch.Tensor | None = None) -> dict:
     """`ggx_specular`'s chain: f_s [P, S, 1] and the operands of its clips
     before they are clipped, NoV [P, 1] and NoH, VoH and the denominator q
     [P, S, 1], each of which the clip to [1e-6, ...] passes a gradient
     only at or above 1e-6 (kernel K4 decides the same clips in its own
-    float32 rounding: ops/shading_cuda.py::k4_branch_operands)."""
+    float32 rounding: ops/shading_cuda.py::k4_branch_operands).
+
+    `voh_pass` [P, S, 1] (bool), where given, is VoH's lower-clip decision
+    in place of this arithmetic's own: a reference that decides it past
+    float64 (chip_smoke.py::reference_voh_pass). The value is continuous
+    across the clip; only the gradient follows the decision."""
     L = pts2l
     V = _normalize(pts2c)
     H = _normalize((L + V[:, None, :]) / 2.0)
@@ -56,6 +64,9 @@ def ggx_terms(normal: torch.Tensor, pts2c: torch.Tensor, pts2l: torch.Tensor,
     NoV = torch.clamp(NoV_raw, 1e-6, 1.0)
     NoH = torch.clamp(NoH_raw, 1e-6, 1.0)
     VoH = torch.clamp(VoH_raw, 1e-6, 1.0)
+    if voh_pass is not None:
+        VoH = torch.where(voh_pass, torch.clamp(VoH_raw, max=1.0),
+                          VoH.detach())
 
     alpha = roughness * roughness
     alpha2 = alpha * alpha
@@ -75,7 +86,8 @@ def rendering_equation(base_color: torch.Tensor, roughness: torch.Tensor,
                        incidents_shs: torch.Tensor,
                        direct_light_fn: Callable[[torch.Tensor], torch.Tensor],
                        visibility: torch.Tensor, incident_dirs: torch.Tensor,
-                       incident_areas: torch.Tensor):
+                       incident_areas: torch.Tensor,
+                       voh_pass: torch.Tensor | None = None):
     """Shade every point from its cached incident samples.
 
     base_color [P, 3], roughness [P, 1], normals [P, 3], viewdirs [P, 3]
@@ -83,7 +95,7 @@ def rendering_equation(base_color: torch.Tensor, roughness: torch.Tensor,
     direct_light_fn: dirs [P, S, 3] → radiance [P, S, 3], visibility
     [P, S, 1], incident_dirs [P, S, 3], incident_areas [P, S, 1].
     Returns (pbr [P, 3], extras) with the per-sample lights [P, S, 3] and
-    the diffuse light and specular [P, 3].
+    the diffuse light and specular [P, 3]. `voh_pass`: ggx_terms'.
     """
     deg = int(math.isqrt(incidents_shs.shape[1]) - 1)
     global_light = direct_light_fn(incident_dirs) * visibility
@@ -96,7 +108,8 @@ def rendering_equation(base_color: torch.Tensor, roughness: torch.Tensor,
 
     n_d_i = torch.maximum((normals[:, None] * incident_dirs).sum(-1, keepdim=True),
                           zero)
-    f_s = ggx_specular(normals, viewdirs, incident_dirs, roughness)
+    f_s = ggx_specular(normals, viewdirs, incident_dirs, roughness,
+                       voh_pass=voh_pass)
     transport = incident_lights * (incident_areas * n_d_i)       # [P, S, 3]
     specular = (f_s * transport).mean(-2)
     diffuse_light = transport.mean(-2)

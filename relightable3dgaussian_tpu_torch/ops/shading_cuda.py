@@ -34,8 +34,8 @@ FLOAT32_CLIP = float(torch.tensor(1e-6, dtype=torch.float32))    # 1e-6f
 FLOAT32_TINY = float(torch.tensor(1e-12, dtype=torch.float32))   # 1e-12f
 K4_PI4 = 4 * float(torch.tensor(math.pi, dtype=torch.float32))   # k4Pi
 # csrc/shading.cu kQBand, kVoHBand: where K4's float32 q lies within
-# Q_BAND of 1e-6 (relative), or its VoH within VOH_BAND, K4 takes both
-# clips' decisions from float64 (k4_clip_passes)
+# Q_BAND of 1e-6 (relative), or its VoH within VOH_BAND, K4's fix-up takes
+# q's decision from float64 and VoH's past it (k4_clip_passes)
 Q_BAND, VOH_BAND = 5e-4, float(torch.tensor(2e-6, dtype=torch.float32))
 LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
 BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
@@ -44,11 +44,13 @@ BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
 def rendering_equation_train_reference(base_color, roughness, normals,
                                        viewdirs, incidents_shs, global_light,
                                        visibility, incident_dirs,
-                                       incident_areas):
-    """The plain version: `rendering_equation` with a precomputed light."""
+                                       incident_areas, voh_pass=None):
+    """The plain version: `rendering_equation` with a precomputed light
+    (`voh_pass`: ops/shading.py::ggx_terms')."""
     pbr, ex = rendering_equation(base_color, roughness, normals, viewdirs,
                                  incidents_shs, lambda d: global_light,
-                                 visibility, incident_dirs, incident_areas)
+                                 visibility, incident_dirs, incident_areas,
+                                 voh_pass=voh_pass)
     return pbr, ex["diffuse_light"], ex["specular"]
 
 
@@ -188,18 +190,76 @@ def k4_branch_operands(normals: torch.Tensor, viewdirs: torch.Tensor,
     return {"NoV": nov, "NoH": noh, "VoH": voh, "q": q}
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """a + b as an exact sum of two doubles (hi, lo)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """a b as an exact sum of two doubles (Dekker's split: what the
+    kernel's fma gives)."""
+    def split(x):
+        c = 134217729.0 * x
+        hi = c - (c - x)
+        return hi, x - hi
+    p = a * b
+    (ah, al), (bh, bl) = split(a), split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _dd_add(a, b):
+    s = _two_sum(a[0], b[0])
+    t = _two_sum(a[1], b[1])
+    s = _two_sum(s[0], s[1] + t[0])
+    return _two_sum(s[0], s[1] + t[1])
+
+
+def _dot3_dd(a: torch.Tensor, b: torch.Tensor):
+    """a . b of float32 values in double-double (products exact)."""
+    s = _two_sum(a[..., 0] * b[..., 0], a[..., 1] * b[..., 1])
+    t = _two_sum(s[0], a[..., 2] * b[..., 2])
+    return _two_sum(t[0], t[1] + s[1])
+
+
+def voh_passes_dd(viewdirs: torch.Tensor, incident_dirs: torch.Tensor
+                  ) -> torch.Tensor:
+    """VoH >= 1e-6 [P, S] as K4's fix-up decides it (csrc/shading.cu::
+    voh_passes): the sign of V.d + |V| - 1e-6 ||V| d + V| for the float32
+    view direction V [P, 3] and samples d [P, S, 3], the first two terms in
+    double-double, in float64 tensors. The fma of |V| d + V is a two-sum
+    here, within an ulp of the kernel's: ~1e-16 of a term that moves the
+    decision by as much of VoH, where the forced inputs put VoH 1e-8 of
+    itself from 1e-6 (csrc/shading.cu)."""
+    v = viewdirs.double()[:, None].expand_as(incident_dirs)
+    d = incident_dirs.double()
+    n = _dot3_dd(v, v)
+    r = torch.sqrt(n[0])
+    p, pe = _two_prod(r, r)
+    m = _two_sum(r, ((n[0] - p) - pe + n[1]) / (2.0 * r))           # |V|
+    a = _dd_add(_dot3_dd(v, d), m)
+    p, pe = _two_prod(m[0][..., None], d)
+    s, t = _two_sum(p, v)
+    w = s + (t + pe)
+    b = -1e-6 * torch.sqrt((w * w).sum(-1))
+    hi, lo = _dd_add(a, (b, torch.zeros_like(b)))
+    return (hi > 0) | ((hi == 0) & (lo >= 0))
+
+
 def k4_clip_passes(normals: torch.Tensor, viewdirs: torch.Tensor,
                    roughness: torch.Tensor, incident_dirs: torch.Tensor
                    ) -> dict:
     """K4's lower-clip decisions, True where the clip passes the gradient:
     NoV [P] and NoH, VoH and q [P, S] (q within [1e-6, 4 pi]), by K4's rule
-    (csrc/shading.cu, branch list): NoV from float64; q and VoH from
-    float64 at a sample where K4's float32 q lies within Q_BAND of 1e-6
-    or its VoH within VOH_BAND of 1e-6 (`k4_branch_operands`), from
-    float32 elsewhere; NoH from float32. The float64 operands are the
-    plain version's in float64 (ops/shading.py::ggx_terms), whose form
-    K4's fix-up kernel repeats in double. "double" [P, S] marks the
-    samples whose q and VoH decisions K4 takes from float64."""
+    (csrc/shading.cu, branch list): NoV from float64; at a sample where
+    K4's float32 q lies within Q_BAND of 1e-6 or its VoH within VOH_BAND
+    of 1e-6 (`k4_branch_operands`), q from float64 and VoH past it
+    (`voh_passes_dd`, the exact decision), from float32 elsewhere; NoH
+    from float32. The float64 operands are the plain version's in float64
+    (ops/shading.py::ggx_terms), whose form K4's fix-up kernel repeats in
+    double. "double" [P, S] marks the samples whose q and VoH decisions K4
+    takes to its fix-up."""
     P = normals.shape[0]
     ops = k4_branch_operands(normals, viewdirs, roughness, incident_dirs)
     ex = {k: v.reshape(P, -1) for k, v in ggx_terms(
@@ -213,7 +273,7 @@ def k4_clip_passes(normals: torch.Tensor, viewdirs: torch.Tensor,
     q64 = (ex["q"] >= 1e-6) & (ex["q"] <= 4 * math.pi)
     return {"NoV": ex["NoV"][:, 0] >= 1e-6,
             "NoH": ops["NoH"] >= FLOAT32_CLIP,
-            "VoH": torch.where(double, ex["VoH"] >= 1e-6,
+            "VoH": torch.where(double, voh_passes_dd(viewdirs, incident_dirs),
                                voh >= FLOAT32_CLIP),
             "q": torch.where(double, q64,
                              (q >= FLOAT32_CLIP) & (q <= K4_PI4)),

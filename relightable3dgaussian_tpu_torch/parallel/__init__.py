@@ -3,6 +3,7 @@ data parallelism (`data_parallel`) and the point- and ray-sharded stage-2
 eval shading and visibility trace (`point_sharded`). The JAX package's
 `make_mesh` is `make_group` here, with `spawn` to start one process a
 rank."""
-from .data_parallel import (combine_stat_contribs,  # noqa: F401
-                            make_dp_train_step, make_dp_train_step_stage2,
-                            make_group, replicate, shard_views, spawn)
+from .data_parallel import (check_replicas,  # noqa: F401
+                            combine_stat_contribs, make_dp_train_step,
+                            make_dp_train_step_stage2, make_group, replicate,
+                            shard_views, spawn)

@@ -20,10 +20,19 @@ A group is one process a rank over an explicit device list (`make_group`;
 `spawn` starts the processes). Its backend follows the device layout and is
 printed: NCCL where every rank has a card of its own, gloo on the CPU or
 where ranks share a card (NCCL refuses two ranks on one GPU; gloo's
-all_reduce and broadcast take CUDA tensors). Group set-up and every
-collective have a timeout, and a rank that fails makes `spawn` fail. A group
-of one rank starts no process group and runs no collective, so one rank
-reduces to `train.stage1.train_step` / `train.stage2.train_step` exactly.
+all_reduce and broadcast take CUDA tensors). Under NCCL the rank's card is
+bound when the group starts (`device_id`), so its communicator is made
+there, with every rank present, and not at the first collective: a
+communicator made lazily waits for a missing rank with no timeout. Group
+set-up and every collective have a timeout (COLLECTIVE_TIMEOUT_S unless the
+caller gives one; under NCCL a collective's wait blocks the host,
+TORCH_NCCL_BLOCKING_WAIT), and a rank that fails or ends makes `spawn`
+fail at once; a rank that stays alive but never reaches the first
+collective is bounded by `spawn`'s `timeout_s` alone under NCCL. Every operand of a collective lies on
+the rank's own device, is contiguous and of a type NCCL reduces
+(`NCCL_DTYPES`; checked under NCCL). A group of one rank starts no process
+group and runs no collective, so one rank reduces to
+`train.stage1.train_step` / `train.stage2.train_step` exactly.
 The JAX package's seeded-weights path (a TPU scatter workaround) is not
 ported: the weights come from the forward.
 """
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import hashlib
 import multiprocessing
 import os
 import queue as queue_lib
@@ -48,8 +58,12 @@ from ..ops.config import RasterConfig
 from ..train import stage1, stage2
 from ..train.config import OptimizationConfig
 
-# Seconds a rank waits in group set-up or in one collective before it fails.
+# Seconds a rank waits in group set-up or in one collective before it fails
+# (spawn's default, read when it is called).
 COLLECTIVE_TIMEOUT_S = 1800.0
+# The element types NCCL reduces and broadcasts (no bool).
+NCCL_DTYPES = (torch.uint8, torch.int8, torch.int32, torch.int64,
+               torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,9 +122,18 @@ def make_group(devices: Sequence[torch.device | str], rank: int = 0,
     if len(devices) == 1:
         return Group(devices, 0, None)
     backend = choose_backend(devices)
+    if backend == "nccl":
+        # A collective's wait blocks the host and raises past the timeout
+        # (torch's ProcessGroupNCCL). It does not end a rank whose peer
+        # never reaches the group's first collective: on four NVIDIA H100
+        # 80GB HBM3 at 700 W (torch 2.11, NCCL 2.28) such a rank still
+        # waited 100 s past a 10 s timeout, with or without this; spawn's
+        # timeout_s bounds it.
+        os.environ.setdefault("TORCH_NCCL_BLOCKING_WAIT", "1")
     dist.init_process_group(
         backend, init_method=init_method, world_size=len(devices), rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        timeout=datetime.timedelta(seconds=timeout_s),
+        device_id=devices[rank] if backend == "nccl" else None)
     if rank == 0:
         print(f"[parallel] {len(devices)} ranks on "
               f"{', '.join(map(str, devices))}: {backend} backend",
@@ -140,14 +163,17 @@ def _rank_main(fn, devices, rank, init_method, timeout_s, results, args):
 
 def spawn(fn: Callable, devices: Sequence[torch.device | str], *args,
           timeout_s: float | None = None,
-          collective_timeout_s: float = COLLECTIVE_TIMEOUT_S) -> list:
+          collective_timeout_s: float | None = None) -> list:
     """Run `fn(group, *args)` on one new process a device entry (started by
     the spawn method, so no CUDA state is forked) and return each rank's
     result, rank 0 first. `fn`, `args` and the results are pickled: `fn`
     must be a module-level function. Where a rank raises or dies, or the
     ranks are not done within `timeout_s` (None: no limit; each collective
-    still has `collective_timeout_s`), the other ranks are terminated and
-    RuntimeError (TimeoutError) is raised with the failed rank's traceback."""
+    still has `collective_timeout_s`, None: COLLECTIVE_TIMEOUT_S), the other
+    ranks are terminated and RuntimeError (TimeoutError) is raised with the
+    failed rank's traceback."""
+    if collective_timeout_s is None:
+        collective_timeout_s = COLLECTIVE_TIMEOUT_S
     devices = [_device(d) for d in devices]
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -203,10 +229,23 @@ def spawn(fn: Callable, devices: Sequence[torch.device | str], *args,
 # collectives (none for a group of one rank)
 # ---------------------------------------------------------------------------
 
+def _check_operand(tensor: torch.Tensor, group: Group) -> None:
+    """Under NCCL, raise unless `tensor` is a contiguous tensor of a type
+    NCCL takes on this rank's card (NCCL would fail or hang on it)."""
+    if group.backend == "nccl" and (
+            tensor.device != group.device or not tensor.is_contiguous()
+            or tensor.dtype not in NCCL_DTYPES):
+        raise ValueError(
+            f"rank {group.rank} on {group.device}: a {tensor.dtype} operand "
+            f"on {tensor.device} (contiguous: {tensor.is_contiguous()}); "
+            "NCCL takes contiguous tensors of NCCL_DTYPES on the rank's card")
+
+
 def all_reduce_(tensor: torch.Tensor, group: Group | None,
                 op: str = "sum") -> torch.Tensor:
     """In place over the ranks of `group` ("sum" or "max")."""
     if group is not None and group.size > 1:
+        _check_operand(tensor, group)
         dist.all_reduce(tensor, op={"sum": dist.ReduceOp.SUM,
                                     "max": dist.ReduceOp.MAX}[op])
     return tensor
@@ -235,7 +274,8 @@ def broadcast_(tensors: Sequence[torch.Tensor], group: Group | None) -> None:
                          f"rank 0 of {shapes[0]}")
     for t in tensors:
         # NCCL moves only CUDA tensors: Adam's step counts live on the CPU.
-        buf = t.to(group.device)
+        buf = t.to(group.device).contiguous()
+        _check_operand(buf, group)
         dist.broadcast(buf, src=0)
         if buf is not t:
             t.copy_(buf)
@@ -261,8 +301,10 @@ def mean_metrics(metrics: dict[str, Any], group: Group | None) -> dict:
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
     if group is None or group.size == 1 or not keys:
         return metrics
-    values = torch.stack([metrics[k].detach().float().reshape(())
-                          for k in keys])
+    # A metric may live on the CPU (a host-side count); NCCL reduces only
+    # on the card.
+    values = torch.stack([metrics[k].detach().float().reshape(()).to(
+        group.device) for k in keys])
     all_reduce_(values, group).div_(group.size)
     return {**metrics, **dict(zip(keys, values.unbind()))}
 
@@ -281,11 +323,12 @@ def reduce_step(group: Group | None, grads: Sequence[torch.Tensor],
 # replicas and camera batches
 # ---------------------------------------------------------------------------
 
-def replicate(group: Group | None, model: G.GaussianModel,
-              optimizer: torch.optim.Optimizer | None = None, env=None,
-              env_optimizer: torch.optim.Optimizer | None = None) -> None:
-    """Rank 0's model (parameters and densification statistics), optimizer
-    state and env map, in place on every rank."""
+def replica_tensors(model: G.GaussianModel,
+                    optimizer: torch.optim.Optimizer | None = None, env=None,
+                    env_optimizer: torch.optim.Optimizer | None = None
+                    ) -> list[torch.Tensor]:
+    """A replica's state: the model's parameters and densification
+    statistics, the env map and each optimizer's state tensors."""
     tensors = [getattr(model, k).data for k in model.fields]
     tensors += [getattr(model, k) for k in G.STATS]
     if env is not None:
@@ -298,7 +341,37 @@ def replicate(group: Group | None, model: G.GaussianModel,
                 state = opt.state.get(p, {})
                 tensors += [state[k] for k in sorted(state)
                             if isinstance(state[k], torch.Tensor)]
-    broadcast_(tensors, group)
+    return tensors
+
+
+def replicate(group: Group | None, model: G.GaussianModel,
+              optimizer: torch.optim.Optimizer | None = None, env=None,
+              env_optimizer: torch.optim.Optimizer | None = None) -> None:
+    """Rank 0's replica (`replica_tensors`), in place on every rank."""
+    broadcast_(replica_tensors(model, optimizer, env, env_optimizer), group)
+
+
+def replica_digest(*replica) -> str:
+    """sha256 of the bytes of `replica_tensors(*replica)`."""
+    h = hashlib.sha256()
+    for t in replica_tensors(*replica):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_replicas(group: Group | None, *replica) -> list[str]:
+    """Every rank's `replica_digest(*replica)`, rank 0 first; RuntimeError
+    where one differs from rank 0's (the replicas must stay bitwise
+    equal)."""
+    digest = replica_digest(*replica)
+    if group is None or group.size == 1:
+        return [digest]
+    digests: list[Any] = [None] * group.size
+    dist.all_gather_object(digests, digest)
+    apart = [r for r, d in enumerate(digests) if d != digests[0]]
+    if apart:
+        raise RuntimeError(f"replicas of ranks {apart} apart from rank 0's")
+    return digests
 
 
 def shard_views(views: Sequence[ViewInputs],

@@ -299,19 +299,22 @@ def test_train_on_two_ranks_writes_one_set_of_artifacts(dataset, tmp_path,
                                                         capfd):
     """cli.train --n_devices 2 on the CPU (two gloo ranks): stage 1 with a
     densify, then stage 2 with a visibility refresh (the trace split over
-    the ranks at set-up and refresh); rank 0 alone writes, and each step is
-    logged once."""
+    the ranks at set-up and refresh); rank 0 alone writes, each step is
+    logged once, and both replicas end bitwise equal (the digests
+    cli.train returns)."""
     s1, s2 = tmp_path / "s1", tmp_path / "s2"
-    train_cli.main(stage1_args(
+    digests1 = train_cli.main(stage1_args(
         dataset, s1, 6, "--densify_from_iter", "2",
         "--densification_interval", "3", "--densify_until_iter", "5",
         "--n_devices", "2"), device="cpu")
-    train_cli.main(["-s", str(dataset), "-m", str(s2), "-t", "neilf",
-                    "-c", str(s1 / "chkpnt6.npz"), "--iterations", "10",
-                    "--sample_num", "8", "--save_interval", "10",
-                    "--checkpoint_interval", "10",
-                    "--vis_refresh_interval", "2", "--n_devices", "2"],
-                   device="cpu")
+    digests2 = train_cli.main(
+        ["-s", str(dataset), "-m", str(s2), "-t", "neilf",
+         "-c", str(s1 / "chkpnt6.npz"), "--iterations", "10",
+         "--sample_num", "8", "--save_interval", "10",
+         "--checkpoint_interval", "10", "--vis_refresh_interval", "2",
+         "--n_devices", "2"], device="cpu")
+    for digests in (digests1, digests2):
+        assert len(digests) == 2 and digests[0] == digests[1]
     out = capfd.readouterr().out
     assert "[parallel] 2 ranks on cpu, cpu: gloo backend" in out
     assert "Data-parallel training over 2 ranks (2 cameras per step)" in out

@@ -1612,12 +1612,36 @@ def test_dense_oracle_on_the_card_matches_the_cpu(cuda, dtype, atol):
     assert torch.equal(got.radii.cpu(), want.radii)
 
 
+@pytest.fixture
+def two_cards(cuda):
+    """cuda:0 and cuda:1, one rank a card (NCCL)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: one rank a card over NCCL")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
 def test_two_ranks_share_the_card_over_gloo(cuda):
     """parallel.spawn with two ranks on cuda:0 (gloo, whose all_reduce and
     broadcast take CUDA tensors): the ray-sharded visibility bitwise one K3
     launch's on all rays, update_visibility through it bitwise the
     one-launch cache, the sharded shading the unsharded shading's within
     1e-6."""
+    check_sharded_ranks([cuda, cuda], cuda)
+
+
+def test_nccl_sharded_trace_is_one_k3_launch(two_cards):
+    """As test_two_ranks_share_the_card_over_gloo, one rank on each of two
+    cards over NCCL."""
+    from relightable3dgaussian_tpu_torch.parallel.data_parallel import \
+        choose_backend
+    assert choose_backend(two_cards) == "nccl"
+    check_sharded_ranks(two_cards, two_cards[0])
+
+
+def check_sharded_ranks(devices, cuda):
+    """The sharded trace, update_visibility and shading on `devices` (one
+    rank an entry) against one K3 launch and the unsharded shading on
+    `cuda`."""
     import test_torch_ranks as torch_ranks
     from relightable3dgaussian_tpu_torch.parallel import spawn
     from relightable3dgaussian_tpu_torch.utils.graphics import \
@@ -1653,8 +1677,8 @@ def test_two_ranks_share_the_card_over_gloo(cuda):
                      rays_o=rays_o.cpu().numpy(), rays_d=rays_d.cpu().numpy())
         whole = ray_trace.trace_visibility(bvh, rays_o, rays_d).cpu().numpy()
         cache = render_neilf.update_visibility(model, 8).visibility
-    r0, r1 = spawn(torch_ranks.sharded, [cuda, cuda], shading, trace,
-                   d, 8, timeout_s=300)
+    r0, r1 = spawn(torch_ranks.sharded, devices, shading, trace,
+                   d, 8, timeout_s=300, collective_timeout_s=120)
     for r in (r0, r1):
         np.testing.assert_array_equal(r["trace"], whole)
         np.testing.assert_array_equal(r["visibility"], cache.cpu().numpy())
@@ -1670,3 +1694,73 @@ def test_two_ranks_share_the_card_over_gloo(cuda):
     for k, v in extras.items():
         np.testing.assert_allclose(r0[f"eval.{k}"], v.cpu().numpy(),
                                    atol=1e-6, err_msg=k)
+
+
+def test_nccl_replicas_stay_bitwise_equal(two_cards, tmp_path):
+    """Three data-parallel stage-1 steps on two cards over NCCL from a
+    seeded 3000-gaussian state at 128x128 (two views a step): rank 0's
+    model replicated, then every replica's digest equal after every
+    step."""
+    import test_torch_ranks as torch_ranks
+    from relightable3dgaussian_tpu_torch.parallel import spawn
+    from relightable3dgaussian_tpu_torch.train.checkpoint import \
+        save_checkpoint
+    from relightable3dgaussian_tpu_torch.train.optim import make_optimizer
+    assert _build.load_library(composite_cuda.KERNEL)
+    assert _build.load_library(composite_cuda.BWD_KERNEL)
+    opt = OptimizationConfig(**STAGE1_NERF_SYNTHETIC)
+    target = GaussianModel.from_numpy(scene(11), device="cpu")
+    model = GaussianModel.from_numpy(scene(12), device="cpu")
+    path = str(tmp_path / "state.npz")
+    save_checkpoint(path, 3, model, make_optimizer(model, opt, 3.0))
+    views = []
+    for a in (0.0, 0.5, 1.0, 1.5, 2.0, 2.5):
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        cam = make_camera_params(R, np.array([0.0, 0.0, 3.0]), SIZE, SIZE,
+                                 fovx=0.9, fovy=0.9, device="cpu")
+        z = torch.zeros((3, SIZE, SIZE))
+        with torch.no_grad():
+            img = render(ViewInputs(cam, z, z[:1] + 1, z[:1], z), target,
+                         RasterConfig(SIZE, SIZE), torch.zeros(3))["render"]
+        views.append({"R": R, "T": np.array([0.0, 0.0, 3.0]), "size": SIZE,
+                      "fov": 0.9, "image": img.numpy(),
+                      "mask": np.ones((1, SIZE, SIZE), np.float32)})
+    batches = [views[0:2], views[2:4], views[4:6]]
+    r0, r1 = spawn(torch_ranks.dp_steps, two_cards, path, dict(vars(opt)),
+                   3.0, SIZE, batches, 4, timeout_s=300,
+                   collective_timeout_s=120)
+    assert r0 == r1 and len(r0) == 3
+    assert all(len(set(d)) == 1 and len(d) == 2 for d in r0)
+
+
+def test_eval_nvs_on_two_cards_matches_one(two_cards, tmp_path):
+    """cli.eval_nvs -t neilf --n_devices 2 (one rank a card, NCCL) on a
+    short stage-2 run's checkpoint: the one-rank metrics and test renders,
+    bitwise."""
+    from relightable3dgaussian_tpu_torch.cli import eval_nvs
+    from relightable3dgaussian_tpu_torch.cli import train as train_cli
+    from relightable3dgaussian_tpu_torch.scene.image_io import read_png
+    data, out1, out2 = tmp_path / "data", tmp_path / "s1", tmp_path / "s2"
+    write_scene(data)
+    train_cli.main(["-s", str(data), "-m", str(out1), "--iterations", "6",
+                    "--max_init_points", "2000", "--save_interval", "6",
+                    "--checkpoint_interval", "6"], device=two_cards[0])
+    train_cli.main(["-s", str(data), "-m", str(out2), "-t", "neilf",
+                    "-c", str(out1 / "chkpnt6.npz"), "--iterations", "10",
+                    "--sample_num", "8", "--save_interval", "10",
+                    "--checkpoint_interval", "10"], device=two_cards[0])
+    argv = ["-s", str(data), "-m", str(out2), "-t", "neilf", "-c",
+            str(out2 / "chkpnt10.npz"), "--skip_train", "--sample_num", "8"]
+    one = eval_nvs.main(argv + ["--n_devices", "1"], device=two_cards[0])
+    (out2 / "test").rename(out2 / "test_one")
+    two = eval_nvs.main(argv + ["--n_devices", "2"], device=two_cards[0])
+    for k in ("psnr", "ssim"):
+        assert two["test"][k] == one["test"][k], k
+    pngs = sorted(p.name for p in (out2 / "test_one" / "renders").iterdir())
+    assert pngs
+    for name in pngs:
+        np.testing.assert_array_equal(
+            read_png(str(out2 / "test" / "renders" / name)),
+            read_png(str(out2 / "test_one" / "renders" / name)), name)
+

@@ -51,6 +51,7 @@ from relightable3dgaussian_tpu_torch.parallel import (make_dp_train_step,
                                                       make_group, spawn)
 from relightable3dgaussian_tpu_torch.train import checkpoint, optim, stage1
 from relightable3dgaussian_tpu_torch.train.config import OptimizationConfig
+from relightable3dgaussian_tpu_torch.parallel import data_parallel as dp
 import test_torch_ranks as torch_ranks
 from test_torch_ops import SIZE, jax_config, t
 from test_torch_ray_trace import shell_scene, surface_rays
@@ -177,9 +178,42 @@ def ranks(stage1_state, stage2_state):
                        stage2_state["vis"], dict(vars(OPT2)), LR2, SIZE,
                        [view2, view2], FIRST_ITER + 3)),
         ("sharded", (shading_inputs(), trace, model, S))]
-    r0, r1 = spawn(torch_ranks.run_jobs, CPU2, jobs,
-                   timeout_s=SPAWN_TIMEOUT_S)
-    return {name: (a, b) for (name, _), a, b in zip(jobs, r0, r1)}
+    (r0, audit0), (r1, audit1) = spawn(torch_ranks.audited_jobs, CPU2, jobs,
+                                       timeout_s=SPAWN_TIMEOUT_S)
+    out = {name: (a, b) for (name, _), a, b in zip(jobs, r0, r1)}
+    out["audit"] = (audit0, audit1)
+    return out
+
+
+def test_every_collective_operand_is_one_nccl_takes(ranks):
+    """Every collective the spawn above made (data-parallel stage-1 steps
+    with replicate and a densify, a stage-2 step, the sharded shading and
+    trace and update_visibility through it), recorded on each rank: a
+    tensor operand is contiguous, on the rank's device and of a type NCCL
+    reduces; an all_reduce sums or takes the max, and the max is taken
+    once a data-parallel step, of the radii (float32 [P]); both ranks made
+    the same calls in the same order."""
+    audit0, audit1 = ranks["audit"]
+    assert [(r["job"], r["call"], r.get("shape"), r.get("op"))
+            for r in audit0] == [(r["job"], r["call"], r.get("shape"),
+                                  r.get("op")) for r in audit1]
+    for rec in audit0 + audit1:
+        if "dtype" in rec:
+            assert rec["dtype"] in dp.NCCL_DTYPES, rec
+            assert rec["contiguous"] and rec["device"] == "cpu", rec
+        if rec["call"] == "all_reduce":
+            assert rec["op"] in ("sum", "max"), rec
+    jobs = {r["job"] for r in audit0}
+    assert jobs == {"dp_stage1", "dp_stage2", "sharded"}
+    for job, steps in (("dp_stage1", 2), ("dp_stage2", 1)):
+        maxes = [r for r in audit0 if r["job"] == job and r.get("op") == "max"]
+        assert len(maxes) == steps, maxes
+        assert all(r["dtype"] == torch.float32 and len(r["shape"]) == 1
+                   for r in maxes)
+        assert any(r["call"] == "broadcast" for r in audit0
+                   if r["job"] == job)            # replicate
+    assert any(r["call"] == "all_reduce" for r in audit0
+               if r["job"] == "sharded")
 
 
 @pytest.fixture(scope="module")

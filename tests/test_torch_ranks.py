@@ -7,9 +7,13 @@ a rank never imports jax or the JAX package. Inputs arrive as numpy arrays
 and paths; results go back as numpy arrays."""
 from __future__ import annotations
 
+import time
+
 import pytest
 import torch
+import torch.distributed as dist
 
+from relightable3dgaussian_tpu_torch.cli.arguments import rank_devices
 from relightable3dgaussian_tpu_torch.models import gaussians as G
 from relightable3dgaussian_tpu_torch.models import render_neilf
 from relightable3dgaussian_tpu_torch.models.lights import DirectLightMap
@@ -65,6 +69,47 @@ def run_jobs(group, jobs: list):
     return [globals()[name](group, *args) for name, args in jobs]
 
 
+AUDITED = ("all_reduce", "broadcast", "broadcast_object_list",
+           "all_gather_object")
+
+
+def audited_jobs(group, jobs: list):
+    """run_jobs with every torch.distributed collective of AUDITED wrapped
+    to record its operand: (results, records), one record a call with the
+    job, the call, the operand's dtype, device, contiguity and shape, and
+    an all_reduce's op ("sum", "max" or another's name)."""
+    records, real = [], {name: getattr(dist, name) for name in AUDITED}
+    job = [None]
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            rec = {"job": job[0], "call": name}
+            t = args[0] if args else kwargs.get("tensor")
+            if isinstance(t, torch.Tensor):
+                rec.update(dtype=t.dtype, device=str(t.device),
+                           contiguous=t.is_contiguous(), shape=tuple(t.shape))
+            if name == "all_reduce":
+                op = kwargs.get("op", args[1] if len(args) > 1
+                                else dist.ReduceOp.SUM)
+                rec["op"] = {dist.ReduceOp.SUM: "sum",
+                             dist.ReduceOp.MAX: "max"}.get(op, str(op))
+            records.append(rec)
+            return real[name](*args, **kwargs)
+        return call
+
+    for name in AUDITED:
+        setattr(dist, name, wrap(name))
+    try:
+        results = []
+        for name, args in jobs:
+            job[0] = name
+            results.append(globals()[name](group, *args))
+    finally:
+        for name in AUDITED:
+            setattr(dist, name, real[name])
+    return results, records
+
+
 def dp_stage1(group, path: str, opt_kw: dict, lr_scale: float, size: int,
               batches: list, iteration: int, densify: dict | None = None):
     """From the train state in `path`, one data-parallel step of each batch
@@ -97,6 +142,26 @@ def dp_stage1(group, path: str, opt_kw: dict, lr_scale: float, size: int,
             f"params.{k}": getattr(model, k).detach().cpu().numpy()
             for k in model.fields}})
     return results
+
+
+def dp_steps(group, path: str, opt_kw: dict, lr_scale: float, size: int,
+             batches: list, iteration: int) -> list[str]:
+    """From the train state in `path`, replicated from rank 0, one
+    data-parallel step of each batch of views in turn (one view a rank);
+    returns every rank's replica digest after each step
+    (parallel.check_replicas, which raises where they are apart)."""
+    opt = OptimizationConfig(**opt_kw)
+    _, model, optimizer = checkpoint.load_train_state(
+        path, opt, lr_scale, device=group.device)
+    replicate(group, model, optimizer)
+    step = make_dp_train_step(group, cfg=RasterConfig(size, size), opt=opt,
+                              spatial_lr_scale=lr_scale)
+    digests = []
+    for i, batch in enumerate(batches):
+        step(model, optimizer, [view_inputs(v, group.device) for v in batch],
+             iteration + i)
+        digests.append(dp.check_replicas(group, model, optimizer))
+    return digests
 
 
 def dp_stage2(group, path: str, env_path: str, vis: tuple, opt_kw: dict,
@@ -169,6 +234,14 @@ def fail_on_rank(group, rank: int):
     dp.all_reduce_(torch.ones(1), group)
 
 
+def stall_on_rank(group, rank: int, seconds: float):
+    """`rank` sleeps `seconds` before its collective; the others wait in
+    theirs."""
+    if group.rank == rank:
+        time.sleep(seconds)
+    dp.all_reduce_(torch.ones(1), group)
+
+
 def test_sharded_shading_refuses_training():
     group = make_group(["cpu"])
     from relightable3dgaussian_tpu_torch.parallel.point_sharded import \
@@ -200,3 +273,49 @@ def test_backend_follows_the_device_layout():
 def test_a_failed_rank_fails_spawn():
     with pytest.raises(RuntimeError, match="rank 1 of 2 failed"):
         spawn(fail_on_rank, ["cpu", "cpu"], 1, timeout_s=120)
+
+
+def test_a_stalled_rank_fails_spawn_within_the_collective_timeout():
+    """A rank that does not reach a collective: the one waiting in it fails
+    after the group's collective timeout (5 s here), and spawn with it,
+    long before the stalled rank would arrive (120 s)."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 0 of 2 failed"):
+        spawn(stall_on_rank, ["cpu", "cpu"], 1, 120.0, timeout_s=110,
+              collective_timeout_s=5)
+    assert time.monotonic() - t0 < 60
+
+
+@pytest.mark.parametrize("n,count", [(2, 2), (2, 4), (4, 4), (4, 8)])
+def test_rank_devices_give_each_rank_its_card(monkeypatch, n, count):
+    """--n_devices n on a machine of `count` cards: rank r on cuda:r, so
+    the group's backend is NCCL."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    devices = rank_devices(n, torch.device("cuda"))
+    assert devices == [torch.device("cuda", r) for r in range(n)]
+    assert dp.choose_backend(devices) == "nccl"
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_rank_devices_refuse_more_ranks_than_cards(monkeypatch, n):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=f"--n_devices {n} requested but "
+                                         "only 1 CUDA"):
+        rank_devices(n, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("operand,why", [
+    (lambda: torch.ones(3, dtype=torch.bool), "bool"),
+    (lambda: torch.ones(3, 2).t(), "contiguous: False"),
+    (lambda: torch.ones(3, device="meta"), "on meta")])
+def test_nccl_collectives_refuse_what_nccl_cannot_take(operand, why):
+    """Under NCCL an operand must be a contiguous tensor of NCCL_DTYPES on
+    the rank's device: all_reduce_ raises before the collective (a gloo
+    group takes them)."""
+    group = dp.Group((torch.device("cpu"),) * 2, 0, "nccl")
+    with pytest.raises(ValueError, match=why):
+        dp.all_reduce_(operand(), group)
+    dp._check_operand(torch.ones(3), group)
+    dp._check_operand(operand(), dp.Group(group.devices, 0, "gloo"))

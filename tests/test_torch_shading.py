@@ -330,9 +330,10 @@ def test_k4_takes_sign_and_nov_from_float64_at_grazing_views(eps):
 def test_k4_rule_decides_the_forced_clips_as_float64(case):
     """The k4-branches phase's inputs (2000 points, every |delta| of the
     grid in both signs): K4's decisions by its rule (k4_clip_passes: the
-    sign and NoV's clip from float64, q's and VoH's from float64 inside
-    their bands) equal the plain version's in float64 (ops/shading.py::
-    ggx_terms) for the sign, NoV, q and VoH at every delta, where K4's
+    sign and NoV's clip from float64, q's from float64 and VoH's past it
+    inside their bands) equal check_k4's reference's (the plain version in
+    float64, ops/shading.py::ggx_terms, VoH's clip exact where K4 takes it
+    past float64) for the sign, NoV, q and VoH at every delta, where K4's
     float32 chain alone (k4_branch_operands) decides the forced clip
     otherwise on some points. At q-clip the forced samples lie inside the
     band at every delta up to 5e-4 and beyond it at 2e-3."""
@@ -350,3 +351,61 @@ def test_k4_rule_decides_the_forced_clips_as_float64(case):
         beyond = np.isclose(abs(delta), 2e-3)
         assert beyond.any() and not double[beyond].any()
         assert double[abs(delta) <= 5e-4].all()
+
+
+@pytest.mark.parametrize("delta", cs.K4_BRANCH_DELTAS)
+def test_k4_voh_decision_is_the_exact_one(delta):
+    """voh-clip's forced samples of the k4-branches phase (the last of each
+    of its 2000 points, VoH at 1e-6 (1 + delta') in float64): K4's VoH
+    decision by its rule (k4_clip_passes, the fix-up's double-double,
+    voh_passes_dd) is the exact one on the float32 inputs (60-digit
+    decimals, chip_smoke.exact_voh) at both signs of this |delta|, and
+    every forced sample goes to K4's fix-up. Below |delta| 1e-5 float64's
+    own decision is not the exact one on some of them: there the
+    cancellation 1 + V.d ~ 3e-10 leaves float64 ~8e-6 of VoH."""
+    from decimal import Decimal
+    i = cs.K4_BRANCH_CASES.index("voh-clip")
+    x, deltas, _ = cs.k4_branch_case("voh-clip", cs.K4_BRANCH_P, 64,
+                                     cs.SEED + 500 + i, "cpu")
+    rows = np.isclose(np.abs(deltas), delta)
+    assert {1.0, -1.0} <= set(np.sign(deltas[rows]))
+    passes = shading_cuda.k4_clip_passes(x[2], x[3], x[1], x[7])
+    assert passes["double"][:, -1].numpy()[rows].all()
+    v, d = x[3].numpy(), x[7][:, -1].numpy()
+    exact = np.array([cs.exact_voh(v[p], d[p]) >= Decimal(1e-6)
+                      for p in np.flatnonzero(rows)])
+    np.testing.assert_array_equal(passes["VoH"][:, -1].numpy()[rows], exact)
+    voh64 = shading.ggx_terms(*(x[k].double() for k in (2, 3, 7, 1)))["VoH"]
+    float64_apart = int(((voh64[:, -1, 0].numpy()[rows] >= 1e-6)
+                         != exact).sum())
+    if delta <= 1e-6:
+        assert float64_apart > 0
+
+
+def test_given_voh_decision_moves_only_the_view_gradient():
+    """ops/shading.py::ggx_terms' voh_pass: on voh-clip's forced inputs in
+    float64, the decision flipped at the forced samples leaves the outputs
+    and every gradient but the view direction's as they were, and moves
+    the view direction's only at those points."""
+    i = cs.K4_BRANCH_CASES.index("voh-clip")
+    x, _, _ = cs.k4_branch_case("voh-clip", 64, 16, cs.SEED + 500 + i, "cpu")
+    x64 = [a.double() for a in x]
+    gen = torch.Generator().manual_seed(0)
+    cot = [torch.randn((64, 3), generator=gen, dtype=torch.float64)
+           for _ in range(3)]
+    voh = shading.ggx_terms(x64[2], x64[3], x64[7], x64[1])["VoH"] >= 1e-6
+    flipped = voh.clone()
+    flipped[::2, -1] = ~flipped[::2, -1]
+    runs = []
+    for decision in (None, flipped):
+        with torch.enable_grad():
+            leaves, loss = cs.plain_shading_graph(x64, cot, decision)
+            runs.append((float(loss.detach()),
+                         torch.autograd.grad(loss, leaves)))
+    assert runs[0][0] == pytest.approx(runs[1][0], rel=1e-12)
+    for k, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+        moved = (a - b).abs().reshape(64, -1).amax(1) > 0
+        if k == 2:
+            assert moved[::2].all() and not moved[1::2].any()
+        else:
+            assert not moved.any(), k
