@@ -338,6 +338,7 @@ from relightable3dgaussian_tpu_torch.train.optim import (
 from relightable3dgaussian_tpu_torch.train.stage1 import (
     StepTimer, backward_or_zero_grads, densify_step, reset_opacity_step,
     run_training_schedule, train_step)
+from relightable3dgaussian_tpu_torch.utils import trace
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
 from relightable3dgaussian_tpu_torch.utils.quaternions import (
@@ -1015,7 +1016,7 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
                           timer=timer)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = {"K1": composite_cuda.LAUNCHES, "K2": composite_cuda.BWD_LAUNCHES}
+    launches = {"K1": trace.counter("k1.launches"), "K2": trace.counter("k2.launches")}
 
     n_steps = opt.iterations
     loss = np.array([float(m[1]) for m in steps])
@@ -1802,18 +1803,18 @@ def k4_branches_phase(device) -> None:
         raise AssertionError(f"k4-branches: K4 failed the gate on {failed}")
 
 
+LAUNCH_COUNTERS = {"K1": "k1.launches", "K2": "k2.launches",
+                   "K3": "k3.launches", "K4-fwd": "k4.launches",
+                   "K4-bwd": "k4.bwd_launches", "K5": "k5.launches"}
+
+
 def reset_launches() -> None:
-    composite_cuda.LAUNCHES = composite_cuda.BWD_LAUNCHES = 0
-    composite_cuda.TWO_WALK_LAUNCHES = 0
-    ray_trace_cuda.LAUNCHES = 0
-    shading_cuda.LAUNCHES = shading_cuda.BWD_LAUNCHES = 0
+    for name in LAUNCH_COUNTERS.values():
+        trace.set_counter(name, 0)
 
 
 def read_launches() -> dict:
-    return {"K1": composite_cuda.LAUNCHES, "K2": composite_cuda.BWD_LAUNCHES,
-            "K3": ray_trace_cuda.LAUNCHES, "K4-fwd": shading_cuda.LAUNCHES,
-            "K4-bwd": shading_cuda.BWD_LAUNCHES,
-            "K5": composite_cuda.TWO_WALK_LAUNCHES}
+    return {k: trace.counter(name) for k, name in LAUNCH_COUNTERS.items()}
 
 
 def stage2_phase(trained: dict, device) -> dict:
@@ -3296,7 +3297,7 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
         reset_launches()
         got, ms = timed_ms(lambda: r(**common, **kw))
         outs[name] = got
-        launches.append(composite_cuda.LAUNCHES)
+        launches.append(trace.counter("k1.launches"))
         if len(got) != 10 or got[0] != want[0] or launches[-1] != 1:
             raise AssertionError(f"facade {name}: {len(got)} outputs, "
                                  f"{got[0]} pairs ({want[0]}), K1 launched "
@@ -3336,16 +3337,16 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
             out = r(**{**fixed, "scales": None, "rotations": None},
                     cov3D_precomp=x)
             (out[2] * g_color).sum().backward()
-        if composite_cuda.BWD_LAUNCHES != 1 or not bool(
+        if trace.counter("k2.launches") != 1 or not bool(
                 torch.isfinite(x.grad).all()):
             raise AssertionError(f"facade {name}: K2 launched "
-                                 f"{composite_cuda.BWD_LAUNCHES} times, "
+                                 f"{trace.counter("k2.launches")} times, "
                                  f"gradient finite: "
                                  f"{bool(torch.isfinite(x.grad).all())}")
         grads[name] = x.grad
         if name == "cov3d_full":
-            full_launches = {"K1": launches[-1] + composite_cuda.LAUNCHES,
-                             "K2": composite_cuda.BWD_LAUNCHES}
+            full_launches = {"K1": launches[-1] + trace.counter("k1.launches"),
+                             "K2": trace.counter("k2.launches")}
     full_g = grads["cov3d_full"]
     sym = strip_symmetric(full_g + full_g.transpose(-1, -2))
     sym[:, [0, 3, 5]] /= 2
@@ -3896,9 +3897,9 @@ class CheckedTrace:
         out = self.tracer(bvh, rays_o, rays_d, *args, **kwargs)
         self.last_stats = self.tracer.last_stats
         vis = out[0] if isinstance(out, tuple) else out
-        launches = ray_trace_cuda.LAUNCHES
+        launches = trace.counter("k3.launches")
         whole = ray_trace.trace_visibility(bvh, rays_o, rays_d)
-        ray_trace_cuda.LAUNCHES = launches
+        trace.set_counter("k3.launches", launches)
         self.calls.append({"rays": int(rays_o.shape[0]),
                            "bitwise_one_launch": bool(torch.equal(vis, whole))})
         return out
@@ -4183,8 +4184,8 @@ def prune_only_phase(trained: dict, device) -> dict:
                        "pruned": pruned, "left": model.num_points,
                        "ms": f"{ms:.3f}"})
     steps(PRUNE_MORE_STEPS)
-    launches = {"K1": composite_cuda.LAUNCHES,
-                "K2": composite_cuda.BWD_LAUNCHES}
+    launches = {"K1": trace.counter("k1.launches"),
+                "K2": trace.counter("k2.launches")}
     n_steps = 2 * PRUNE_STEPS + PRUNE_MORE_STEPS
     if not np.isfinite(losses).all() or launches != {"K1": n_steps,
                                                       "K2": n_steps}:
@@ -4314,7 +4315,7 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
             events[-1][1].record()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-        render_launches = (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES)
+        render_launches = (trace.counter("k1.launches"), trace.counter("k2.launches"))
         view_ms = [a.elapsed_time(b) for a, b in events]
         steady_ms = float(np.median(view_ms[1:]))
 

@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 _SOBEL_X = ((-1., 0., 1.), (-2., 0., 2.), (-1., 0., 1.))
 _SOBEL_XX = ((1., -2., 1.), (2., -4., 2.), (1., -2., 1.))
 _SOBEL_XY = ((-1., 0., 1.), (0., 0., 0.), (1., 0., -1.))
@@ -32,6 +34,7 @@ def _depthwise(img: torch.Tensor, kernel) -> torch.Tensor:
     """[C, H, W] same-size (zero-padded) cross-correlation of every channel
     with one 2-D kernel (a nested sequence of rows)."""
     k = torch.as_tensor(kernel, dtype=img.dtype, device=img.device)
+    trace.count("host.syncs")       # a pageable copy waits for the stream
     C = img.shape[0]
     weight = k.expand(C, 1, *k.shape)
     return F.conv2d(img[None], weight, padding=(k.shape[0] // 2,

@@ -23,6 +23,7 @@ from torch import nn
 from ..ops.knn import mean_sq_dist_to_3nn
 from ..ops.projection import covariance3d_packed
 from ..ops.ray_trace import inverse_covariance_packed
+from ..utils import trace
 from ..utils.quaternions import (inverse_sigmoid, quaternion_multiply,
                                  quaternion_to_rotmat, rotmat_to_quaternion)
 from ..utils.sh import rgb_to_sh
@@ -277,6 +278,7 @@ def densification_contribs(mean2d_grad: torch.Tensor, normal_grad: torch.Tensor,
     vis = (radii > 0).to(mean2d_grad.dtype)
     ndc = torch.tensor([0.5 * image_wh[0], 0.5 * image_wh[1]],
                        dtype=mean2d_grad.dtype, device=mean2d_grad.device)
+    trace.count("host.syncs")       # a pageable copy waits for the stream
     return StatContribs(
         weights=weights,
         xyz_grad_norm=vis * torch.linalg.norm(mean2d_grad * ndc, dim=-1),
@@ -407,17 +409,20 @@ def densify_and_prune_with_noise(model: GaussianModel,
         rows = [survivors[keep], base[clone]]
         for j in range(1, n_split):
             rows.append((child[name](j) if name in child else base)[split])
+        trace.count("host.syncs", n_split + 1)    # each selection's size
         values[name] = torch.cat(rows)
     n_new = int(clone.sum()) + (n_split - 1) * int(split.sum())
 
     def moments(name, m):
         split_m = split.view(-1, *([1] * (m.dim() - 1)))
         m = torch.where(split_m, 0.0, m)[keep]
+        trace.count("host.syncs")
         return torch.cat([m, m.new_zeros((n_new,) + m.shape[1:])])
 
     stats = DensifyStats(n_cloned=int(clone.sum()), n_split=int(split.sum()),
                          n_pruned=int(prune.sum()),
                          n_active=int(keep.sum()) + n_new)
+    trace.count("host.syncs", 6)    # the six counts read above
     _replace_parameters(model, optimizer, values, moments)
     model.reset_stats()
     return stats
@@ -445,13 +450,19 @@ def prune_only(model: GaussianModel, optimizer: torch.optim.Optimizer, *,
     if max_screen_size < float("inf"):
         prune |= model.get_scaling.max(-1).values > 0.1 * extent
     keep = ~prune
+
+    def moments(name, m):
+        trace.count("host.syncs")
+        return m[keep]
+
     _replace_parameters(model, optimizer,
                         {k: getattr(model, k).detach()[keep]
-                         for k in model.fields},
-                        lambda name, m: m[keep])
+                         for k in model.fields}, moments)
     for k in STATS:
         setattr(model, k, getattr(model, k)[keep])
     model.weights_accum.zero_()
+    # each selection's size above, and the count read here
+    trace.count("host.syncs", len(model.fields) + len(STATS) + 1)
     return int(prune.sum())
 
 

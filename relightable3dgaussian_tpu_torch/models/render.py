@@ -19,6 +19,7 @@ from ..ops.camera import CameraParams
 from ..ops.config import RasterConfig
 from ..ops.rasterize import rasterize
 from ..train.config import OptimizationConfig
+from ..utils import trace
 from ..utils.image import psnr
 from .gaussians import GaussianModel
 
@@ -89,80 +90,81 @@ def calculate_loss(view: ViewInputs, model: GaussianModel,
                    iteration: int):
     """Stage-1 loss (the reference's gaussian_renderer/render.py:136-223):
     returns (loss, tb_dict of scalar tensors)."""
-    tb = {}
-    rendered = results["render"]
-    gt = view.image
-    n_pts = max(model.num_points, 1)
+    with trace.span("train.loss"):
+        tb = {}
+        rendered = results["render"]
+        gt = view.image
+        n_pts = max(model.num_points, 1)
 
-    ll1 = losses.l1_loss(rendered, gt)
-    ssim_val = losses.ssim(rendered, gt)
-    tb["loss_l1"] = ll1
-    tb["psnr"] = psnr(rendered[None], gt[None]).mean()
-    tb["ssim"] = ssim_val
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim_val)
+        ll1 = losses.l1_loss(rendered, gt)
+        ssim_val = losses.ssim(rendered, gt)
+        tb["loss_l1"] = ll1
+        tb["psnr"] = psnr(rendered[None], gt[None]).mean()
+        tb["ssim"] = ssim_val
+        loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim_val)
 
-    if opt.lambda_mask_entropy > 0:
-        le = losses.mask_entropy_loss(results["opacity"], view.image_mask)
-        tb["loss_mask_entropy"] = le
-        loss = loss + opt.lambda_mask_entropy * le
+        if opt.lambda_mask_entropy > 0:
+            le = losses.mask_entropy_loss(results["opacity"], view.image_mask)
+            tb["loss_mask_entropy"] = le
+            loss = loss + opt.lambda_mask_entropy * le
 
-    if opt.lambda_normal_render_depth > 0:
-        ln = losses.mse_loss(results["normal"] * view.image_mask,
-                             results["pseudo_normal"].detach()
-                             * view.image_mask)
-        tb["loss_normal_render_depth"] = ln
-        loss = loss + opt.lambda_normal_render_depth * ln
+        if opt.lambda_normal_render_depth > 0:
+            ln = losses.mse_loss(results["normal"] * view.image_mask,
+                                 results["pseudo_normal"].detach()
+                                 * view.image_mask)
+            tb["loss_normal_render_depth"] = ln
+            loss = loss + opt.lambda_normal_render_depth * ln
 
-    if opt.lambda_normal_smooth > 0:
-        ls = losses.first_order_edge_aware_loss(results["normal"], gt)
-        tb["loss_normal_smooth"] = ls
-        loss = loss + opt.lambda_normal_smooth * ls
+        if opt.lambda_normal_smooth > 0:
+            ls = losses.first_order_edge_aware_loss(results["normal"], gt)
+            tb["loss_normal_smooth"] = ls
+            loss = loss + opt.lambda_normal_smooth * ls
 
-    if opt.lambda_depth_smooth > 0:
-        ld = losses.first_order_edge_aware_loss(results["depth"], gt)
-        tb["loss_depth_smooth"] = ld
-        loss = loss + opt.lambda_depth_smooth * ld
+        if opt.lambda_depth_smooth > 0:
+            ld = losses.first_order_edge_aware_loss(results["depth"], gt)
+            tb["loss_depth_smooth"] = ld
+            loss = loss + opt.lambda_depth_smooth * ld
 
-    if opt.lambda_point_entropy > 0:
-        ws = results["weights"]
-        op = results["opacities"]
-        pe = (ws * (-op * torch.log(op + 1e-10)
-                    - (1 - op) * torch.log(1 - op + 1e-10))).sum() / n_pts
-        tb["loss_point_entropy"] = pe
-        loss = loss + opt.lambda_point_entropy * pe
+        if opt.lambda_point_entropy > 0:
+            ws = results["weights"]
+            op = results["opacities"]
+            pe = (ws * (-op * torch.log(op + 1e-10)
+                        - (1 - op) * torch.log(1 - op + 1e-10))).sum() / n_pts
+            tb["loss_point_entropy"] = pe
+            loss = loss + opt.lambda_point_entropy * pe
 
-    if opt.lambda_orientation > 0:
-        ws = torch.clamp(results["weights"], max=1.0)
-        ori = (ws * torch.clamp(
-            (results["normals"] * results["directions"]).sum(-1, keepdim=True),
-            min=0.0)).sum() / n_pts
-        gate = float(iteration > opt.lambda_orientation_from_iter)
-        tb["loss_orientation"] = ori
-        loss = loss + opt.lambda_orientation * gate * ori
+        if opt.lambda_orientation > 0:
+            ws = torch.clamp(results["weights"], max=1.0)
+            ori = (ws * torch.clamp(
+                (results["normals"] * results["directions"]).sum(-1, keepdim=True),
+                min=0.0)).sum() / n_pts
+            gate = float(iteration > opt.lambda_orientation_from_iter)
+            tb["loss_orientation"] = ori
+            loss = loss + opt.lambda_orientation * gate * ori
 
-    if opt.lambda_depth_var > 0:
-        lv = torch.sqrt(torch.clamp(results["depth_var"], min=1e-6)).mean()
-        ramp = min(10.0 ** (iteration / float(opt.depth_var_ramp_iters)), 100.0)
-        tb["loss_depth_var"] = lv
-        loss = loss + opt.lambda_depth_var * ramp * lv
+        if opt.lambda_depth_var > 0:
+            lv = torch.sqrt(torch.clamp(results["depth_var"], min=1e-6)).mean()
+            ramp = min(10.0 ** (iteration / float(opt.depth_var_ramp_iters)), 100.0)
+            tb["loss_depth_var"] = lv
+            loss = loss + opt.lambda_depth_var * ramp * lv
 
-    if opt.lambda_surface > 0:
-        # per-coordinate median (the mean of the middle two for even counts)
-        center = torch.quantile(model.xyz, 0.5, dim=0)
-        ls = torch.exp(-(model.xyz - center[None]).abs().sum() / (3 * n_pts))
-        tb["loss_surface"] = ls
-        loss = loss + opt.lambda_surface * ls
+        if opt.lambda_surface > 0:
+            # per-coordinate median (the mean of the middle two for even counts)
+            center = torch.quantile(model.xyz, 0.5, dim=0)
+            ls = torch.exp(-(model.xyz - center[None]).abs().sum() / (3 * n_pts))
+            tb["loss_surface"] = ls
+            loss = loss + opt.lambda_surface * ls
 
-    if opt.lambda_scaling > 0:
-        scaling = model.get_scaling
-        iso = (scaling - scaling.mean(-1, keepdim=True)).abs().sum() / n_pts
-        lam = opt.lambda_scaling * (
-            1.0 - 0.99 * min(1.0, 4.0 * iteration / opt.iterations))
-        tb["loss_scaling"] = iso
-        loss = loss + lam * iso
+        if opt.lambda_scaling > 0:
+            scaling = model.get_scaling
+            iso = (scaling - scaling.mean(-1, keepdim=True)).abs().sum() / n_pts
+            lam = opt.lambda_scaling * (
+                1.0 - 0.99 * min(1.0, 4.0 * iteration / opt.iterations))
+            tb["loss_scaling"] = iso
+            loss = loss + lam * iso
 
-    tb["loss"] = loss
-    return loss, tb
+        tb["loss"] = loss
+        return loss, tb
 
 
 def render(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
@@ -171,10 +173,11 @@ def render(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
            mean2d_offset: torch.Tensor | None = None) -> dict[str, Any]:
     """Stage-1 entry point (the reference's `render`); with `is_training`
     the results also hold "loss" and "tb_dict"."""
-    results = render_view(model, view.cam, cfg, bg_color, mean2d_offset)
-    if is_training:
-        if opt is None:
-            raise ValueError("render: is_training needs an OptimizationConfig")
-        results["loss"], results["tb_dict"] = calculate_loss(
-            view, model, results, opt, iteration)
-    return results
+    if is_training and opt is None:
+        raise ValueError("render: is_training needs an OptimizationConfig")
+    with trace.span("render.view", unit=True):
+        results = render_view(model, view.cam, cfg, bg_color, mean2d_offset)
+        if is_training:
+            results["loss"], results["tb_dict"] = calculate_loss(
+                view, model, results, opt, iteration)
+        return results

@@ -27,6 +27,7 @@ from ..ops.ray_trace import build_bvh, trace_visibility
 from ..ops.shading import rendering_equation
 from ..ops.shading_cuda import rendering_equation_train
 from ..train.config import OptimizationConfig
+from ..utils import trace
 from ..utils.graphics import fibonacci_sphere_sampling, rgb_to_srgb
 from ..utils.image import psnr
 from .gaussians import GaussianModel
@@ -179,14 +180,16 @@ def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
     incidents = model.get_incidents
     if is_training:
         gl = query_light(env, vis.incident_dirs)
-        pbr, dif, spec = rendering_equation_train(
-            base_color, roughness, normal.detach(), viewdirs, incidents, gl,
-            vis.visibility, vis.incident_dirs, vis.incident_areas)
+        with trace.span("render.shading", device=viewdirs.device):
+            pbr, dif, spec = rendering_equation_train(
+                base_color, roughness, normal.detach(), viewdirs, incidents,
+                gl, vis.visibility, vis.incident_dirs, vis.incident_areas)
         extras = {"diffuse_light": dif, "specular": spec}
     else:
-        pbr, extras = _shade_points(base_color, roughness, normal.detach(),
-                                    viewdirs, incidents, env, vis,
-                                    sharded_shading)
+        with trace.span("render.shading", device=viewdirs.device):
+            pbr, extras = _shade_points(base_color, roughness,
+                                        normal.detach(), viewdirs, incidents,
+                                        env, vis, sharded_shading)
 
     xyz1 = torch.cat([model.xyz, torch.ones_like(model.xyz[:, :1])], dim=-1)
     depths = (xyz1 @ cam.world_view)[:, 2:3]
@@ -263,93 +266,94 @@ def calculate_loss(view: ViewInputs, model: GaussianModel,
                    results: dict[str, Any], opt: OptimizationConfig, env):
     """Stage-2 loss (neilf.py:212-318): the SH render's and the PBR render's
     photometric losses and the PBR regularizers; returns (loss, tb_dict)."""
-    tb = {}
-    gt = view.image
-    rendered = results["render"]
-    rendered_pbr = results["pbr"]
+    with trace.span("train.loss"):
+        tb = {}
+        gt = view.image
+        rendered = results["render"]
+        rendered_pbr = results["pbr"]
 
-    ll1 = losses.l1_loss(rendered, gt)
-    # Both SSIMs as one 6-channel pass: channels are independent.
-    smap = losses.ssim_map(torch.cat([rendered, rendered_pbr]),
-                           torch.cat([gt, gt]))
-    ssim_val = smap[:3].mean()
-    ssim_pbr = smap[3:].mean()
-    tb["l1"] = ll1
-    tb["psnr"] = psnr(rendered[None], gt[None]).mean()
-    tb["ssim"] = ssim_val
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim_val)
+        ll1 = losses.l1_loss(rendered, gt)
+        # Both SSIMs as one 6-channel pass: channels are independent.
+        smap = losses.ssim_map(torch.cat([rendered, rendered_pbr]),
+                               torch.cat([gt, gt]))
+        ssim_val = smap[:3].mean()
+        ssim_pbr = smap[3:].mean()
+        tb["l1"] = ll1
+        tb["psnr"] = psnr(rendered[None], gt[None]).mean()
+        tb["ssim"] = ssim_val
+        loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - ssim_val)
 
-    ll1_pbr = losses.l1_loss(rendered_pbr, gt)
-    tb["l1_pbr"] = ll1_pbr
-    tb["ssim_pbr"] = ssim_pbr
-    tb["psnr_pbr"] = psnr(rendered_pbr[None], gt[None]).mean()
-    loss = loss + opt.lambda_pbr * ((1.0 - opt.lambda_dssim) * ll1_pbr
-                                    + opt.lambda_dssim * (1.0 - ssim_pbr))
+        ll1_pbr = losses.l1_loss(rendered_pbr, gt)
+        tb["l1_pbr"] = ll1_pbr
+        tb["ssim_pbr"] = ssim_pbr
+        tb["psnr_pbr"] = psnr(rendered_pbr[None], gt[None]).mean()
+        loss = loss + opt.lambda_pbr * ((1.0 - opt.lambda_dssim) * ll1_pbr
+                                        + opt.lambda_dssim * (1.0 - ssim_pbr))
 
-    if opt.lambda_depth > 0:
-        sur_mask = torch.logical_xor(view.image_mask > 0.5, view.depth > 0)
-        w = (~sur_mask).to(gt.dtype)
-        ld = ((results["depth"] - view.depth).abs() * w).sum() / torch.clamp(
-            w.sum(), min=1.0)
-        tb["loss_depth"] = ld
-        loss = loss + opt.lambda_depth * ld
+        if opt.lambda_depth > 0:
+            sur_mask = torch.logical_xor(view.image_mask > 0.5, view.depth > 0)
+            w = (~sur_mask).to(gt.dtype)
+            ld = ((results["depth"] - view.depth).abs() * w).sum() / torch.clamp(
+                w.sum(), min=1.0)
+            tb["loss_depth"] = ld
+            loss = loss + opt.lambda_depth * ld
 
-    if opt.lambda_mask_entropy > 0:
-        le = losses.mask_entropy_loss(results["opacity"], view.image_mask)
-        tb["loss_mask_entropy"] = le
-        loss = loss + opt.lambda_mask_entropy * le
+        if opt.lambda_mask_entropy > 0:
+            le = losses.mask_entropy_loss(results["opacity"], view.image_mask)
+            tb["loss_mask_entropy"] = le
+            loss = loss + opt.lambda_mask_entropy * le
 
-    if opt.lambda_normal_render_depth > 0:
-        ln = losses.mse_loss(results["normal"] * view.image_mask,
-                             results["pseudo_normal"].detach()
-                             * view.image_mask)
-        tb["loss_normal_render_depth"] = ln
-        loss = loss + opt.lambda_normal_render_depth * ln
+        if opt.lambda_normal_render_depth > 0:
+            ln = losses.mse_loss(results["normal"] * view.image_mask,
+                                 results["pseudo_normal"].detach()
+                                 * view.image_mask)
+            tb["loss_normal_render_depth"] = ln
+            loss = loss + opt.lambda_normal_render_depth * ln
 
-    if opt.lambda_normal_mvs_depth > 0:
-        depth_mask = (view.depth > 0).to(gt.dtype)
-        lnm = losses.mse_loss(results["normal"] * depth_mask,
-                              view.normal * depth_mask)
-        tb["loss_normal_mvs_depth"] = lnm
-        loss = loss + opt.lambda_normal_mvs_depth * lnm
+        if opt.lambda_normal_mvs_depth > 0:
+            depth_mask = (view.depth > 0).to(gt.dtype)
+            lnm = losses.mse_loss(results["normal"] * depth_mask,
+                                  view.normal * depth_mask)
+            tb["loss_normal_mvs_depth"] = lnm
+            loss = loss + opt.lambda_normal_mvs_depth * lnm
 
-    if opt.lambda_light > 0:
-        dl = results["diffuse_light"]
-        ll = (dl - dl.mean(-1, keepdim=True)).abs().sum() / max(
-            3 * model.num_points, 1)
-        tb["loss_light"] = ll
-        loss = loss + opt.lambda_light * ll
+        if opt.lambda_light > 0:
+            dl = results["diffuse_light"]
+            ll = (dl - dl.mean(-1, keepdim=True)).abs().sum() / max(
+                3 * model.num_points, 1)
+            tb["loss_light"] = ll
+            loss = loss + opt.lambda_light * ll
 
-    if opt.lambda_base_color_smooth > 0:
-        lb = losses.first_order_edge_aware_loss(
-            results["base_color"] * view.image_mask, gt)
-        tb["loss_base_color_smooth"] = lb
-        loss = loss + opt.lambda_base_color_smooth * lb
+        if opt.lambda_base_color_smooth > 0:
+            lb = losses.first_order_edge_aware_loss(
+                results["base_color"] * view.image_mask, gt)
+            tb["loss_base_color_smooth"] = lb
+            loss = loss + opt.lambda_base_color_smooth * lb
 
-    if opt.lambda_roughness_smooth > 0:
-        lr = losses.first_order_edge_aware_loss(
-            results["roughness"] * view.image_mask, gt)
-        tb["loss_roughness_smooth"] = lr
-        loss = loss + opt.lambda_roughness_smooth * lr
+        if opt.lambda_roughness_smooth > 0:
+            lr = losses.first_order_edge_aware_loss(
+                results["roughness"] * view.image_mask, gt)
+            tb["loss_roughness_smooth"] = lr
+            loss = loss + opt.lambda_roughness_smooth * lr
 
-    if opt.lambda_light_smooth > 0:
-        lls = losses.first_order_edge_aware_loss(
-            results["diffuse"] * view.image_mask, results["normal"])
-        tb["loss_light_smooth"] = lls
-        loss = loss + opt.lambda_light_smooth * lls
+        if opt.lambda_light_smooth > 0:
+            lls = losses.first_order_edge_aware_loss(
+                results["diffuse"] * view.image_mask, results["normal"])
+            tb["loss_light_smooth"] = lls
+            loss = loss + opt.lambda_light_smooth * lls
 
-    if opt.lambda_env_smooth > 0:
-        les = losses.tv_loss(light_image(env).permute(2, 0, 1))
-        tb["loss_env_smooth"] = les
-        loss = loss + opt.lambda_env_smooth * les
+        if opt.lambda_env_smooth > 0:
+            les = losses.tv_loss(light_image(env).permute(2, 0, 1))
+            tb["loss_env_smooth"] = les
+            loss = loss + opt.lambda_env_smooth * les
 
-    if opt.lambda_normal_smooth > 0:
-        lns = losses.tv_loss(results["normal"] * view.image_mask)
-        tb["loss_normal_smooth"] = lns
-        loss = loss + opt.lambda_normal_smooth * lns
+        if opt.lambda_normal_smooth > 0:
+            lns = losses.tv_loss(results["normal"] * view.image_mask)
+            tb["loss_normal_smooth"] = lns
+            loss = loss + opt.lambda_normal_smooth * lns
 
-    tb["loss"] = loss
-    return loss, tb
+        tb["loss"] = loss
+        return loss, tb
 
 
 def render_neilf(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
@@ -365,10 +369,11 @@ def render_neilf(view: ViewInputs, model: GaussianModel, cfg: RasterConfig,
     which must render the same view."""
     if is_training and opt is None:
         raise ValueError("render_neilf: is_training needs an OptimizationConfig")
-    results = render_view(model, view, cfg, bg_color, env, vis, is_training,
-                          mean2d_offset, opt, base_color_scale,
-                          sharded_shading)
-    if is_training:
-        results["loss"], results["tb_dict"] = calculate_loss(
-            view, model, results, opt, env)
-    return results
+    with trace.span("render.view", unit=True):
+        results = render_view(model, view, cfg, bg_color, env, vis,
+                              is_training, mean2d_offset, opt,
+                              base_color_scale, sharded_shading)
+        if is_training:
+            results["loss"], results["tb_dict"] = calculate_loss(
+                view, model, results, opt, env)
+        return results

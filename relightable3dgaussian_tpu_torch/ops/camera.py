@@ -13,7 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..utils import graphics
+from ..utils import graphics, trace
 
 
 class CameraParams(NamedTuple):
@@ -57,6 +57,7 @@ def make_camera_params(R: np.ndarray, T: np.ndarray, width: int, height: int,
     campos = np.linalg.inv(w2c)[:3, 3]
 
     def t(x):
+        trace.count("host.syncs")   # a pageable copy waits for the stream
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
     return CameraParams(

@@ -15,8 +15,9 @@ two-walk backward the JAX package runs under `R3DG_BWD_TWO_WALK=1`.
     `R3DG_BWD_TWO_WALK=1` (read at each backward, as the JAX package reads
     it), or an exception. A build or launch error is raised, never answered
     with the plain version.
-`image` and `weights` are differentiable; `n_contrib` is not. `LAUNCHES`
-counts K1's launches, `BWD_LAUNCHES` K2's and `TWO_WALK_LAUNCHES` K5's. The
+`image` and `weights` are differentiable; `n_contrib` is not. The tracer's
+counters `k1.launches`, `k2.launches` and `k5.launches` count K1's, K2's
+and K5's launches (`utils/trace.py`). The
 plain version of both backward kernels is `ops/composite.py::
 composite_backward`: they compute the same function.
 
@@ -32,6 +33,7 @@ import os
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .composite import CompositeOut, Decisions, WalkState
 from .composite import blend_decisions as blend_decisions_plain
@@ -51,9 +53,6 @@ MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
 # build.
 SPECIALISED_WIDTHS = {KERNEL: (9, 8, 32), BWD_KERNEL: (9, 8),
                       TWO_WALK_KERNEL: (9, 8)}
-LAUNCHES = 0       # launches of K1 since import (or the last reset)
-BWD_LAUNCHES = 0   # launches of K2 since import (or the last reset)
-TWO_WALK_LAUNCHES = 0   # launches of K5 since import (or the last reset)
 
 
 def _library(name: str, symbol: str, n_ptr_in: int, n_int: int,
@@ -161,7 +160,6 @@ def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
                  opacity: torch.Tensor, attrs: torch.Tensor,
                  cfg: RasterConfig) -> tuple[CompositeOut, WalkState]:
     """Launch K1 on CUDA tensors: the forward outputs and the walk state."""
-    global LAUNCHES
     expect = _inputs("K1", binning, mean2d, conic, opacity, attrs, cfg)
     device = attrs.device
     _check("K1", expect, device)
@@ -188,7 +186,7 @@ def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
             final_T.data_ptr(), stop.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
+    trace.count("k1.launches")
     return (CompositeOut(image=image, weights=weights, n_contrib=n_contrib),
             WalkState(final_T=final_T, stop=stop))
 
@@ -200,7 +198,6 @@ def composite_k2(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     """Launch K2 on CUDA tensors: (g_mean2d, g_conic, g_opacity, g_attrs)
     for the cotangents g_image [num_tiles, 256, A] and g_weights [P] (None
     means zeros), from K1's walk state on the same inputs."""
-    global BWD_LAUNCHES
     expect = _inputs("K2", binning, mean2d, conic, opacity, attrs, cfg)
     P, A = attrs.shape
     tt = cfg.tile * cfg.tile
@@ -231,7 +228,7 @@ def composite_k2(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
             stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
-    BWD_LAUNCHES += 1
+    trace.count("k2.launches")
     return g_mean2d, g_conic, g_opacity, g_attrs
 
 
@@ -245,7 +242,6 @@ def composite_k5(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     `n_blended` ([num_tiles, 256] int32), K5 also writes each pixel's count
     of blended pairs, which is K1's n_contrib when it rebuilds K1's
     decisions."""
-    global TWO_WALK_LAUNCHES
     expect = _inputs("K5", binning, mean2d, conic, opacity, attrs, cfg)
     P, A = attrs.shape
     tt = cfg.tile * cfg.tile
@@ -274,7 +270,7 @@ def composite_k5(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
             n_blended.data_ptr() if n_blended is not None else None, stream)
     if rc != 0:
         raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
-    TWO_WALK_LAUNCHES += 1
+    trace.count("k5.launches")
     return g_mean2d, g_conic, g_opacity, g_attrs
 
 

@@ -16,6 +16,7 @@ import torch
 
 from ..utils.quaternions import (build_covariance, strip_symmetric,
                                  unpack_symmetric)
+from ..utils import trace
 from ..utils.sh import eval_sh
 from .camera import CameraParams
 from .config import RasterConfig
@@ -97,89 +98,91 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     [P, 3, 3] the JAX package takes, used as it is (all nine entries, not
     symmetrized). Gradients reach the tensor given.
     """
-    xyz1 = _homogeneous(means3d)
-    p_view = xyz1 @ cam.world_view
-    depth = p_view[:, 2]
-    in_frustum = depth > 0.2
+    with trace.span("render.projection"):
+        xyz1 = _homogeneous(means3d)
+        p_view = xyz1 @ cam.world_view
+        depth = p_view[:, 2]
+        in_frustum = depth > 0.2
 
-    p_hom = xyz1 @ cam.full_proj
-    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
-    p_proj = p_hom[:, :3] * p_w[:, None]
+        p_hom = xyz1 @ cam.full_proj
+        p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+        p_proj = p_hom[:, :3] * p_w[:, None]
 
-    cov3d = (full_covariance(cov3d_precomp, means3d.shape[0])
-             if cov3d_precomp is not None
-             else build_covariance(scales, rotations, cfg.scale_modifier))
-    cov2d = compute_cov2d(means3d, cov3d, cam)
+        cov3d = (full_covariance(cov3d_precomp, means3d.shape[0])
+                 if cov3d_precomp is not None
+                 else build_covariance(scales, rotations, cfg.scale_modifier))
+        cov2d = compute_cov2d(means3d, cov3d, cam)
 
-    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
-    det_ok = det != 0.0
-    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
-    conic = torch.stack(
-        [cov2d[:, 2] * inv_det, -cov2d[:, 1] * inv_det, cov2d[:, 0] * inv_det],
-        dim=-1)
+        det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
+        det_ok = det != 0.0
+        inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
+        conic = torch.stack(
+            [cov2d[:, 2] * inv_det, -cov2d[:, 1] * inv_det, cov2d[:, 0] * inv_det],
+            dim=-1)
 
-    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
-    gap = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
-    lambda1 = mid + gap
-    radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp(lambda1, min=0.0)))
+        mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+        gap = torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+        lambda1 = mid + gap
+        radius_f = torch.ceil(3.0 * torch.sqrt(torch.clamp(lambda1, min=0.0)))
 
-    mean2d = torch.stack(
-        [((p_proj[:, 0] + 1.0) * cfg.width - 1.0) * 0.5,
-         ((p_proj[:, 1] + 1.0) * cfg.height - 1.0) * 0.5], dim=-1)
-    if mean2d_offset is not None:
-        mean2d = mean2d + mean2d_offset
+        mean2d = torch.stack(
+            [((p_proj[:, 0] + 1.0) * cfg.width - 1.0) * 0.5,
+             ((p_proj[:, 1] + 1.0) * cfg.height - 1.0) * 0.5], dim=-1)
+        if mean2d_offset is not None:
+            mean2d = mean2d + mean2d_offset
 
-    radius = torch.where(in_frustum & det_ok, radius_f, 0.0).to(torch.int32)
+        radius = torch.where(in_frustum & det_ok, radius_f, 0.0).to(torch.int32)
 
-    # Tile rect (min inclusive, max exclusive), clamped to the tile grid.
-    grid = torch.tensor([cfg.tiles_x, cfg.tiles_y], dtype=torch.int32,
-                        device=means3d.device)
-    radius_f32 = radius.to(torch.float32)
-    if opacity is not None:
-        op = torch.clamp(opacity, min=0.0)
-        # alpha = op * exp(-q/2) with q >= |d|^2 / λmax; alpha < 1/255
-        # whenever |d| > sqrt(2 λmax ln(255 op)).
-        r_alpha = torch.ceil(torch.sqrt(torch.clamp(
-            2.0 * lambda1 * torch.log(torch.clamp(op, min=1e-12) * 255.0),
-            min=0.0)))
-        rect_radius = torch.where(op * 255.0 <= 1.0, 0.0,
-                                  torch.minimum(radius_f32, r_alpha))
-        rect_radius = torch.where(radius > 0, rect_radius, 0.0)
-    else:
-        rect_radius = radius_f32
-    r = rect_radius[:, None].detach()
-    m2d = mean2d.detach()
-    # The int cast truncates toward zero (not floor), as in the JAX package.
-    rect_min = torch.minimum(torch.clamp(
-        ((m2d - r) / cfg.tile).to(torch.int32), min=0), grid)
-    rect_max = torch.minimum(torch.clamp(
-        torch.div(m2d + r + cfg.tile - 1, cfg.tile,
-                  rounding_mode="floor").to(torch.int32), min=0), grid)
-    spans = torch.clamp(rect_max - rect_min, min=0)
-    tiles_touched = torch.where(radius > 0, spans[:, 0] * spans[:, 1], 0)
-    # A gaussian whose rect is empty contributes nothing: zero its radius.
-    radius = torch.where(tiles_touched > 0, radius, 0).to(torch.int32)
+        # Tile rect (min inclusive, max exclusive), clamped to the tile grid.
+        grid = torch.tensor([cfg.tiles_x, cfg.tiles_y], dtype=torch.int32,
+                            device=means3d.device)
+        trace.count("host.syncs")   # a pageable copy waits for the stream
+        radius_f32 = radius.to(torch.float32)
+        if opacity is not None:
+            op = torch.clamp(opacity, min=0.0)
+            # alpha = op * exp(-q/2) with q >= |d|^2 / λmax; alpha < 1/255
+            # whenever |d| > sqrt(2 λmax ln(255 op)).
+            r_alpha = torch.ceil(torch.sqrt(torch.clamp(
+                2.0 * lambda1 * torch.log(torch.clamp(op, min=1e-12) * 255.0),
+                min=0.0)))
+            rect_radius = torch.where(op * 255.0 <= 1.0, 0.0,
+                                      torch.minimum(radius_f32, r_alpha))
+            rect_radius = torch.where(radius > 0, rect_radius, 0.0)
+        else:
+            rect_radius = radius_f32
+        r = rect_radius[:, None].detach()
+        m2d = mean2d.detach()
+        # The int cast truncates toward zero (not floor), as in the JAX package.
+        rect_min = torch.minimum(torch.clamp(
+            ((m2d - r) / cfg.tile).to(torch.int32), min=0), grid)
+        rect_max = torch.minimum(torch.clamp(
+            torch.div(m2d + r + cfg.tile - 1, cfg.tile,
+                      rounding_mode="floor").to(torch.int32), min=0), grid)
+        spans = torch.clamp(rect_max - rect_min, min=0)
+        tiles_touched = torch.where(radius > 0, spans[:, 0] * spans[:, 1], 0)
+        # A gaussian whose rect is empty contributes nothing: zero its radius.
+        radius = torch.where(tiles_touched > 0, radius, 0).to(torch.int32)
 
-    if colors is not None:
-        rgb = colors
-    else:
-        dirs = means3d - cam.campos[None, :]
-        dirs = dirs / torch.clamp(
-            torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
-        # shs: [P, K, 3] → eval over the channel-last layout
-        rgb = torch.clamp(
-            eval_sh(cfg.sh_degree, shs.transpose(-1, -2), dirs) + 0.5, min=0.0)
+        if colors is not None:
+            rgb = colors
+        else:
+            dirs = means3d - cam.campos[None, :]
+            dirs = dirs / torch.clamp(
+                torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-12)
+            # shs: [P, K, 3] → eval over the channel-last layout
+            rgb = torch.clamp(
+                eval_sh(cfg.sh_degree, shs.transpose(-1, -2), dirs) + 0.5, min=0.0)
 
-    return Preprocessed(
-        mean2d=mean2d,
-        depth=depth,
-        conic=conic,
-        radius=radius,
-        rgb=rgb,
-        rect_min=rect_min,
-        rect_max=rect_max,
-        tiles_touched=tiles_touched.to(torch.int32),
-    )
+        return Preprocessed(
+            mean2d=mean2d,
+            depth=depth,
+            conic=conic,
+            radius=radius,
+            rgb=rgb,
+            rect_min=rect_min,
+            rect_max=rect_max,
+            tiles_touched=tiles_touched.to(torch.int32),
+        )
 
 
 def covariance3d_packed(scales: torch.Tensor, rotations: torch.Tensor,

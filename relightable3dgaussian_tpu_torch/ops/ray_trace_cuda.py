@@ -8,7 +8,8 @@ BVH and rays already moved to their offset origins, sorts them into
 permutation and writes each T in place), and returns T [R] in the rays'
 order (any value below 0.9 stands for "blocked"). A ray's T does not depend
 on the order. `ops/ray_trace.py::trace_visibility` calls it for CUDA
-tensors and applies the T >= 0.9 rule. `LAUNCHES` counts its launches.
+tensors and applies the T >= 0.9 rule. The tracer's counter `k3.launches`
+counts its launches.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .ray_trace import (CLUSTER_SIZE, RECORD, SUPER_SIZE, GaussianBVH,
                         coherent_order)
 
 KERNEL = "ray_trace"
-LAUNCHES = 0   # launches of K3 since import (or the last reset)
 
 
 def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -29,7 +30,6 @@ def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
     """Launch K3 on CUDA tensors: rays [R, 3] starting at their offset
     origins → transmittance [R]. The rays are traced in coherent order, or
     with `sort=False` in the order given."""
-    global LAUNCHES
     device = rays_o.device
     R = rays_o.shape[0]
     C = bvh.cluster_lo.shape[0]
@@ -65,5 +65,5 @@ def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
             C, n_super, R, T.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
+    trace.count("k3.launches")
     return T

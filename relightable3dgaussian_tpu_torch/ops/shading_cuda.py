@@ -12,10 +12,10 @@ returns (pbr, diffuse_light, specular), each [P, 3]:
   * CUDA tensors → `ShadeFunction`, whose forward is K4-fwd and whose
     backward is K4-bwd, or an exception. Nothing falls back.
 As in the train step, normals, visibility, directions and areas are
-constants: K4 gives them no gradient. `LAUNCHES` counts K4-fwd's launches
-and `BWD_LAUNCHES` K4-bwd's (a call of `shade_bwd`: the backward kernel and
-its fix-up, which takes a listed point's unsure branches from float64, one
-launch each).
+constants: K4 gives them no gradient. The tracer's counter `k4.launches`
+counts K4-fwd's launches and `k4.bwd_launches` K4-bwd's (a call of
+`shade_bwd`: the backward kernel and its fix-up, which takes a listed
+point's unsure branches from float64, one launch each).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .shading import ggx_terms, rendering_equation
 
@@ -37,8 +38,6 @@ K4_PI4 = 4 * float(torch.tensor(math.pi, dtype=torch.float32))   # k4Pi
 # Q_BAND of 1e-6 (relative), or its VoH within VOH_BAND, K4's fix-up takes
 # q's decision from float64 and VoH's past it (k4_clip_passes)
 Q_BAND, VOH_BAND = 5e-4, float(torch.tensor(2e-6, dtype=torch.float32))
-LAUNCHES = 0       # launches of K4-fwd since import (or the last reset)
-BWD_LAUNCHES = 0   # launches of K4-bwd since import (or the last reset)
 
 
 def rendering_equation_train_reference(base_color, roughness, normals,
@@ -328,7 +327,6 @@ def _library(symbol: str, n_ptr_in: int, n_ptr_out: int) -> ctypes.CDLL:
 def shade_fwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs):
     """Launch K4-fwd on CUDA tensors in the kernel's layout
     (`kernel_inputs`): (pbr, diffuse_light, specular), each [P, 3]."""
-    global LAUNCHES
     inputs = (dirs, vis, area, gl, bc, rough, nrm, vdir, shs)
     device = vis.device
     _check("K4-fwd", _expect(*inputs), device)
@@ -344,7 +342,7 @@ def shade_fwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs):
                                 *(t.data_ptr() for t in outs), stream)
     if rc != 0:
         raise RuntimeError(f"K4-fwd launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
+    trace.count("k4.launches")
     return tuple(outs)
 
 
@@ -353,7 +351,6 @@ def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
     """Launch K4-bwd on CUDA tensors: (d base_color [P, 3], d roughness [P],
     d viewdirs [P, 3], d shs [P, 48], d global_light [P, S, 3]) for the
     cotangents of (pbr, diffuse_light, specular)."""
-    global BWD_LAUNCHES
     inputs = (dirs, vis, area, gl, bc, rough, nrm, vdir, shs)
     device = vis.device
     P, S = vis.shape
@@ -377,5 +374,5 @@ def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
                                 unsure.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K4-bwd launch failed: cudaError_t {rc}")
-    BWD_LAUNCHES += 1
+    trace.count("k4.bwd_launches")
     return tuple(outs)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from .config import RasterConfig
 from .projection import Preprocessed
 
@@ -72,44 +73,48 @@ def bin_gaussians(prep: Preprocessed, cfg: RasterConfig,
         largest alpha over the tile is below 1/255 are culled
         (output-identical: every compositor skips them per pixel anyway).
     """
-    dev = prep.depth.device
-    P = prep.depth.shape[0]
-    counts = prep.tiles_touched.to(torch.int64)
-    total = int(counts.sum())
+    with trace.span("render.binning"):
+        dev = prep.depth.device
+        P = prep.depth.shape[0]
+        counts = prep.tiles_touched.to(torch.int64)
+        total = int(counts.sum())
+        trace.count("host.syncs")
 
-    # Depth ranks: stable order of view-space depth (ties broken by index).
-    depth_order = torch.argsort(prep.depth.detach(), stable=True)
-    rank_of = torch.empty_like(depth_order)
-    rank_of[depth_order] = torch.arange(P, device=dev)
+        # Depth ranks: stable order of view-space depth (ties broken by index).
+        depth_order = torch.argsort(prep.depth.detach(), stable=True)
+        rank_of = torch.empty_like(depth_order)
+        rank_of[depth_order] = torch.arange(P, device=dev)
 
-    gid = torch.repeat_interleave(torch.arange(P, device=dev), counts,
-                                  output_size=total)
-    first = torch.cumsum(counts, 0) - counts
-    j = torch.arange(total, device=dev) - first[gid]
-    # Per-pair gathers of 1-D columns: gathering the [P, 2] int64 rows
-    # (16 B each) took 0.71 ms per 800x800, 100k-gaussian view on an H100
-    # (700 W), several times the two column gathers together.
-    rect_x = prep.rect_min[:, 0].to(torch.int64)[gid]
-    rect_y = prep.rect_min[:, 1].to(torch.int64)[gid]
-    span_x = torch.clamp(prep.rect_max[:, 0] - prep.rect_min[:, 0],
-                         min=1).to(torch.int64)[gid]
-    jq = j // span_x
-    ty = rect_y + jq
-    tx = rect_x + j - jq * span_x
-    if opacity is not None:
-        q_min = _tile_min_power(prep.mean2d.detach()[gid],
-                                prep.conic.detach()[gid], tx, ty, cfg.tile)
-        th = 2.0 * torch.log(torch.clamp(opacity.detach(), min=1e-12) * 255.0)
-        keep = q_min <= th[gid]
-        gid, tx, ty = gid[keep], tx[keep], ty[keep]
+        gid = torch.repeat_interleave(torch.arange(P, device=dev), counts,
+                                      output_size=total)
+        first = torch.cumsum(counts, 0) - counts
+        j = torch.arange(total, device=dev) - first[gid]
+        # Per-pair gathers of 1-D columns: gathering the [P, 2] int64 rows
+        # (16 B each) took 0.71 ms per 800x800, 100k-gaussian view on an H100
+        # (700 W), several times the two column gathers together.
+        rect_x = prep.rect_min[:, 0].to(torch.int64)[gid]
+        rect_y = prep.rect_min[:, 1].to(torch.int64)[gid]
+        span_x = torch.clamp(prep.rect_max[:, 0] - prep.rect_min[:, 0],
+                             min=1).to(torch.int64)[gid]
+        jq = j // span_x
+        ty = rect_y + jq
+        tx = rect_x + j - jq * span_x
+        if opacity is not None:
+            q_min = _tile_min_power(prep.mean2d.detach()[gid],
+                                    prep.conic.detach()[gid], tx, ty, cfg.tile)
+            th = 2.0 * torch.log(torch.clamp(opacity.detach(), min=1e-12) * 255.0)
+            keep = q_min <= th[gid]
+            gid, tx, ty = gid[keep], tx[keep], ty[keep]
+            trace.count("host.syncs", 3)    # each selection's size
 
-    tile = ty * cfg.tiles_x + tx
-    key, _ = torch.sort((tile << 32) | rank_of[gid])
-    sorted_ids = depth_order[key & 0xFFFFFFFF].to(torch.int32)
-    per_tile = torch.bincount(key >> 32, minlength=cfg.num_tiles)
-    tile_end = torch.cumsum(per_tile, 0)
-    tile_start = tile_end - per_tile
-    return Binning(sorted_ids=sorted_ids,
-                   tile_start=tile_start.to(torch.int32),
-                   tile_end=tile_end.to(torch.int32),
-                   num_rendered=int(sorted_ids.shape[0]))
+        tile = ty * cfg.tiles_x + tx
+        key, _ = torch.sort((tile << 32) | rank_of[gid])
+        sorted_ids = depth_order[key & 0xFFFFFFFF].to(torch.int32)
+        per_tile = torch.bincount(key >> 32, minlength=cfg.num_tiles)
+        trace.count("host.syncs", 2)        # bincount reads min and max
+        tile_end = torch.cumsum(per_tile, 0)
+        tile_start = tile_end - per_tile
+        return Binning(sorted_ids=sorted_ids,
+                       tile_start=tile_start.to(torch.int32),
+                       tile_end=tile_end.to(torch.int32),
+                       num_rendered=int(sorted_ids.shape[0]))

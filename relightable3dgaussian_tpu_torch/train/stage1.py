@@ -23,23 +23,34 @@ import torch
 from ..models import gaussians as G
 from ..models.render import ViewInputs, render
 from ..ops.config import RasterConfig
+from ..utils import trace
 from .config import OptimizationConfig
 from .optim import learning_rates, set_learning_rates
 
 
 class StepTimer:
     """CUDA events at the phase boundaries of each train step ("start",
-    "forward", "backward", "end"); read after a synchronize."""
+    "forward", "backward", "end"); read after a synchronize. The events
+    around a phase are also the device events of its span
+    (`train.forward`, `train.backward`, `train.optimizer`)."""
+
+    PHASE_START = {"forward": "start", "backward": "forward",
+                   "end": "backward"}
 
     def __init__(self):
         self.steps: list[dict[str, torch.cuda.Event]] = []
 
-    def mark(self, name: str) -> None:
+    def mark(self, name: str, span=trace.NULL) -> None:
+        """Record the event `name`; the phase that ends there gives `span`
+        its events."""
         if name == "start":
             self.steps.append({})
         event = torch.cuda.Event(enable_timing=True)
         event.record()
-        self.steps[-1][name] = event
+        step = self.steps[-1]
+        step[name] = event
+        if name in self.PHASE_START:
+            span.events(step[self.PHASE_START[name]], event)
 
     def split_ms(self) -> list[dict[str, float]]:
         """Per step: forward, backward, optimizer (Adam and stats), total."""
@@ -74,32 +85,36 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
     Group`, each rank holding the same model and its own view), the view's
     densification contributions are combined over the ranks, the gradients
     and the loss terms averaged (`data_parallel.reduce_step`)."""
-    dev = model.xyz.device
-    if timer is not None:
-        timer.mark("start")
-    bg = (torch.ones(3, device=dev) if cfg.white_background
-          else torch.zeros(3, device=dev))
-    m2d = torch.zeros((model.num_points, 2), device=dev, requires_grad=True)
-    optimizer.zero_grad(set_to_none=True)
-    results = render(view, model, cfg, bg, opt, is_training=True,
-                     iteration=iteration, mean2d_offset=m2d)
-    loss = results["loss"]
-    if timer is not None:
-        timer.mark("forward")
-    backward_or_zero_grads(loss, model, m2d)
-    if timer is not None:
-        timer.mark("backward")
-    contribs = view_contribs(model, m2d, results, cfg, group)
-
-    set_learning_rates(optimizer,
-                       learning_rates(opt, iteration, spatial_lr_scale))
-    optimizer.step()
-    G.apply_stat_contribs(model, contribs)
-    if timer is not None:
-        timer.mark("end")
-    metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
-    metrics["loss"] = loss.detach()
-    return step_metrics(metrics, model, results, group)
+    with trace.span("train.step", unit=True):
+        dev = model.xyz.device
+        if timer is not None:
+            timer.mark("start")
+        with trace.span("train.forward") as sp:
+            bg = (torch.ones(3, device=dev) if cfg.white_background
+                  else torch.zeros(3, device=dev))
+            m2d = torch.zeros((model.num_points, 2), device=dev,
+                              requires_grad=True)
+            optimizer.zero_grad(set_to_none=True)
+            results = render(view, model, cfg, bg, opt, is_training=True,
+                             iteration=iteration, mean2d_offset=m2d)
+            loss = results["loss"]
+            if timer is not None:
+                timer.mark("forward", sp)
+        with trace.span("train.backward") as sp:
+            backward_or_zero_grads(loss, model, m2d)
+            if timer is not None:
+                timer.mark("backward", sp)
+        with trace.span("train.optimizer") as sp:
+            contribs = view_contribs(model, m2d, results, cfg, group)
+            set_learning_rates(optimizer,
+                               learning_rates(opt, iteration, spatial_lr_scale))
+            optimizer.step()
+            G.apply_stat_contribs(model, contribs)
+            if timer is not None:
+                timer.mark("end", sp)
+        metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
+        metrics["loss"] = loss.detach()
+        return step_metrics(metrics, model, results, group)
 
 
 def view_contribs(model: G.GaussianModel, m2d: torch.Tensor,

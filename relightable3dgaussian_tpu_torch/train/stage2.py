@@ -27,6 +27,7 @@ from ..models.render_neilf import (VisibilityCache, render_neilf,
                                    update_visibility)
 from ..ops.config import RasterConfig
 from ..ops.ray_trace import build_bvh, trace_visibility
+from ..utils import trace
 from ..utils.sh import eval_sh
 from .config import OptimizationConfig
 from .optim import learning_rates, set_learning_rates
@@ -112,39 +113,43 @@ def train_step(model: G.GaussianModel, optimizer: torch.optim.Optimizer,
     of `tb_dict` (psnr, psnr_pbr, ...) and "loss", "light_mean" (tensors),
     "n_active" and "num_rendered". With `group`, combined over the ranks as
     `stage1.train_step` combines it, the env map's gradient averaged too."""
-    dev = model.xyz.device
-    if timer is not None:
-        timer.mark("start")
-    bg = (torch.ones(3, device=dev) if cfg.white_background
-          else torch.zeros(3, device=dev))
-    m2d = torch.zeros((model.num_points, 2), device=dev, requires_grad=True)
-    optimizer.zero_grad(set_to_none=True)
-    env_optimizer.zero_grad(set_to_none=True)
-    results = render_neilf(view, model, cfg, bg, env, vis, opt,
-                           is_training=True, mean2d_offset=m2d)
-    loss = results["loss"]
-    if timer is not None:
-        timer.mark("forward")
-    backward_or_zero_grads(loss, model, m2d)
-    if env.env.grad is None:
-        env.env.grad = torch.zeros_like(env.env)
-    if timer is not None:
-        timer.mark("backward")
-    contribs = view_contribs(model, m2d, results, cfg, group,
-                             extra_grads=(env.env.grad,))
-
-    set_learning_rates(optimizer,
-                       learning_rates(opt, iteration, spatial_lr_scale))
-    optimizer.step()
-    env_optimizer.step()
-    G.apply_stat_contribs(model, contribs)
-    if timer is not None:
-        timer.mark("end")
-    metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
-    metrics["loss"] = loss.detach()
-    metrics = step_metrics(metrics, model, results, group)
-    metrics["light_mean"] = results["env"].detach().mean()
-    return metrics
+    with trace.span("train.step", unit=True):
+        dev = model.xyz.device
+        if timer is not None:
+            timer.mark("start")
+        with trace.span("train.forward") as sp:
+            bg = (torch.ones(3, device=dev) if cfg.white_background
+                  else torch.zeros(3, device=dev))
+            m2d = torch.zeros((model.num_points, 2), device=dev,
+                              requires_grad=True)
+            optimizer.zero_grad(set_to_none=True)
+            env_optimizer.zero_grad(set_to_none=True)
+            results = render_neilf(view, model, cfg, bg, env, vis, opt,
+                                   is_training=True, mean2d_offset=m2d)
+            loss = results["loss"]
+            if timer is not None:
+                timer.mark("forward", sp)
+        with trace.span("train.backward") as sp:
+            backward_or_zero_grads(loss, model, m2d)
+            if env.env.grad is None:
+                env.env.grad = torch.zeros_like(env.env)
+            if timer is not None:
+                timer.mark("backward", sp)
+        with trace.span("train.optimizer") as sp:
+            contribs = view_contribs(model, m2d, results, cfg, group,
+                                     extra_grads=(env.env.grad,))
+            set_learning_rates(optimizer,
+                               learning_rates(opt, iteration, spatial_lr_scale))
+            optimizer.step()
+            env_optimizer.step()
+            G.apply_stat_contribs(model, contribs)
+            if timer is not None:
+                timer.mark("end", sp)
+        metrics = {k: v.detach() for k, v in results["tb_dict"].items()}
+        metrics["loss"] = loss.detach()
+        metrics = step_metrics(metrics, model, results, group)
+        metrics["light_mean"] = results["env"].detach().mean()
+        return metrics
 
 
 def run_training_schedule(model: G.GaussianModel,

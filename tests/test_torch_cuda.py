@@ -38,6 +38,7 @@ from relightable3dgaussian_tpu_torch.train.optim import (learning_rates,
                                                          make_optimizer,
                                                          start_state)
 from relightable3dgaussian_tpu_torch.train.stage1 import train_step
+from relightable3dgaussian_tpu_torch.utils import trace
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
 
@@ -118,14 +119,14 @@ def test_k1_matches_plain(cuda, n_features, weights):
 def test_render_on_cuda_launches_k1_and_matches_cpu(cuda, h, w):
     d = scene(1)
     cfg = RasterConfig(h, w)
-    before = composite_cuda.LAUNCHES
+    before = trace.counter("k1.launches")
     gpu = render(view(cuda, h, w), GaussianModel.from_numpy(d, device=cuda),
                  cfg, torch.zeros(3, device=cuda))
-    assert composite_cuda.LAUNCHES == before + 1
+    assert trace.counter("k1.launches") == before + 1
     assert gpu["render"].shape == (3, h, w)
     cpu = render(view("cpu", h, w), GaussianModel.from_numpy(d, device="cpu"),
                  cfg, torch.zeros(3))
-    assert composite_cuda.LAUNCHES == before + 1
+    assert trace.counter("k1.launches") == before + 1
     agree = gpu["num_contrib"].cpu() == cpu["num_contrib"]
     assert float(agree.float().mean()) >= 0.999
     torch.testing.assert_close(gpu["render"].cpu()[:, agree],
@@ -158,11 +159,11 @@ def test_k2_matches_plain(cuda, n_features, with_g_weights):
     g_image = torch.randn(out.image.shape, generator=gen).to(cuda)
     g_weights = (torch.randn((attrs.shape[0],), generator=gen).to(cuda)
                  if with_g_weights else None)
-    before = composite_cuda.BWD_LAUNCHES
+    before = trace.counter("k2.launches")
     got = composite_cuda.composite_k2(binning, mean2d, conic, opacity, attrs,
                                       walk, g_image, g_weights, cfg)
     torch.cuda.synchronize()
-    assert composite_cuda.BWD_LAUNCHES == before + 1
+    assert trace.counter("k2.launches") == before + 1
     want = composite_backward(binning, mean2d, conic, opacity, attrs,
                               g_image, g_weights, cfg)
     for name, g, w in zip(("mean2d", "conic", "opacity", "attrs"), got, want):
@@ -260,12 +261,12 @@ def test_k5_matches_plain_and_k2(cuda, n_features, with_g_weights):
     args, out, walk, g_image, g_weights = k5_case(cuda, n_features,
                                                   with_g_weights)
     binning, mean2d, conic, opacity, attrs, cfg = args
-    before = (composite_cuda.BWD_LAUNCHES, composite_cuda.TWO_WALK_LAUNCHES)
+    before = (trace.counter("k2.launches"), trace.counter("k5.launches"))
     got = composite_cuda.composite_k5(binning, mean2d, conic, opacity, attrs,
                                       g_image, g_weights, cfg)
     torch.cuda.synchronize()
-    assert (composite_cuda.BWD_LAUNCHES,
-            composite_cuda.TWO_WALK_LAUNCHES) == (before[0], before[1] + 1)
+    assert (trace.counter("k2.launches"),
+            trace.counter("k5.launches")) == (before[0], before[1] + 1)
     want = composite_backward(binning, mean2d, conic, opacity, attrs,
                               g_image, g_weights, cfg)
     k2 = composite_cuda.composite_k2(binning, mean2d, conic, opacity, attrs,
@@ -411,11 +412,11 @@ def test_composite_function_takes_k5_under_the_switch(cuda, monkeypatch):
         leaves = [x.detach().clone().requires_grad_() for x in inputs]
         out = composite_cuda.composite(binning, *leaves, cfg)
         w = torch.linspace(-1.0, 1.0, out.weights.numel(), device=device)
-        before = (composite_cuda.BWD_LAUNCHES, composite_cuda.TWO_WALK_LAUNCHES)
+        before = (trace.counter("k2.launches"), trace.counter("k5.launches"))
         (out.image.square().sum() + (w * out.weights).sum()).backward()
         on_card = int(device.type == "cuda")
-        assert (composite_cuda.BWD_LAUNCHES,
-                composite_cuda.TWO_WALK_LAUNCHES) == (before[0],
+        assert (trace.counter("k2.launches"),
+                trace.counter("k5.launches")) == (before[0],
                                                       before[1] + on_card)
         grads.append([x.grad.cpu() for x in leaves])
     for name, got, want in zip(("mean2d", "conic", "opacity", "attrs"),
@@ -436,9 +437,9 @@ def test_composite_function_backward_matches_autograd(cuda, reads):
         w = torch.linspace(-1.0, 1.0, out.weights.numel(), device=device)
         loss = ((out.image.square().sum() if reads != "weights" else 0.0)
                 + ((w * out.weights).sum() if reads != "image" else 0.0))
-        before = composite_cuda.BWD_LAUNCHES
+        before = trace.counter("k2.launches")
         loss.backward()
-        assert composite_cuda.BWD_LAUNCHES == before + (device.type == "cuda")
+        assert trace.counter("k2.launches") == before + (device.type == "cuda")
         grads.append([torch.zeros(x.shape) if x.grad is None  # unused
                       else x.grad.cpu() for x in leaves])
     for name, got, want in zip(("mean2d", "conic", "opacity", "attrs"),
@@ -458,13 +459,13 @@ def test_render_of_loaded_checkpoint_backpropagates_through_k2(cuda, tmp_path):
     grads = {}
     for device in (cuda, torch.device("cpu")):
         _, model = load_checkpoint(path, device=device)
-        before = (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES)
+        before = (trace.counter("k1.launches"), trace.counter("k2.launches"))
         out = render(view(device), model, RasterConfig(SIZE, SIZE),
                      torch.zeros(3, device=device))
         loss = out["render"].square().mean() + out["opacity"].mean()
         loss.backward()
         launched = int(device.type == "cuda")
-        assert (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES) == (
+        assert (trace.counter("k1.launches"), trace.counter("k2.launches")) == (
             before[0] + launched, before[1] + launched)
         grads[device.type] = {k: getattr(model, k).grad.cpu() for k in
                               ("xyz", "scaling", "opacity", "shs_dc")}
@@ -526,10 +527,10 @@ def test_train_step_on_cuda_matches_cpu(cuda, tmp_path):
     path, gt_view = train_state(tmp_path)
     runs = []
     for device in (cuda, torch.device("cpu")):
-        before = (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES)
+        before = (trace.counter("k1.launches"), trace.counter("k2.launches"))
         runs.append(step_from_state(path, gt_view, device))
         launched = int(device.type == "cuda")
-        assert (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES) == (
+        assert (trace.counter("k1.launches"), trace.counter("k2.launches")) == (
             before[0] + launched, before[1] + launched)
     (got, m_gpu), (want, m_cpu) = runs
     for k, v in want.items():
@@ -627,12 +628,12 @@ def test_k3_matches_plain(cuda, n):
     xyz, scaling, rot, op, nrm = shell(n, n, cuda)
     bvh = ray_trace.build_bvh(xyz, scaling, rot, op, nrm)
     rays_o, rays_d = surface_rays(xyz[bvh.order][:256], nrm[bvh.order][:256], 16)
-    before = ray_trace_cuda.LAUNCHES
+    before = trace.counter("k3.launches")
     vis = ray_trace.trace_visibility(bvh, rays_o, rays_d)
     o = rays_o + ray_trace.RAY_OFFSET * rays_d
     T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
     torch.cuda.synchronize()
-    assert ray_trace_cuda.LAUNCHES == before + 2
+    assert trace.counter("k3.launches") == before + 2
     assert torch.equal(vis[:, 0], torch.where(T >= ray_trace.T_MIN, T, 0.0))
     want = ray_trace.trace_transmittance_plain(bvh, o, rays_d)
     assert_visibility_close(T, want)
@@ -819,7 +820,7 @@ def test_k4_matches_plain(cuda, case):
     x = shading_inputs(1000, 64, 3, cuda, rough, dark, zero_shs)
     x64 = [t.double() for t in x]
     inputs = shading_cuda.kernel_inputs(*x)
-    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
     got = shading_cuda.shade_fwd(*inputs)
     torch.cuda.synchronize()
     for name, g, p, e in zip(
@@ -831,7 +832,7 @@ def test_k4_matches_plain(cuda, case):
     cot = [torch.randn((1000, 3), generator=gen).to(cuda) for _ in range(3)]
     dbc, drough, dvdir, dshs, dgl = shading_cuda.shade_bwd(*inputs, *cot)
     torch.cuda.synchronize()
-    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == (
+    assert (trace.counter("k4.launches"), trace.counter("k4.bwd_launches")) == (
         before[0] + 1, before[1] + 1)
     for name, g, p, e in zip(
             ("base_color", "roughness", "viewdirs", "shs", "gl"),
@@ -909,7 +910,7 @@ def test_k4_without_points_launches_nothing(cuda):
     """P = 0: empty outputs and gradients, no launch."""
     x = shading_inputs(0, 64, 7, cuda)
     leaves = [x[i].clone().requires_grad_() for i in (0, 1, 3, 4)]
-    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
     outs = shading_cuda.rendering_equation_train(
         leaves[0], leaves[1], x[2], leaves[2], leaves[3], *x[5:])
     assert [tuple(o.shape) for o in outs] == [(0, 3)] * 3
@@ -919,7 +920,7 @@ def test_k4_without_points_launches_nothing(cuda):
     dgl = shading_cuda.shade_bwd(*shading_cuda.kernel_inputs(*x),
                                  *(torch.zeros((0, 3), device=cuda),) * 3)[-1]
     assert tuple(dgl.shape) == (0, 64, 3)
-    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == before
+    assert (trace.counter("k4.launches"), trace.counter("k4.bwd_launches")) == before
 
 
 def test_shade_function_gradient_matches_autograd(cuda):
@@ -943,10 +944,10 @@ def test_shade_function_gradient_matches_autograd(cuda):
                   (xd[0], xd[1], xd[3], xd[4])]
         env = DirectLightMap.from_raw(raw.to(cuda, dtype))
         gl = env.direct_light(xd[7])
-        before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+        before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
         outs = fn(leaves[0], leaves[1], xd[2], leaves[2], leaves[3], gl, *xd[6:])
         sum((c.to(dtype) * o).sum() for c, o in zip(cot, outs)).backward()
-        assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == (
+        assert (trace.counter("k4.launches"), trace.counter("k4.bwd_launches")) == (
             before[0] + launched, before[1] + launched)
         grads.append([t.grad for t in leaves] + [env.env.grad])
     for name, got, plain, exact in zip(("base_color", "roughness", "viewdirs",
@@ -981,8 +982,8 @@ def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch):
     class FailingLibrary:
         r3dg_trace = r3dg_shade_fwd = r3dg_shade_bwd = FailingLaunch()
 
-    counts = (ray_trace_cuda.LAUNCHES, shading_cuda.LAUNCHES,
-              shading_cuda.BWD_LAUNCHES)
+    counts = (trace.counter("k3.launches"), trace.counter("k4.launches"),
+              trace.counter("k4.bwd_launches"))
     for load, match in ((no_build, "nvcc failed"),
                         (lambda name: FailingLibrary(), "launch failed")):
         monkeypatch.setattr(_build, "load_library", load)
@@ -992,8 +993,8 @@ def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch):
             shading_cuda.rendering_equation_train(*x)
         with pytest.raises(RuntimeError, match=match):
             shading_cuda.shade_bwd(*inputs, *(inputs[i] for i in (4, 6, 7)))
-    assert (ray_trace_cuda.LAUNCHES, shading_cuda.LAUNCHES,
-            shading_cuda.BWD_LAUNCHES) == counts
+    assert (trace.counter("k3.launches"), trace.counter("k4.launches"),
+            trace.counter("k4.bwd_launches")) == counts
 
 
 # ---------------------------------------------------------------------------
@@ -1057,8 +1058,8 @@ def test_stage2_train_step_on_cuda_matches_cpu(cuda, tmp_path):
         v = gt_view._replace(cam=view(device).cam,
                              image=gt_view.image.to(device),
                              image_mask=gt_view.image_mask.to(device))
-        counts = lambda: (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES,  # noqa: E731
-                          shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+        counts = lambda: (trace.counter("k1.launches"), trace.counter("k2.launches"),  # noqa: E731
+                          trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
         before = counts()
         metrics = stage2.train_step(
             m, o, env, env_o, render_neilf.VisibilityCache(*(t.to(device) for t in vis)),
@@ -1131,12 +1132,12 @@ def test_cli_stages_and_eval_on_the_card(cuda, tmp_path, monkeypatch):
     write_scene(data)
 
     def launches():
-        return {"K1": composite_cuda.LAUNCHES,
-                "K2": composite_cuda.BWD_LAUNCHES,
-                "K5": composite_cuda.TWO_WALK_LAUNCHES,
-                "K3": ray_trace_cuda.LAUNCHES,
-                "K4-fwd": shading_cuda.LAUNCHES,
-                "K4-bwd": shading_cuda.BWD_LAUNCHES}
+        return {"K1": trace.counter("k1.launches"),
+                "K2": trace.counter("k2.launches"),
+                "K5": trace.counter("k5.launches"),
+                "K3": trace.counter("k3.launches"),
+                "K4-fwd": trace.counter("k4.launches"),
+                "K4-bwd": trace.counter("k4.bwd_launches")}
 
     def delta(before):
         return {k: v - before[k] for k, v in launches().items()}
@@ -1233,10 +1234,10 @@ def test_update_visibility_of_a_composite_matches_plain(cuda):
         return GaussianModel(**values), comp
 
     alone, comp = composite(cuda)
-    before = ray_trace_cuda.LAUNCHES
+    before = trace.counter("k3.launches")
     vis = render_neilf.update_visibility(comp, 16)
     torch.cuda.synchronize()
-    assert ray_trace_cuda.LAUNCHES == before + 1
+    assert trace.counter("k3.launches") == before + 1
     bvh, rays_o, rays_d = render_neilf.visibility_rays(comp, vis.incident_dirs)
     o = rays_o + ray_trace.RAY_OFFSET * rays_d
     T = ray_trace_cuda.trace_k3(bvh, o, rays_d)
@@ -1288,12 +1289,12 @@ def test_relighting_frame_on_the_card_matches_cpu(cuda, tmp_path):
     captures = ["pbr_env", "base_color", "roughness", "visibility", "normal"]
     outs = {}
     for device in (cuda, "cpu"):
-        k1, k3 = composite_cuda.LAUNCHES, ray_trace_cuda.LAUNCHES
+        k1, k3 = trace.counter("k1.launches"), trace.counter("k3.launches")
         out_dir = tmp_path / str(device).replace(":", "")
         relighting.main(["-co", str(tmp_path), "-e", str(tmp_path / "env.exr"),
                          "--sample_num", "8", "--output", str(out_dir),
                          "--capture_list", ",".join(captures)], device=device)
-        launched = (composite_cuda.LAUNCHES - k1, ray_trace_cuda.LAUNCHES - k3)
+        launched = (trace.counter("k1.launches") - k1, trace.counter("k3.launches") - k3)
         assert launched == ((1, 1) if device == cuda else (0, 0)), launched
         outs[str(device)] = out_dir
     # the split pixels: the composite rendered on both devices from one

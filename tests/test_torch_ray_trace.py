@@ -10,7 +10,8 @@ import torch
 
 from relightable3dgaussian_tpu.ops import ray_trace as jax_rt
 from relightable3dgaussian_tpu.utils import graphics as jax_graphics
-from relightable3dgaussian_tpu_torch.ops import ray_trace, ray_trace_cuda
+from relightable3dgaussian_tpu_torch.ops import ray_trace
+from relightable3dgaussian_tpu_torch.utils import trace
 from test_ray_trace import brute_force_visibility_vec
 from test_torch_ops import t
 
@@ -99,9 +100,9 @@ def test_cpu_tracer_is_the_plain_version():
     xyz, scaling, rot, op, nrm = random_cloud(4, 300)
     bvh = ray_trace.build_bvh(t(xyz), t(scaling), t(rot), t(op), t(nrm))
     rays_o, rays_d = surface_rays(xyz, nrm, 40, 8)
-    before = ray_trace_cuda.LAUNCHES
+    before = trace.counter("k3.launches")
     got = ray_trace.trace_visibility(bvh, t(rays_o), t(rays_d))
-    assert ray_trace_cuda.LAUNCHES == before
+    assert trace.counter("k3.launches") == before
     assert torch.equal(got, ray_trace.trace_visibility_plain(
         bvh, t(rays_o), t(rays_d)))
     with pytest.raises(ValueError, match="expected all on CPU or all on CUDA"):

@@ -29,13 +29,12 @@ from relightable3dgaussian_tpu.utils import quaternions as jax_quat
 from relightable3dgaussian_tpu_torch.cli import eval_relighting_syn4, relighting
 from relightable3dgaussian_tpu_torch.models import gaussians as G
 from relightable3dgaussian_tpu_torch.models import lights, render_neilf
-from relightable3dgaussian_tpu_torch.ops import (composite_cuda, ray_trace,
-                                                 ray_trace_cuda)
+from relightable3dgaussian_tpu_torch.ops import ray_trace
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.scene import exr
 from relightable3dgaussian_tpu_torch.scene.image_io import read_png, write_png
 from relightable3dgaussian_tpu_torch.train import stage2
-from relightable3dgaussian_tpu_torch.utils import quaternions
+from relightable3dgaussian_tpu_torch.utils import quaternions, trace
 from test_ray_trace import brute_force_visibility_vec
 from test_scene_io import make_params
 from test_torch_ops import t as tensor
@@ -323,10 +322,10 @@ def test_finetune_visibility_matches_jax():
     dirs = np.stack([np.asarray(jax.random.normal(k, (n, 3)))
                      for k in jax.random.split(key, iters)])
     model = G.GaussianModel.from_numpy(d, device="cpu")
-    before = ray_trace_cuda.LAUNCHES
+    before = trace.counter("k3.launches")
     got, losses = stage2.finetune_visibility(model, iters,
                                              directions=torch.from_numpy(dirs))
-    assert got is model and ray_trace_cuda.LAUNCHES == before
+    assert got is model and trace.counter("k3.launches") == before
     np.testing.assert_allclose(losses.numpy(), np.asarray(want_losses),
                                rtol=1e-5)
     for k in ("visibility_dc", "visibility_rest"):
@@ -395,11 +394,11 @@ def test_relighting_main_matches_jax(tmp_path):
               "--base_color_scale", "1.5", "0.8", "1.1"]
     jax_relighting.main(common + ["--output", str(tmp_path / "jax"),
                                   "--no_auto_plan"])
-    k1 = composite_cuda.LAUNCHES
+    k1 = trace.counter("k1.launches")
     relighting.main(common + ["--output", str(tmp_path / "port"),
                               "--no_auto_plan", "--trace_max_clusters", "8"],
                     device="cpu")
-    assert composite_cuda.LAUNCHES == k1
+    assert trace.counter("k1.launches") == k1
     for t in CAPTURES:
         for i in range(2):
             got = read_png(str(tmp_path / "port" / t / f"frame_{i}.png"))
@@ -583,7 +582,7 @@ def test_eval_relighting_syn4_matches_jax(tmp_path, monkeypatch, capsys):
         jax_syn4.main(args + ["--no_auto_plan"])
         want = {t: read_metrics(model_dir / "test_rli" / t / "metric.txt")
                 for t in ("env6", "env12")}
-        k3 = ray_trace_cuda.LAUNCHES
+        k3 = trace.counter("k3.launches")
         capsys.readouterr()
         out = eval_relighting_syn4.main(args + ["--no_auto_plan"],
                                         device="cpu")
@@ -591,7 +590,7 @@ def test_eval_relighting_syn4_matches_jax(tmp_path, monkeypatch, capsys):
     finally:
         jax_lpips._CACHE.clear()
         port_lpips._CACHE.clear()
-    assert ray_trace_cuda.LAUNCHES == k3
+    assert trace.counter("k3.launches") == k3
     assert sorted(out) == ["env12", "env6"]
     for task in ("env6", "env12"):
         got = read_metrics(model_dir / "test_rli" / task / "metric.txt")

@@ -20,6 +20,7 @@ from relightable3dgaussian_tpu.ops import shading_pallas as jax_shading_pallas
 from relightable3dgaussian_tpu.utils import graphics as jax_graphics
 from relightable3dgaussian_tpu_torch.models import lights
 from relightable3dgaussian_tpu_torch.ops import shading, shading_cuda
+from relightable3dgaussian_tpu_torch.utils import trace
 from test_torch_ops import t
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -131,9 +132,9 @@ def test_train_shading_matches_jax(P, S, seed):
     forward rtol 1e-4, atol 1e-5; gradients (env map included) rtol 5e-5,
     atol 5e-6 of their largest entry."""
     x = make_inputs(P, S, seed)
-    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
     got, got_g = port_train_shading(x)
-    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == before
+    assert (trace.counter("k4.launches"), trace.counter("k4.bwd_launches")) == before
     want, want_g = jax_train_shading(
         x, jax_shading_pallas.rendering_equation_train_reference)
     assert_outputs_close(got, want)

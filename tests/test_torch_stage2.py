@@ -25,11 +25,11 @@ from relightable3dgaussian_tpu.train import stage2 as jax_stage2
 from relightable3dgaussian_tpu_torch.models import gaussians as G
 from relightable3dgaussian_tpu_torch.models import render_neilf
 from relightable3dgaussian_tpu_torch.models.render import ViewInputs
-from relightable3dgaussian_tpu_torch.ops import ray_trace_cuda, shading_cuda
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.train import checkpoint, optim, stage2
 from relightable3dgaussian_tpu_torch.train.config import (
     STAGE2_NERF_SYNTHETIC, ModelConfig, OptimizationConfig, PipelineConfig)
+from relightable3dgaussian_tpu_torch.utils import trace
 from test_torch_ops import SIZE, cameras, jax_config, t
 
 N, S = 300, 8
@@ -169,12 +169,12 @@ def port_step(jax_state):
     it_env, env, env_optimizer = checkpoint.load_env_checkpoint(
         jax_state["env_path"], OPT, device="cpu")
     assert it == it_env == FIRST_ITER + 2
-    before = (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES)
+    before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
     metrics = stage2.train_step(
         model, optimizer, env, env_optimizer, port_vis(jax_state["vis"]),
         jax_state["view_t"], FIRST_ITER + 3, cfg=RasterConfig(SIZE, SIZE),
         opt=OPT, spatial_lr_scale=SPATIAL_LR_SCALE)
-    assert (shading_cuda.LAUNCHES, shading_cuda.BWD_LAUNCHES) == before
+    assert (trace.counter("k4.launches"), trace.counter("k4.bwd_launches")) == before
     return model, optimizer, env, env_optimizer, metrics
 
 
@@ -185,9 +185,9 @@ def test_update_visibility_matches_jax():
     want = jax_neilf.update_visibility(params, jnp.ones(N, bool), S)
     model = G.GaussianModel.from_numpy(
         {k: np.asarray(v) for k, v in vars(params).items()}, device="cpu")
-    before = ray_trace_cuda.LAUNCHES
+    before = trace.counter("k3.launches")
     got = render_neilf.update_visibility(model, S)
-    assert ray_trace_cuda.LAUNCHES == before
+    assert trace.counter("k3.launches") == before
     np.testing.assert_allclose(got.incident_dirs.numpy(), want.incident_dirs,
                                atol=2e-6, rtol=0)
     np.testing.assert_array_equal(got.incident_areas.numpy(),

@@ -34,7 +34,7 @@ from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
 from relightable3dgaussian_tpu_torch.train import checkpoint, optim, stage1
 from relightable3dgaussian_tpu_torch.train.config import (STAGE1_NERF_SYNTHETIC,
                                                           OptimizationConfig)
-from relightable3dgaussian_tpu_torch.utils import lr_schedule
+from relightable3dgaussian_tpu_torch.utils import lr_schedule, trace
 from relightable3dgaussian_tpu_torch.utils.sh import rgb_to_sh
 import test_torch_cuda as card_tests
 from test_torch_ops import (SIZE, cameras, composite_inputs, jax_config, t,
@@ -185,12 +185,12 @@ def test_two_walk_switch_takes_the_plain_backward_on_the_cpu(monkeypatch):
         monkeypatch.setenv("R3DG_BWD_TWO_WALK", two_walk)
         leaves = [t(x).requires_grad_() for x in
                   (prep.mean2d, prep.conic, op, attrs)]
-        before = (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES,
-                  composite_cuda.TWO_WALK_LAUNCHES)
+        before = (trace.counter("k1.launches"), trace.counter("k2.launches"),
+                  trace.counter("k5.launches"))
         out = composite_cuda.composite(binning_t, *leaves, cfg)
         (out.image.square().sum() + out.weights.sum()).backward()
-        assert (composite_cuda.LAUNCHES, composite_cuda.BWD_LAUNCHES,
-                composite_cuda.TWO_WALK_LAUNCHES) == before
+        assert (trace.counter("k1.launches"), trace.counter("k2.launches"),
+                trace.counter("k5.launches")) == before
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         assert torch.equal(a, b)
