@@ -13,13 +13,15 @@ no result line is printed):
               and power limit;
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
-              (csrc/shading.cu) and K5 (csrc/composite_bwd_two_walk.cu),
+              (csrc/shading.cu), K5 (csrc/composite_bwd_two_walk.cu) and K6
+              (csrc/shading_eval.cu),
               and the check kernel csrc/composite_decisions.cu (K1's blend
               decisions at given pixels, for k2-split), with nvcc, all at
               once, and prints ptxas's registers, spills
-              and shared memory for csrc/ray_trace.cu and
-              csrc/composite_bwd_two_walk.cu and for each source given with
-              --ptxas-also (another version of one, to compare);
+              and shared memory for csrc/ray_trace.cu, csrc/shading.cu,
+              csrc/composite_bwd_two_walk.cu and csrc/shading_eval.cu and
+              for each source given with --ptxas-also (another version of
+              one, to compare);
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
               400x400 scene (opacities in [0.1, 0.99]), with and without
               per-gaussian weights; the weights of the tiles that hold a
@@ -96,8 +98,16 @@ no result line is printed):
               counted on all of them;
  14. k4-main  K4 against the plain shading at the train step's shapes
               (at every point, as every K4 gate);
+     k6-eval  K6, the eval shading, against the plain version (ops/
+              shading_eval_cuda.py::rendering_equation_eval_reference) in
+              float64 at s2-relight's shapes (300,000 points, 64 samples,
+              a 512 x 1024 sky with a sun, turned), every output within
+              K6_TOL of its scale or K6_SLACK times the plain float32
+              version's error; K6 timed beside the plain version in float32
+              and its bound (bytes and operations);
  15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
-              the 8 views at 800x800 (32 splatted channels);
+              the 8 views at 800x800 (32 splatted channels), K1 and K6 once
+              a view;
  16. stage2-profile  two windows of further stage-2 steps: without a
               profiler, and under the device-only profiler (kernel ms per
               step, the largest kernels, and K4-fwd's and K4-bwd's device
@@ -287,7 +297,8 @@ from relightable3dgaussian_tpu_torch.models.gaussians import (
     create_from_pcd, densification_contribs, prune_only)
 from relightable3dgaussian_tpu_torch.losses import lpips
 from relightable3dgaussian_tpu_torch.models import render_neilf as neilf
-from relightable3dgaussian_tpu_torch.models.lights import (load_env_light,
+from relightable3dgaussian_tpu_torch.models.lights import (EnvLight,
+                                                           load_env_light,
                                                            query_light)
 from relightable3dgaussian_tpu_torch.models.render import (ViewInputs, render,
                                                            view_features)
@@ -295,7 +306,8 @@ from relightable3dgaussian_tpu_torch.models.render_neilf import (
     EVAL_FEATURE_DIM, render_neilf, update_visibility, visibility_rays)
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                  ray_trace, ray_trace_cuda,
-                                                 shading_cuda)
+                                                 shading_cuda,
+                                                 shading_eval_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import (CameraParams,
                                                         make_camera_params)
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
@@ -439,6 +451,22 @@ K3_PAIR_OPS = 72
 # and Fresnel 40, Lambert and the sums 16): 220 forward; the backward
 # recomputes the forward and chains through it, about 3x.
 K4_FWD_OPS, K4_BWD_OPS = 220, 660
+# FP32 operations per (point, sample) of K6: K4-fwd's 220 (the env mix
+# included), the env lookup's transform 15, angles and grid coordinates 12
+# (acosf and atan2f one each), corner weights 8 and blend 24, and the sums
+# of the incident, local and global lights and the visibility 10: 289.
+K6_OPS = 289
+# K6 at s2-relight's shapes: points, samples, the env map's height (a
+# 512 x 1024 map), and the light's turn about +z.
+K6_P, K6_S, K6_ENV_H, K6_TURN = 300_000, 64, 512, 0.3
+# K6 (float32) against the plain version in float64, per output: within
+# K6_TOL of the field's scale (1 + its largest entry) or within K6_SLACK
+# times the plain float32 version's own error (tests/test_torch_shading_eval.py
+# TOL, SLACK: the lookup's float32 coordinates are grid_sample's too).
+K6_TOL, K6_SLACK = 4e-6, 2.0
+K6_SOURCE = "relightable3dgaussian_tpu_torch/csrc/shading_eval.cu"
+K6_REPLACES = ("none: the JAX package leaves the eval shading to XLA "
+               "(models/render_neilf.py::_shade_chunk_reduced)")
 S_MID = 16                                   # samples per point, mid phases
 SAMPLE_NUM = PipelineConfig().sample_num     # 64
 ENV_RES = ModelConfig().env_resolution       # 16: a 16x32 env map
@@ -1481,6 +1509,106 @@ def k4_mid_phase(device) -> None:
                  min_dshs=0.01 if zero_shs else None)
 
 
+def k6_case(P: int, S: int, seed: int, device, env_h: int = K6_ENV_H):
+    """rendering_equation_eval's inputs at s2-relight's shapes, seeded:
+    unit normals, view directions of length 1-4, Fibonacci samples,
+    visibility in [0, 1), roughness in [0.09, 0.99], base colour in [0, 1),
+    local-light SH about 0.1, and an `EnvLight` [env_h, 2 env_h] (a smooth
+    random sky, 0.5-1.5, with a sun of radiance 50 in a 2-degree disc at
+    40 degrees' elevation) turned K6_TURN about +z."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(n):
+        v = torch.randn((n, 3), generator=g)
+        return v / v.norm(dim=-1, keepdim=True)
+
+    normals = unit(P)
+    viewdirs = unit(P) * (1 + 3 * torch.rand((P, 1), generator=g))
+    dirs, areas = fibonacci_sphere_sampling(normals, S)
+    sky = 0.5 + torch.rand((1, 3, 16, 32), generator=g)
+    sky = F.interpolate(sky, size=(env_h, 2 * env_h), mode="bilinear",
+                        align_corners=True)[0].permute(1, 2, 0)
+    phi = torch.linspace(0, math.pi, env_h)[:, None]
+    theta = -math.pi * torch.linspace(-1, 1, 2 * env_h)[None, :]
+    d = torch.stack(torch.broadcast_tensors(
+        torch.sin(phi) * torch.cos(theta), torch.sin(phi) * torch.sin(theta),
+        torch.cos(phi)), -1)
+    el = math.radians(40.0)
+    sun = torch.tensor([math.cos(el), 0.0, math.sin(el)])
+    img = sky + 50.0 * ((d @ sun) > math.cos(math.radians(2.0)))[..., None]
+    turn = torch.tensor(rotation((0, 0, 1), K6_TURN), dtype=torch.float32)
+    x = (torch.rand((P, 3), generator=g),
+         0.09 + 0.9 * torch.rand((P, 1), generator=g), normals, viewdirs,
+         0.1 * torch.randn((P, 16, 3), generator=g),
+         EnvLight(img.contiguous(), turn), torch.rand((P, S, 1), generator=g),
+         dirs, areas)
+    return k6_to(x, device, torch.float32)
+
+
+def k6_to(x, device, dtype) -> tuple:
+    """rendering_equation_eval's inputs on `device` in `dtype`."""
+    return tuple(
+        EnvLight(a.envmap.to(device, dtype), a.transform.to(device, dtype))
+        if isinstance(a, EnvLight) else a.to(device, dtype).contiguous()
+        for a in x)
+
+
+def k6_eval_phase(device, reps: int = 20, plain_reps: int = 3) -> dict:
+    """K6 against the plain eval shading at s2-relight's shapes (K6_P
+    points, K6_S samples, a 2:1 map K6_ENV_H high, turned), each output held
+    against the plain version in float64 (K6_TOL, or K6_SLACK times the
+    plain float32 version's own error); K6 timed beside the plain version
+    in float32 (its chunks of render_neilf.SHADE_CHUNK_SAMPLES samples) and
+    against its bound."""
+    x = k6_case(K6_P, K6_S, SEED + 16, device)
+    reset_launches()
+    got = shading_eval_cuda.rendering_equation_eval(*x)
+    torch.cuda.synchronize()
+    if read_launches()["K6"] != 1:
+        raise AssertionError(f"k6-eval: K6 launched {read_launches()['K6']} "
+                             "times for one call")
+    chunk = neilf.SHADE_CHUNK_SAMPLES
+    plain = shading_eval_cuda.rendering_equation_eval_reference(
+        *x, chunk_samples=chunk)
+    exact = shading_eval_cuda.rendering_equation_eval_reference(
+        *k6_to(x, device, torch.float64), chunk_samples=chunk)
+    names = ("pbr",) + shading_eval_cuda.EXTRA_KEYS
+    flat = lambda r: (r[0],) + tuple(r[1][k] for k in names[1:])  # noqa: E731
+    errs, failures, max_abs = {}, [], 0.0
+    for name, g, p, e in zip(names, flat(got), flat(plain), flat(exact)):
+        if g.shape != e.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"k6-eval: {name} {tuple(g.shape)} not finite "
+                                 f"or not {tuple(e.shape)}")
+        e_k = float((g.double() - e).abs().max())
+        e_p = float((p.double() - e).abs().max())
+        scale = 1.0 + float(e.abs().max())
+        errs[name] = (f"{e_k:.3e}", f"{e_p:.3e}", f"{scale:.3f}")
+        max_abs = max(max_abs, float((g - p).abs().max()))
+        if e_k > max(K6_TOL * scale, K6_SLACK * e_p):
+            failures.append(f"{name}: {e_k} from float64, plain float32 "
+                            f"{e_p}, scale {scale}")
+    if failures:
+        raise AssertionError("k6-eval: " + "; ".join(failures)
+                             + f" (every output: K6's, the plain version's "
+                             f"error, the scale: {errs})")
+    del plain, exact
+    ms = cuda_ms(lambda: shading_eval_cuda.rendering_equation_eval(*x), reps)
+    plain_ms = cuda_ms(
+        lambda: shading_eval_cuda.rendering_equation_eval_reference(
+            *x, chunk_samples=chunk), plain_reps)
+    ki = shading_eval_cuda.kernel_inputs(*x)
+    b = bound(nbytes(*ki) + nbytes(*flat(got)), K6_P * K6_S * K6_OPS)
+    say("k6-eval", points=K6_P, samples=K6_S,
+        env=f"{K6_ENV_H}x{2 * K6_ENV_H}", card=f"'{CARD}'",
+        err_kernel_plain_vs_float64_scale=errs, max_abs_err=f"{max_abs:.3e}",
+        ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        bound_ms=f"{b['bound_ms']:.4f}", bound_by=b["bound_by"],
+        bytes=nbytes(*ki) + nbytes(*flat(got)), ops=K6_P * K6_S * K6_OPS,
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
+
+
 def k4_branch_deltas(n: int, deltas=K4_BRANCH_DELTAS) -> np.ndarray:
     """Point i's delta: the (i // 2)-th of `deltas` in turn, + on even i and
     - on odd."""
@@ -1805,7 +1933,8 @@ def k4_branches_phase(device) -> None:
 
 LAUNCH_COUNTERS = {"K1": "k1.launches", "K2": "k2.launches",
                    "K3": "k3.launches", "K4-fwd": "k4.launches",
-                   "K4-bwd": "k4.bwd_launches", "K5": "k5.launches"}
+                   "K4-bwd": "k4.bwd_launches", "K5": "k5.launches",
+                   "K6": "k6.launches"}
 
 
 def reset_launches() -> None:
@@ -1892,9 +2021,10 @@ def stage2_phase(trained: dict, device) -> dict:
 
 
 @torch.no_grad()
-def stage2_eval_phase(s2: dict, device) -> None:
+def stage2_eval_phase(s2: dict, device) -> dict:
     """render_neilf(is_training=False) of every view at 800x800: 3 + 27 + 2
-    splatted channels, K1 once per view, every output finite."""
+    splatted channels, K1 and K6 once per view, every output finite.
+    Returns the kernels' launch counts."""
     views = s2["views"]
     cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN)
     bg = torch.zeros(3, device=device)
@@ -1910,7 +2040,8 @@ def stage2_eval_phase(s2: dict, device) -> None:
         results.append(res)
         view_ms.append(ms)
     launches = read_launches()
-    if launches["K1"] != len(views) or launches["K2"] or launches["K4-fwd"]:
+    if (launches["K1"] != len(views) or launches["K6"] != len(views)
+            or launches["K2"] or launches["K4-fwd"]):
         raise AssertionError(f"stage2-eval: {len(views)} views launched "
                              f"{launches}")
     keys = ("render", "pbr", "pbr_env", "render_env", "env_only", "base_color",
@@ -1925,10 +2056,11 @@ def stage2_eval_phase(s2: dict, device) -> None:
                                      f"{tuple(x.shape)} not finite")
     say("stage2-eval", views=len(views), size=f"{SIZE_MAIN}x{SIZE_MAIN}",
         channels=channels, k1_launches=launches["K1"],
-        ms_per_view_median=f"{float(np.median(view_ms[1:])):.3f}",
+        k6_launches=launches["K6"], ms_per_view_median=f"{float(np.median(view_ms[1:])):.3f}",
         view_ms=[round(ms, 3) for ms in view_ms],
         pbr_mean=f"{float(torch.stack([r['pbr'].mean() for r in results]).mean()):.4f}",
         peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
 
 
 # The cli phase: a NeRF-synthetic-layout scene of the render cell's views;
@@ -2329,7 +2461,8 @@ def relight_phase(s2: dict, cli: dict, device) -> dict:
     missing = [f"{t}/frame_{i}.png" for t in RELIGHT_CAPTURES
                for i in range(RELIGHT_FRAMES)
                if not (root / "capture" / t / f"frame_{i}.png").exists()]
-    expect = {"K1": RELIGHT_FRAMES, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0}
+    expect = {"K1": RELIGHT_FRAMES, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0,
+              "K6": RELIGHT_FRAMES}
     if missing or any(launches[k] != v for k, v in expect.items()):
         raise AssertionError(f"relight: launches {launches} (expected "
                              f"{expect}), missing {missing[:5]}")
@@ -2554,7 +2687,8 @@ def relight_eval_phase(cli: dict, device) -> dict:
            or not all(np.isfinite(float(m[k])) for k in fields)}
     if backbone != "lpips(random-vgg)":
         bad["backbone"] = backbone
-    expect = {"K1": 2 * n_frames, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0}
+    expect = {"K1": 2 * n_frames, "K3": 1, "K2": 0, "K4-fwd": 0, "K5": 0,
+              "K6": 2 * n_frames}
     (k3_rays,), (k3_ms,) = k3.sizes, k3.ms
     if bad or sorted(res) != ["env12", "env6"] or any(
             launches[k] != v for k, v in expect.items()) or (
@@ -2622,7 +2756,8 @@ def finetune_vis_phase(s2: dict, device) -> dict:
         generator=torch.Generator(device=device).manual_seed(SEED + 8)))
     launches = read_launches()
     losses = losses.cpu().numpy()
-    expect = {"K3": FINETUNE_ITERS, "K1": 0, "K2": 0, "K4-fwd": 0, "K5": 0}
+    expect = {"K3": FINETUNE_ITERS, "K1": 0, "K2": 0, "K4-fwd": 0, "K5": 0,
+              "K6": 0}
     if any(launches[k] != v for k, v in expect.items()) or not (
             np.isfinite(losses).all() and losses.shape == (FINETUNE_ITERS,)):
         raise AssertionError(f"finetune-vis: launches {launches} (expected "
@@ -2922,7 +3057,8 @@ def gui_phase(cli: dict, device) -> dict:
         missing = [i for i in range(GUI_FRAMES) if not (
             root / kind / f"render_{i:04d}.png").exists()]
         expect = {"K1": GUI_FRAMES, "K3": int(kind == "neilf"), "K2": 0,
-                  "K4-fwd": 0, "K5": 0}
+                  "K4-fwd": 0, "K5": 0,
+                  "K6": GUI_FRAMES if kind == "neilf" else 0}
         if missing or any(launches[k] != v for k, v in expect.items()):
             raise AssertionError(f"gui {kind}: launches {launches} "
                                  f"(expected {expect}), missing frames "
@@ -4222,17 +4358,19 @@ def print_interconnect() -> None:
 
 
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
-    """Builds K1 to K5 and the check kernel composite_decisions from the
+    """Builds K1 to K6 and the check kernel composite_decisions from the
     checkout's sources, one nvcc each, all at once, and prints ptxas's
-    report of K3's, K4's and K5's sources and of each source in
+    report of K3's, K4's, K5's and K6's sources and of each source in
     `ptxas_also`, compiled beside them."""
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
-               composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL)
+               composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL,
+               shading_eval_cuda.KERNEL)
     ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
         ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
-        composite_cuda.TWO_WALK_KERNEL)), *ptxas_also)
+        composite_cuda.TWO_WALK_KERNEL, shading_eval_cuda.KERNEL)),
+        *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
         reports = pool.map(_build.ptxas_report, ptxas_sources)
         list(pool.map(_build.load_library, kernels))
@@ -4263,7 +4401,7 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     # The phases before cli check K2 on the default backward.
     os.environ.pop("R3DG_BWD_TWO_WALK", None)
 
-    # 2. build K1 to K5 from the checkout's sources
+    # 2. build K1 to K6 from the checkout's sources
     build_phase(ptxas_also)
 
     with torch.no_grad():
@@ -4387,8 +4525,10 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
         # 14. K4 at the train step's shapes
         main_k4f, main_k4b, _ = check_k4(train_shading_case(
             model, s2["env"], s2["vis"], s2["views"][0]), "k4-main", SEED + 6)
+        # K6 at s2-relight's shapes
+        main_k6 = k6_eval_phase(device)
     # 15. the stage-2 eval render
-    stage2_eval_phase(s2, device)
+    eval_launches = stage2_eval_phase(s2, device)
     # 16. where a stage-2 step's time goes
     it2 = STAGE2_OPT.iterations
 
@@ -4508,7 +4648,12 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "source": K5_SOURCE, "replaces": K5_REPLACES,
          "launches": cli_launches["K5"], **main_k5,
          "dp_stage1_launches": per_rank("dp-stage1", "K5"),
-         "cli_ranks_launches": cli_per_rank("K5")}]}), flush=True)
+         "cli_ranks_launches": cli_per_rank("K5")},
+        {"name": "K6 shade_eval", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, "launches": eval_launches["K6"], **main_k6,
+         "relight_launches": relight["launches"]["K6"],
+         "relight_eval_launches": relight_eval["launches"]["K6"],
+         "gui_neilf_launches": gui_launches["neilf"]["K6"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,9 +6,11 @@ visibility, `update_visibility`), the shaded colour and BRDF maps are
 splatted as features in one rasterize call, then normalised by opacity and
 sRGB-encoded. In training the shading is `rendering_equation_train`: kernel
 K4 on the card, its plain version on the CPU; the splat is K1 and K2 on the
-card. The eval path shades with `ops/shading.py::rendering_equation`,
-chunked over points, or split over a group of ranks (`sharded_shading`;
-the visibility trace likewise, `sharded_trace`). Normals enter the shading
+card. The eval path shades with `rendering_equation_eval`: kernel K6 in one
+launch on the card, on the CPU its plain version, `ops/shading.py::
+rendering_equation` chunked over points; or split over a group of ranks,
+each running the same on its share (`sharded_shading`; the visibility
+trace likewise, `sharded_trace`). Normals enter the shading
 detached, as in the JAX package. The JAX package's seeded-weights path
 (`w_seed`) is a TPU scatter workaround and is not ported: the weights come
 from the forward.
@@ -24,8 +26,8 @@ from ..ops.camera import pixel_directions
 from ..ops.config import RasterConfig
 from ..ops.rasterize import rasterize
 from ..ops.ray_trace import build_bvh, trace_visibility
-from ..ops.shading import rendering_equation
 from ..ops.shading_cuda import rendering_equation_train
+from ..ops.shading_eval_cuda import rendering_equation_eval
 from ..train.config import OptimizationConfig
 from ..utils import trace
 from ..utils.graphics import fibonacci_sphere_sampling, rgb_to_srgb
@@ -40,8 +42,10 @@ from .render import ViewInputs
 # lights, local and global lights, 3 each.
 TRAIN_FEATURE_DIM = 15
 EVAL_FEATURE_DIM = 27
-# Samples per shading dispatch on the eval path: a bound on its [P, S, 3]
-# intermediates (the reference chunks inference shading too, neilf.py:96-108).
+# Samples per shading dispatch on the eval path's CPU version: a bound on its
+# [P, S, 3] intermediates (the reference chunks inference shading too,
+# neilf.py:96-108). K6, on the card, keeps no per-sample value and shades
+# every point in one launch.
 SHADE_CHUNK_SAMPLES = 4_000_000
 
 
@@ -124,13 +128,13 @@ def update_visibility(model: GaussianModel, sample_num: int,
 
 def _shade_points(base_color, roughness, normal, viewdirs, incidents, env,
                   vis: VisibilityCache, sharded_shading=None):
-    """The eval shading: `rendering_equation` over chunks of at most
-    SHADE_CHUNK_SAMPLES samples, keeping the per-sample lights only as
-    their means over the samples; or with `sharded_shading`
+    """The eval shading: `rendering_equation_eval` (K6 on the card; on the
+    CPU chunks of at most SHADE_CHUNK_SAMPLES samples), every per-sample
+    light kept only as its mean over the samples; or with `sharded_shading`
     (`parallel.point_sharded.make_sharded_shading(full_extras=True)`) split
     over its ranks, P padded to a multiple of their number. Returns (pbr,
-    extras), each [P, 3]."""
-    P, S = vis.visibility.shape[:2]
+    extras), each [P, 3] but the visibility's mean [P, 1]."""
+    P = vis.visibility.shape[0]
     if sharded_shading is not None:
         n = sharded_shading.group.size
         pbr, extras = sharded_shading(
@@ -138,18 +142,9 @@ def _shade_points(base_color, roughness, normal, viewdirs, incidents, env,
                                         viewdirs, incidents)), env,
             *(_pad_rows(x, n) for x in vis))
         return pbr[:P], {k: v[:P] for k, v in extras.items()}
-    chunk = max(1, SHADE_CHUNK_SAMPLES // S)
-    parts = []
-    for i in range(0, P, chunk):
-        sl = slice(i, i + chunk)
-        pbr, ex = rendering_equation(
-            base_color[sl], roughness[sl], normal[sl], viewdirs[sl],
-            incidents[sl], lambda d: query_light(env, d), vis.visibility[sl],
-            vis.incident_dirs[sl], vis.incident_areas[sl])
-        parts.append((pbr, {k: (v if v.dim() == 2 else v.mean(-2))
-                            for k, v in ex.items()}))
-    return (torch.cat([p for p, _ in parts]),
-            {k: torch.cat([ex[k] for _, ex in parts]) for k in parts[0][1]})
+    return rendering_equation_eval(base_color, roughness, normal, viewdirs,
+                                   incidents, env, *vis,
+                                   chunk_samples=SHADE_CHUNK_SAMPLES)
 
 
 def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
@@ -200,7 +195,7 @@ def render_view(model: GaussianModel, view: ViewInputs, cfg: RasterConfig,
         "base_color": lambda: base_color,
         "roughness": lambda: roughness,
         "diffuse": lambda: extras["diffuse_light"],
-        "vis": lambda: vis.visibility.mean(-2),
+        "vis": lambda: extras["visibility"],     # eval only
     }
     chans = train_feature_channels(opt if is_training else None)
     feats = [chan_src[name]() for name, _ in chans]

@@ -5,8 +5,9 @@ The reference walks its P axis (10^5-10^6 gaussians × 24-384 incident
 samples) in serial host chunks (gaussian_renderer/neilf.py:98-113,
 scene/gaussian_model.py:322-336). Here, as in the JAX package, the axes are
 split over the ranks:
-  * the eval shading (`rendering_equation`) is independent per point: each
-    rank shades its contiguous share of P under the whole env map;
+  * the eval shading (`ops/shading_eval_cuda.py::rendering_equation_eval`:
+    kernel K6 on the card) is independent per point: each rank shades its
+    contiguous share of P under the whole env map;
   * the visibility trace splits the RAY axis (P·S rays): every rank holds
     the whole cluster structure and traces its share of the rays with
     `ops.ray_trace.trace_visibility` (kernel K3 on the card).
@@ -25,17 +26,9 @@ import math
 
 import torch
 
-from ..models.lights import query_light
 from ..ops.ray_trace import GaussianBVH, trace_visibility
-from ..ops.shading import rendering_equation
+from ..ops.shading_eval_cuda import EXTRA_KEYS, rendering_equation_eval
 from .data_parallel import Group, all_reduce_
-
-# The extras the sharded eval shading returns as sample means (the
-# reductions models/render_neilf._shade_points keeps); the port's
-# rendering_equation has no per-sample visibility extra (the eval reads the
-# visibility from the cache).
-_SHADE_EXTRA_KEYS = ("incident_lights", "local_incident_lights",
-                     "global_incident_lights", "diffuse_light", "specular")
 
 
 def _share(n: int, group: Group) -> slice:
@@ -77,20 +70,19 @@ def make_sharded_shading(group: Group, full_extras: bool = False):
     argument whole on every rank, P divisible by the group's size
     (`fn.group` is attached for callers that pad). Without `full_extras` it
     returns (pbr, diffuse_light); with it, (pbr, extras), the per-sample
-    extras reduced to their sample means: what the stage-2 eval splats.
+    extras reduced to their sample means (`EXTRA_KEYS`, the visibility's
+    among them): what the stage-2 eval splats. A rank shades its share in
+    one call of `rendering_equation_eval` (one K6 launch on the card).
     """
     def fn(base_color, roughness, normals, viewdirs, incidents, env, vis,
            inc_dirs, inc_areas):
         P = base_color.shape[0]
-        pbr, extras = rendering_equation(
+        pbr, extras = rendering_equation_eval(
             *shard_points((base_color, roughness, normals, viewdirs,
-                           incidents), group),
-            lambda d: query_light(env, d),
+                           incidents), group), env,
             *shard_points((vis, inc_dirs, inc_areas), group))
-        keys = _SHADE_EXTRA_KEYS if full_extras else ("diffuse_light",)
-        parts = [extras[k] if extras[k].dim() == 2 else extras[k].mean(-2)
-                 for k in keys]
-        pbr, *parts = _gather([pbr, *parts], P, group)
+        keys = EXTRA_KEYS if full_extras else ("diffuse_light",)
+        pbr, *parts = _gather([pbr, *(extras[k] for k in keys)], P, group)
         if not full_extras:
             return pbr, parts[0]
         return pbr, dict(zip(keys, parts))

@@ -30,10 +30,10 @@ per-layer metrics read.
 Counters (`count(name)`) are plain integers under dotted names, counted
 where the work happens whether tracing is on or off: the kernels' launches
 (`k1.launches`, `k2.launches`, `k5.launches`, `k3.launches`,
-`k4.launches`, `k4.bwd_launches`) and `host.syncs`, each point where the
-hot path waits for the device (a value read back, a masked selection's
-size, a copy from pageable host memory, which waits for the stream),
-counted where it is on any device.
+`k4.launches`, `k4.bwd_launches`, `k6.launches`) and `host.syncs`, each
+point where the hot path waits for the device (a value read back, a
+masked selection's size, a copy from pageable host memory, which waits for
+the stream), counted where it is on any device.
 """
 from __future__ import annotations
 
