@@ -143,6 +143,12 @@ no result line is printed):
               (~35M rays in one K3 launch, K1 16 times): K3 and K1 held as
               in relight (relight-eval-k3, relight-eval-k1), both metric.txt
               whole and finite, the two maps' renders apart;
+     syn4-view  cli.eval_relighting_syn4.relight_view at the benchmark
+              cell s2-eval.syn4's shapes: 300,000 points, 384 samples (K3
+              over 115.2M rays), 800x800 under a 512 x 1024 map,
+              LPIPS_WEIGHTS=random; K6 once a view, its launch timed
+              against its bound at S = 384, the LPIPS forward of the
+              view's four images timed, the scores finite;
  20. finetune-vis  train.stage2.finetune_visibility, 50 iterations on the
               stage2 phase's model: K3 once an iteration, losses finite.
  21. mvs-plane  cli.mvs.run_pipeline at the CLI's defaults (5 sources,
@@ -2661,7 +2667,7 @@ def relight_eval_phase(cli: dict, device) -> dict:
     model_dir = root / "out" / "hotdog"
     saved = os.environ.get("LPIPS_WEIGHTS")
     os.environ["LPIPS_WEIGHTS"] = "random"
-    lpips._CACHE.clear()
+    lpips.reset()
     try:
         res, launches, wall, peak, k3, k1, renders = run_cli_timed(
             lambda: eval_relighting_syn4.main(
@@ -2671,7 +2677,7 @@ def relight_eval_phase(cli: dict, device) -> dict:
                 device=device), eval_relighting_syn4)
         backbone = lpips.metric_name()
     finally:
-        lpips._CACHE.clear()
+        lpips.reset()
         if saved is None:
             del os.environ["LPIPS_WEIGHTS"]
         else:
@@ -2739,6 +2745,88 @@ def relight_eval_phase(cli: dict, device) -> dict:
                                    for t, m in metrics.items()})
     return {"launches": launches, "k3_ms": k3_ms, "k3_rays": k3_rays,
             **traced_k3}
+
+
+# The syn4-view phase: one scored view of the Synthetic4Relight evaluation
+# (cli/eval_relighting_syn4.py::relight_view) at the benchmark cell
+# s2-eval.syn4's shapes: points, and views timed after one warm-up.
+SYN4_P, SYN4_VIEWS = 300_000, 4
+
+
+def syn4_view_phase(device) -> dict:
+    """relight_view at SYN4_P points and SYN4_SAMPLES samples a point (a
+    seeded stage-2 model of the slice's pattern, base colour and
+    roughness from the seed, the visibility traced by K3 over every
+    ray), 800x800, under a 512 x 1024 map with hotdog's albedo scale and
+    LPIPS_WEIGHTS=random: K6 launched once a view, its launch timed
+    (CUDA events) against its bound at S = SYN4_SAMPLES (bytes and
+    operations as k6_eval_phase counts them), the LPIPS forward of the
+    view's four images timed, and the seven scores finite."""
+    from relightable3dgaussian_tpu_torch.models.gaussians import add_pbr_params
+    model = GaussianModel.from_numpy(make_scene(SYN4_P, SEED + 21, None),
+                                     device=device)
+    add_pbr_params(model)
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    with torch.no_grad():
+        model.base_color.copy_(torch.randn(model.base_color.shape,
+                                           generator=g, device=device))
+        model.roughness.copy_(torch.randn(model.roughness.shape,
+                                          generator=g, device=device))
+    t0 = time.perf_counter()
+    vis = update_visibility(model, SYN4_SAMPLES)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    env = EnvLight(torch.as_tensor(np.ascontiguousarray(np.repeat(np.repeat(
+        sky_envmap([0.5, 0.3, 0.8], [20.0, 19.0, 17.0], [0.3, 0.45, 0.8]),
+        2, 0), 2, 1)), device=device))
+    cfg = RasterConfig(SIZE_MAIN, SIZE_MAIN, sh_degree=3)
+    truth = eval_relighting_syn4.GroundTruth(
+        torch.rand((3, SIZE_MAIN, SIZE_MAIN), generator=g, device=device),
+        (torch.rand((1, SIZE_MAIN, SIZE_MAIN), generator=g,
+                    device=device) > 0.3).float(),
+        torch.rand((3, SIZE_MAIN, SIZE_MAIN), generator=g, device=device),
+        torch.rand((3, SIZE_MAIN, SIZE_MAIN), generator=g, device=device))
+    scale = torch.tensor(eval_relighting_syn4.BASE_COLOR_SCALE["hotdog"],
+                         device=device)
+    saved = os.environ.get("LPIPS_WEIGHTS")
+    os.environ["LPIPS_WEIGHTS"] = "random"
+    lpips.reset()
+    scores, view_ms = [], []
+    try:
+        with CallTimer(shading_eval_cuda, "_launch",
+                       keep=lambda args, out: nbytes(*args) + nbytes(*out)
+                       ) as k6, CallTimer(lpips, "lpips_each") as lp:
+            for i in range(SYN4_VIEWS + 1):
+                view = orbit_view(i, VIEWS, SIZE_MAIN, device)
+                reset_launches()
+                rv, ms = timed_ms(lambda: eval_relighting_syn4.relight_view(
+                    view, model, cfg, env, vis, truth, base_color_scale=scale))
+                if read_launches()["K6"] != 1:
+                    raise AssertionError(f"syn4-view: K6 launched "
+                                         f"{read_launches()['K6']} times")
+                scores.append(rv.scores)
+                view_ms.append(ms)
+        backbone = lpips.metric_name()
+    finally:
+        lpips.reset()
+        if saved is None:
+            del os.environ["LPIPS_WEIGHTS"]
+        else:
+            os.environ["LPIPS_WEIGHTS"] = saved
+    bad = [s for s in scores if not all(np.isfinite(v) for v in s.values())]
+    if bad or backbone != "lpips(random-vgg)":
+        raise AssertionError(f"syn4-view: scores {bad}, backbone {backbone}")
+    b = bound(k6.kept, SYN4_P * SYN4_SAMPLES * K6_OPS)
+    k6_ms = float(np.median(k6.ms[1:]))
+    say("syn4-view", points=SYN4_P, samples=SYN4_SAMPLES, views=SYN4_VIEWS,
+        card=f"'{CARD}'", trace_s=f"{trace_s:.3f}",
+        k6_ms=f"{k6_ms:.4f}", k6_bound_ms=f"{b['bound_ms']:.4f}",
+        k6_bound_by=b["bound_by"], k6_bytes=k6.kept,
+        lpips_ms=f"{float(np.median(lp.ms[1:])):.3f}",
+        view_ms=[round(ms, 3) for ms in view_ms[1:]],
+        scores={k: round(v, 5) for k, v in scores[-1].items()},
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return {"ms": k6_ms, **b, "lpips_ms": float(np.median(lp.ms[1:]))}
 
 
 def finetune_vis_phase(s2: dict, device) -> dict:
@@ -4552,6 +4640,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     relight = relight_phase(s2, cli, device)
     # 19. the Synthetic4Relight eval through cli.eval_relighting_syn4
     relight_eval = relight_eval_phase(cli, device)
+    # one scored view of it at the benchmark's S = 384, 300,000 points
+    syn4_view = syn4_view_phase(device)
     # 20. the visibility SH fit
     finetune = finetune_vis_phase(s2, device)
     # 21. MVS on the analytic plane at 800x800, through cli.mvs
@@ -4653,7 +4743,9 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "replaces": K6_REPLACES, "launches": eval_launches["K6"], **main_k6,
          "relight_launches": relight["launches"]["K6"],
          "relight_eval_launches": relight_eval["launches"]["K6"],
-         "gui_neilf_launches": gui_launches["neilf"]["K6"]}]}), flush=True)
+         "gui_neilf_launches": gui_launches["neilf"]["K6"],
+         "syn4_view_ms": syn4_view["ms"],
+         "syn4_view_bound_ms": syn4_view["bound_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

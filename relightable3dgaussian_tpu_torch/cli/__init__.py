@@ -22,7 +22,7 @@ from typing import Callable
 import torch
 
 from ..ops import _build
-from ..parallel import spawn
+from ..parallel import PeerRanks
 from ..parallel.data_parallel import Group
 from ..parallel.point_sharded import make_sharded_shading, make_sharded_trace
 from .arguments import rank_devices
@@ -39,11 +39,12 @@ def _rank(group: Group, fn: Callable, args):
 
 def run_ranks(fn: Callable, args, device: torch.device | str):
     """fn(args, device, group) once, with group None, at --n_devices 1;
-    else on `--n_devices` ranks (`parallel.spawn`: rank r on cuda:r with
-    NCCL, or on the CPU with gloo where the caller asked for the CPU),
-    after building the kernels once for all of them. Returns rank 0's
-    result; a failed rank fails the call. `fn` must be a module-level
-    function."""
+    else on `--n_devices` ranks (rank r on cuda:r with NCCL, or on the CPU
+    with gloo where the caller asked for the CPU), after building the
+    kernels once for all of them: rank 0 in this process, ranks 1..N-1 in
+    processes of their own (`parallel.PeerRanks`, with no limit on the
+    whole run; each collective has its timeout). Returns rank 0's result;
+    a failed rank fails the call. `fn` must be a module-level function."""
     device = torch.device(device)
     n = getattr(args, "n_devices", 1) or 1
     if n <= 1:
@@ -51,7 +52,8 @@ def run_ranks(fn: Callable, args, device: torch.device | str):
     devices = rank_devices(n, device)
     if device.type == "cuda":
         _build.prebuild()
-    return spawn(_rank, devices, fn, args)[0]
+    with PeerRanks(_rank, devices, fn, args, timeout_s=None) as group:
+        return _rank(group, fn, args)
 
 
 def _group_for(args, group: Group | None, what: str) -> Group | None:

@@ -6,7 +6,9 @@ once (kernel K3), renders the test poses under the envmap6 and envmap12 HDR
 environments (kernel K1 at the eval width), and compares the relit PBR
 render with the ground truth (PSNR, SSIM, LPIPS), the base colour, under the
 per-scene albedo scale, with the ground-truth albedo, and the roughness by
-MSE, each over the object's mask. Writes test_rli/<task>/metric.txt with the
+MSE, each over the object's mask. A view's render and scores are
+`relight_view` (the benchmark's cell s2-eval.syn4 calls it too); the CLI
+writes its images as PNGs and test_rli/<task>/metric.txt with the
 reference's seven field names; the log names the LPIPS backbone
 (`lpips(random-vgg)` under LPIPS_WEIGHTS=random). With --n_devices N the
 trace and the shading are split over N ranks, one process a card
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +37,7 @@ from ..scene.cameras import Camera
 from ..scene.dataset_readers import _blender_pose
 from ..scene.image_io import load_img_rgb, save_image_u8
 from ..train.config import ModelConfig, PipelineConfig
+from ..utils import trace
 from ..utils.graphics import focal2fov, fov2focal
 from ..utils.image import psnr as psnr_fn
 from . import run_ranks, sharded_shading_from_args, sharded_trace_from_args
@@ -57,6 +61,79 @@ TASKS = {
 
 METRICS = ("psnr_pbr", "ssim_pbr", "lpips_pbr", "psnr_albedo", "ssim_albedo",
            "lpips_albedo", "mse_roughness")
+
+
+class GroundTruth(NamedTuple):
+    """A test view's ground truth on the card: the relit image [3, H, W],
+    the object's mask [1, H, W], the albedo [3, H, W] and the roughness
+    [3, H, W] (the maps' own values, before the mask)."""
+    image: torch.Tensor
+    mask: torch.Tensor
+    albedo: torch.Tensor
+    roughness: torch.Tensor
+
+
+class RelitView(NamedTuple):
+    """What `relight_view` gives of one test view: the images the CLI
+    writes ([C, H, W] on the card: pbr, pbr_env, base_color, roughness
+    and the three ground truths, each over the mask), the seven METRICS on
+    the host, and render_neilf's own results."""
+    images: dict
+    scores: dict
+    results: dict
+
+
+@torch.no_grad()
+def score_view(images: dict) -> torch.Tensor:
+    """The seven METRICS of a view's masked images, on the card, in
+    METRICS' order: PSNR, SSIM and LPIPS of the PBR render and of the
+    albedo against their ground truths, and the roughness MSE (LPIPS NaN
+    without weights). Both SSIMs are one 6-channel pass and both LPIPS one
+    batch of four images: channels and images are independent."""
+    pbr, gt = images["pbr"], images["gt"]
+    base, gt_albedo = images["base_color"], images["gt_albedo"]
+    smap = losses.ssim_map(torch.cat([pbr, base]), torch.cat([gt, gt_albedo]))
+    lp = lpips.lpips_each(torch.stack([pbr, base]),
+                          torch.stack([gt, gt_albedo]))
+    rough = images["roughness"].expand(3, -1, -1)
+    return torch.stack([
+        psnr_fn(pbr[None], gt[None]).mean(), smap[:3].mean(), lp[0],
+        psnr_fn(base[None], gt_albedo[None]).mean(), smap[3:].mean(), lp[1],
+        ((rough - images["gt_roughness"]) ** 2).mean()])
+
+
+@torch.no_grad()
+def relight_view(view, model, cfg: RasterConfig, env, vis,
+                 gt: GroundTruth | None, *, base_color_scale: torch.Tensor,
+                 background: float = 1.0,
+                 sharded_shading=None) -> RelitView | None:
+    """One test view of the benchmark: the relit render under `env`
+    (render_neilf, eval), its images over the ground truth's mask (the
+    background `background` outside, and for pbr_env the map itself), and
+    their seven scores, brought to the host in one copy. Without `gt` (a
+    rank past rank 0 of a sharded run) only the render runs and None is
+    returned. Spans: `eval.view` (a unit) around it all, `eval.score`
+    (with device events) around the scores."""
+    with trace.span("eval.view", unit=True):
+        bg = torch.full((3,), background, device=view.cam.campos.device)
+        res = render_neilf(view, model, cfg, bg, env, vis, is_training=False,
+                           base_color_scale=base_color_scale,
+                           sharded_shading=sharded_shading)
+        if gt is None:
+            return None
+        m = gt.mask
+        over = lambda x: x * m + (1 - m) * background  # noqa: E731
+        images = {"pbr": over(res["pbr"]),
+                  "pbr_env": res["pbr"] * m + (1 - m) * res["env_only"],
+                  "base_color": over(res["base_color"]),
+                  "roughness": over(res["roughness"]),
+                  "gt": over(gt.image), "gt_albedo": over(gt.albedo),
+                  "gt_roughness": over(gt.roughness)}
+        with trace.span("eval.score", device=bg.device):
+            scores = score_view(images)
+        trace.count("host.syncs")
+        scores = dict(zip(METRICS, scores.tolist()))
+        return RelitView(images, scores, res)
 
 
 def build_eval_parser():
@@ -106,7 +183,6 @@ def evaluation(args, device, group=None) -> dict:
     fovx = contents["camera_angle_x"]
     frames = contents["frames"]
     bg_val = args.background_color
-    bg = torch.full((3,), bg_val, device=device)
     use_lpips = lpips.available()
     print(f"LPIPS: {lpips.metric_name() if use_lpips else 'no weights (NaN)'}")
 
@@ -146,53 +222,34 @@ def evaluation(args, device, group=None) -> dict:
             if cfg is None:
                 cfg = RasterConfig(height=H, width=W, sh_degree=3)
             view = cam.view_inputs(device)
-            with torch.no_grad():
-                res = render_neilf(view, model, cfg, bg, env, vis,
-                                   is_training=False, base_color_scale=scale,
-                                   sharded_shading=sharded_shading)
+            truth = None
+            if writer:
+                albedo = t(load_img_rgb(os.path.join(
+                    model_cfg.source_path, "test", f"{stem}_albedo.png")))
+                rough_gt = t(load_img_rgb(os.path.join(
+                    model_cfg.source_path, "test", f"{stem}_rough.png")))
+                truth = GroundTruth(gt, mask, albedo[..., :3].permute(2, 0, 1),
+                                    rough_gt[..., :3].permute(2, 0, 1))
+            rv = relight_view(view, model, cfg, env, vis, truth,
+                              base_color_scale=scale, background=bg_val,
+                              sharded_shading=sharded_shading)
             if not writer:
                 continue
-
-            pbr = res["pbr"] * mask + (1 - mask) * bg_val
-            pbr_env = res["pbr"] * mask + (1 - mask) * res["env_only"]
-            base = res["base_color"] * mask + (1 - mask) * bg_val
-            rough = res["roughness"] * mask + (1 - mask) * bg_val
-            gt_img = gt * mask + bg_val * (1 - mask)
-            albedo = t(load_img_rgb(os.path.join(
-                model_cfg.source_path, "test", f"{stem}_albedo.png")))
-            gt_albedo = (albedo[..., :3].permute(2, 0, 1) * mask
-                         + bg_val * (1 - mask))
-            rough_gt = t(load_img_rgb(os.path.join(
-                model_cfg.source_path, "test", f"{stem}_rough.png")))
-            gt_rough = (rough_gt[..., :3].permute(2, 0, 1) * mask
-                        + bg_val * (1 - mask))
-
-            acc["psnr_pbr"].append(float(psnr_fn(pbr[None],
-                                                 gt_img[None]).mean()))
-            acc["ssim_pbr"].append(float(losses.ssim(pbr, gt_img)))
-            acc["psnr_albedo"].append(float(psnr_fn(base[None],
-                                                    gt_albedo[None]).mean()))
-            acc["ssim_albedo"].append(float(losses.ssim(base, gt_albedo)))
-            acc["mse_roughness"].append(float(
-                ((rough.expand(3, -1, -1) - gt_rough) ** 2).mean()))
-            if use_lpips:
-                acc["lpips_pbr"].append(float(lpips.lpips(pbr, gt_img)))
-                acc["lpips_albedo"].append(float(lpips.lpips(base,
-                                                             gt_albedo)))
-
-            for name, img in [("pbr", pbr), ("pbr_env", pbr_env),
-                              ("base_color", base), ("roughness", rough)]:
-                x = hwc(img)
+            for k, v in rv.scores.items():
+                if use_lpips or not k.startswith("lpips"):
+                    acc[k].append(v)
+            for name in ("pbr", "pbr_env", "base_color", "roughness"):
+                x = hwc(rv.images[name])
                 if x.shape[-1] == 1:
                     x = np.repeat(x, 3, -1)
                 save_image_u8(os.path.join(task_dir, name, f"{idx}.png"), x)
-            for name, img in [("gt", gt_img), ("gt_albedo", gt_albedo),
-                              ("gt_roughness", gt_rough)]:
+            for name in ("gt", "gt_albedo", "gt_roughness"):
                 save_image_u8(os.path.join(task_dir, name, f"{idx}.png"),
-                              hwc(img))
+                              hwc(rv.images[name]))
 
             if idx == 0:
-                ratio = gt_albedo / torch.clamp(base, 1e-6, 1)
+                ratio = rv.images["gt_albedo"] / torch.clamp(
+                    rv.images["base_color"], 1e-6, 1)
                 m = mask[0] > 0
                 print("Albedo scale:",
                       np.median(ratio[:, m].cpu().numpy(), axis=1))

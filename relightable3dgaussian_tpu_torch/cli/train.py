@@ -458,71 +458,57 @@ def _quarantine_checkpoints(model_path: str, best_iter: int) -> None:
 def _make_batcher(views, group):
     """The JAX CLI's `_make_batcher` (cli/train.py:487-499): a function
     popping one view a rank from a numpy permutation of the views (seed 0,
-    popped from its end, renewed when empty); this rank's is the
-    rank-th."""
-    rng = np.random.default_rng(0)
-    stack: list[int] = []
+    popped from its end, renewed when empty; `stage1.view_batches`); this
+    rank's is the rank-th."""
     size, rank = (1, 0) if group is None else (group.size, group.rank)
+    batches = stage1.view_batches(len(views), size, 0)
+    return lambda: views[next(batches)[rank]]
 
-    def next_view():
-        batch = []
-        for _ in range(size):
-            if not stack:
-                stack.extend(rng.permutation(len(views)))
-            batch.append(stack.pop())
-        return views[batch[rank]]
 
-    return next_view
+def collapse_guard(callback, n_points: int, opt, min_points: int = 32):
+    """`callback` behind the collapse guard: after each densify (the
+    step's metrics hold "densify"), ModelCollapseError where the active
+    points fall below `min_points`, or, after the first opacity reset,
+    below 45% of the count before the densify or 30% of their peak (a
+    healthy run never bleeds points in steady state). `min_points` 0 turns
+    the guard off."""
+    n_prev = peak = n_points
+
+    def guarded(iteration, metrics):
+        nonlocal n_prev, peak
+        if "densify" in metrics and min_points:
+            n_after = metrics["densify"].n_active
+            peak = max(peak, n_after)
+            steady = iteration > opt.opacity_reset_interval
+            if (n_after < min_points
+                    or (steady and n_after < 0.45 * n_prev)
+                    or (steady and n_after < 0.3 * peak)):
+                raise ModelCollapseError(
+                    f"active points {n_prev} -> {n_after} at iteration "
+                    f"{iteration} (peak {peak}, floor {min_points})")
+            n_prev = n_after
+        callback(iteration, metrics)
+
+    return guarded
 
 
 def _run_stage1(state, views, cfg, opt, spatial_lr_scale, extent, first_iter,
                 callback, generator, timer, collapse_min_points=32,
                 group=None) -> None:
     """The JAX CLI's stage-1 loop (cli/train.py:504-632) from first_iter:
-    cameras from a numpy permutation (seed 0), one a rank, densify and
-    opacity reset on its schedule, and the collapse guard after each
-    densify."""
+    `stage1.run_training_schedule` (cameras from a numpy permutation, seed
+    0, one a rank; densify and opacity reset on its schedule), the
+    collapse guard after each densify."""
     model, optimizer = state["model"], state["optimizer"]
-    next_view = _make_batcher(views, group)
     if group is not None:
         print(f"Data-parallel training over {group.size} ranks "
               f"({group.size} cameras per step)")
-    n_prev = peak_pts = model.num_points
-    for iteration in range(first_iter + 1, opt.iterations + 1):
-        metrics = stage1.train_step(
-            model, optimizer, next_view(), iteration, cfg=cfg, opt=opt,
-            spatial_lr_scale=spatial_lr_scale, timer=timer, group=group)
-        if iteration < opt.densify_until_iter:
-            if (iteration > opt.densify_from_iter
-                    and iteration % opt.densification_interval == 0):
-                size_thresh = (20.0 if iteration > opt.opacity_reset_interval
-                               else float("inf"))
-                gn_thresh = (opt.densify_grad_normal_threshold
-                             if iteration > opt.normal_densify_from_iter
-                             else 99999.0)
-                dstats = stage1.densify_step(model, optimizer, generator,
-                                             gn_thresh, size_thresh, extent,
-                                             opt=opt)
-                metrics["densify"] = dstats
-                # A healthy run never bleeds points in steady state (after
-                # the first opacity reset).
-                n_after = dstats.n_active
-                peak_pts = max(peak_pts, n_after)
-                if collapse_min_points:
-                    steady = iteration > opt.opacity_reset_interval
-                    if (n_after < collapse_min_points
-                            or (steady and n_after < 0.45 * n_prev)
-                            or (steady and n_after < 0.3 * peak_pts)):
-                        raise ModelCollapseError(
-                            f"active points {n_prev} -> {n_after} at "
-                            f"iteration {iteration} (peak {peak_pts}, "
-                            f"floor {collapse_min_points})")
-                n_prev = n_after
-            if iteration % opt.opacity_reset_interval == 0 or (
-                    cfg.white_background
-                    and iteration == opt.densify_from_iter):
-                stage1.reset_opacity_step(model, optimizer)
-        callback(iteration, metrics)
+    stage1.run_training_schedule(
+        model, optimizer, views, cfg=cfg, opt=opt,
+        spatial_lr_scale=spatial_lr_scale, extent=extent, generator=generator,
+        callback=collapse_guard(callback, model.num_points, opt,
+                                collapse_min_points),
+        seed=0, timer=timer, group=group, first_iter=first_iter)
 
 
 def upsample_env(env: lights.DirectLightMap,

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 _VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
               512, 512, 512, "M", 512, 512, 512, "M"]
 _STAGE_ENDS = (1, 3, 6, 9, 12)  # conv indices after which features are tapped
@@ -93,6 +95,17 @@ def available() -> bool:
     return _load_weights() is not None
 
 
+def weights() -> dict[str, np.ndarray] | None:
+    """The backbone's and heads' weights LPIPS uses (numpy arrays by the
+    upstream names), or None without weights."""
+    return _load_weights()
+
+
+def reset() -> None:
+    """Forget the loaded weights: the next call reads LPIPS_WEIGHTS anew."""
+    _CACHE.clear()
+
+
 def is_random_backbone() -> bool:
     """True when the backbone is LPIPS_WEIGHTS=random's seeded one."""
     _load_weights()
@@ -122,8 +135,8 @@ def _lin_keys(w: dict) -> list[str]:
 
 
 def _device_weights(w: dict, device: torch.device):
-    """(the 13 convolutions' (weight, bias), the 5 lin weights) as tensors
-    on `device`, cached per device."""
+    """(the 13 convolutions' (weight, bias), the 5 lin weights, the input
+    z-score's (mean, std)) as tensors on `device`, cached per device."""
     key = ("t", id(w), str(device))
     if key not in _CACHE:
         names = sorted((k for k in w if "features" in k
@@ -136,7 +149,8 @@ def _device_weights(w: dict, device: torch.device):
         convs = [(t(w[k]), t(w[k.replace(".weight", ".bias")]))
                  for k in names]
         lins = [t(w[k]).reshape(1, -1, 1, 1) for k in _lin_keys(w)]
-        _CACHE[key] = (convs, lins)
+        shift = (t(_MEAN).reshape(1, 3, 1, 1), t(_STD).reshape(1, 3, 1, 1))
+        _CACHE[key] = (convs, lins, shift)
     return _CACHE[key]
 
 
@@ -156,24 +170,33 @@ def _vgg_features(x: torch.Tensor, convs) -> list[torch.Tensor]:
 
 
 @torch.no_grad()
-def lpips(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
-    """Perceptual distance between [3, H, W] (or [N, 3, H, W]) images in
-    [0, 1], on their device; NaN without weights."""
+def lpips_each(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """[N] perceptual distances of the pairs of [N, 3, H, W] images in
+    [0, 1], on their device, both sides through the backbone in one batch;
+    NaN without weights. The counter `lpips.forwards` counts the images
+    through the backbone (2N)."""
     w = _load_weights()
     if w is None:
-        return torch.tensor(float("nan"), device=img1.device)
-    if img1.dim() == 3:
-        img1, img2 = img1[None], img2[None]
-    convs, lins = _device_weights(w, img1.device)
-    mean = torch.tensor(_MEAN, device=img1.device)[None, :, None, None]
-    std = torch.tensor(_STD, device=img1.device)[None, :, None, None]
-    f1 = _vgg_features((img1.float() - mean) / std, convs)
-    f2 = _vgg_features((img2.float() - mean) / std, convs)
+        return torch.full((img1.shape[0],), float("nan"), device=img1.device)
+    convs, lins, (mean, std) = _device_weights(w, img1.device)
+    n = img1.shape[0]
+    feats = _vgg_features((torch.cat([img1, img2]).float() - mean) / std,
+                          convs)
+    trace.count("lpips.forwards", 2 * n)
     total = 0.0
-    for a, b, lin in zip(f1, f2, lins):
+    for f, lin in zip(feats, lins):
         # normalize_activation (lpipsPyTorch/modules/utils.py:6-8): the eps
         # is added to the norm, not inside the square root
-        a = a / (torch.sqrt((a ** 2).sum(1, keepdim=True)) + 1e-10)
-        b = b / (torch.sqrt((b ** 2).sum(1, keepdim=True)) + 1e-10)
+        f = f / (torch.sqrt((f ** 2).sum(1, keepdim=True)) + 1e-10)
+        a, b = f[:n], f[n:]
         total = total + ((a - b) ** 2 * lin).sum(1).mean((-1, -2))
-    return total.mean()
+    return total
+
+
+@torch.no_grad()
+def lpips(img1: torch.Tensor, img2: torch.Tensor) -> torch.Tensor:
+    """Perceptual distance between [3, H, W] (or [N, 3, H, W]) images in
+    [0, 1], on their device (the mean over N); NaN without weights."""
+    if img1.dim() == 3:
+        img1, img2 = img1[None], img2[None]
+    return lpips_each(img1, img2).mean()

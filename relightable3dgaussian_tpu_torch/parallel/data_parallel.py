@@ -27,8 +27,9 @@ communicator made lazily waits for a missing rank with no timeout. Group
 set-up and every collective have a timeout (COLLECTIVE_TIMEOUT_S unless the
 caller gives one; under NCCL a collective's wait blocks the host,
 TORCH_NCCL_BLOCKING_WAIT), and a rank that fails or ends makes `spawn`
-fail at once; a rank that stays alive but never reaches the first
-collective is bounded by `spawn`'s `timeout_s` alone under NCCL. Every operand of a collective lies on
+(or `PeerRanks`) fail at once; a rank that stays alive but never reaches
+the first collective is bounded by their `timeout_s` alone under NCCL.
+Every operand of a collective lies on
 the rank's own device, is contiguous and of a type NCCL reduces
 (`NCCL_DTYPES`; checked under NCCL). A group of one rank starts no process
 group and runs no collective, so one rank reduces to
@@ -38,6 +39,7 @@ ported: the weights come from the forward.
 """
 from __future__ import annotations
 
+import _thread
 import dataclasses
 import datetime
 import hashlib
@@ -45,6 +47,8 @@ import multiprocessing
 import os
 import queue as queue_lib
 import socket
+import sys
+import threading
 import time
 import traceback
 from typing import Any, Callable, Sequence
@@ -57,6 +61,7 @@ from ..models.render import ViewInputs
 from ..ops.config import RasterConfig
 from ..train import stage1, stage2
 from ..train.config import OptimizationConfig
+from ..utils import trace
 
 # Seconds a rank waits in group set-up or in one collective before it fails
 # (spawn's default, read when it is called).
@@ -225,6 +230,180 @@ def spawn(fn: Callable, devices: Sequence[torch.device | str], *args,
     return [done[r] for r in range(len(procs))]
 
 
+# Seconds the caller, as rank 0 of `PeerRanks`, has to leave its work once a
+# peer has failed or the deadline has passed, before its process ends.
+PEER_GRACE_S = 10.0
+
+
+class PeerRanks:
+    """Ranks 1..N-1 of a group over `devices` started beside the caller,
+    which joins it as rank 0 in its own process (so that what it measures
+    of its card, and its profiler, see rank 0's work):
+
+        peers = PeerRanks(fn, devices, *args, timeout_s=600)
+        with peers as group:
+            ...                   # rank 0's part (fn(group, *args) there)
+        peers.results             # the results of ranks 1..N-1, in order
+
+    Each peer runs fn(group, *args) as `spawn`'s ranks do (a new process
+    by the spawn method; fn, args and results pickled). A watchdog thread
+    follows the peers; where one fails or dies, or the deadline passes
+    (`timeout_s` from the start; None: none while the caller is inside
+    the block), it terminates them and interrupts the caller
+    (KeyboardInterrupt in the main thread, which leaving the block turns
+    into RuntimeError, or TimeoutError, with the failed rank's
+    traceback). A caller blocked where no interrupt reaches it (group
+    set-up, a collective's wait) is given PEER_GRACE_S more; then the
+    error is printed to standard error and the process ends with exit
+    code 1. Collectives time out after `collective_timeout_s` (None:
+    `timeout_s`, else COLLECTIVE_TIMEOUT_S). On leaving without an error,
+    the caller waits for every peer's result, within the deadline (None:
+    `collective_timeout_s` from then); the group is then destroyed, and
+    the caller's thread count is given back. The peers are daemonic: they
+    end with the caller's process."""
+
+    def __init__(self, fn: Callable, devices: Sequence[torch.device | str],
+                 *args, timeout_s: float | None,
+                 collective_timeout_s: float | None = None,
+                 grace_s: float = PEER_GRACE_S):
+        self.fn, self.args = fn, args
+        self.devices = [_device(d) for d in devices]
+        self.timeout_s, self.grace_s = timeout_s, grace_s
+        self.collective_timeout_s = (
+            collective_timeout_s if collective_timeout_s is not None
+            else timeout_s if timeout_s is not None else COLLECTIVE_TIMEOUT_S)
+        self.results: list = []
+        self._error: BaseException | None = None
+        self._lock = threading.Lock()
+        self._inside = self._ending = False
+        self._left = threading.Event()
+        self._stop = threading.Event()
+
+    def __enter__(self) -> Group:
+        ctx = multiprocessing.get_context("spawn")
+        self._queue = ctx.Queue()
+        init_method = f"tcp://127.0.0.1:{_free_port()}"
+        n = len(self.devices)
+        self._procs = {r: ctx.Process(
+            target=_rank_main, name=f"rank{r}", daemon=True, args=(
+                self.fn, self.devices, r, init_method,
+                self.collective_timeout_s, self._queue, self.args))
+            for r in range(1, n)}
+        self._done: dict[int, Any] = {}
+        self._deadline = (None if self.timeout_s is None
+                          else time.monotonic() + self.timeout_s)
+        # make_group gives a rank on the CPU its share of the threads:
+        # given back on leaving
+        self._threads = torch.get_num_threads()
+        for p in self._procs.values():
+            p.start()
+        self._inside = True
+        self._watchdog = threading.Thread(target=self._watch, daemon=True,
+                                          name="peer-ranks-watchdog")
+        self._watchdog.start()
+        try:
+            return make_group(self.devices, 0, init_method,
+                              self.collective_timeout_s)
+        except BaseException as e:
+            self.__exit__(type(e), e, e.__traceback__)
+            raise
+
+    def _fail(self, error: BaseException) -> None:
+        """Record the first error, end the peers and interrupt the caller
+        (where it is still inside the block)."""
+        with self._lock:
+            if self._error is not None:
+                return
+            self._error = error
+            self._terminate()
+            if self._inside:
+                _thread.interrupt_main()
+
+    def _terminate(self) -> None:
+        self._ending = True
+        for p in self._procs.values():
+            if p.is_alive():
+                p.terminate()
+
+    def _watch(self) -> None:
+        """Gather the peers' results and follow their exits until they are
+        all in or ended; `_fail` on a failure, or where the deadline passes
+        before the caller is done; after a failure, wait `grace_s` for the
+        caller to leave the block before ending the process."""
+        n = len(self._procs)
+        while self._error is None and not self._stop.is_set():
+            if self._ending or len(self._done) == n:
+                self._stop.wait(0.2)
+            else:
+                try:
+                    rank, ok, value = self._queue.get(timeout=0.2)
+                    if ok:
+                        self._done[rank] = value
+                    else:
+                        self._fail(RuntimeError(
+                            f"rank {rank} of {n + 1} failed:\n{value}"))
+                    continue
+                except queue_lib.Empty:
+                    pass
+                for r, p in self._procs.items():
+                    if self._ending:           # the caller ended them
+                        break
+                    if p.exitcode not in (None, 0) and r not in self._done:
+                        self._fail(RuntimeError(f"rank {r} of {n + 1} exited "
+                                                f"with code {p.exitcode}"))
+                        break
+            deadline = self._deadline
+            if self._error is None and deadline is not None and \
+                    time.monotonic() > deadline:
+                self._fail(TimeoutError(
+                    f"{n + 1} ranks of {self.fn.__name__} not done within "
+                    f"{self.timeout_s or self.collective_timeout_s} s"))
+        if self._error is not None and not self._left.wait(self.grace_s):
+            print(f"[parallel] rank 0 did not leave its work within "
+                  f"{self.grace_s} s of: {self._error}", file=sys.stderr,
+                  flush=True)
+            os._exit(1)
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        try:
+            with self._lock:
+                self._inside = False
+                if exc_type is not None and self._error is None:
+                    self._terminate()       # rank 0 failed: end the peers
+                if self._deadline is None:
+                    self._deadline = (time.monotonic()
+                                      + self.collective_timeout_s)
+            while self._error is None and not self._ending and \
+                    len(self._done) < len(self._procs):
+                time.sleep(0.05)
+            if self._error is None and not self._ending:
+                self.results = [self._done[r] for r in sorted(self._done)]
+        except KeyboardInterrupt:
+            if self._error is None:
+                raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            left = (self._deadline or 0.0) - time.monotonic()
+            for p in self._procs.values():    # the peers leave their groups
+                p.join(max(0.0, min(30.0, left)))
+            self._terminate()
+            for p in self._procs.values():
+                p.join(30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+            self._stop.set()
+            self._left.set()
+            self._watchdog.join(5)
+            self._queue.close()
+            torch.set_num_threads(self._threads)
+        if self._error is not None:
+            raise self._error from (exc if exc_type is not KeyboardInterrupt
+                                    else None)
+        return False
+
+
 # ---------------------------------------------------------------------------
 # collectives (none for a group of one rank)
 # ---------------------------------------------------------------------------
@@ -246,6 +425,8 @@ def all_reduce_(tensor: torch.Tensor, group: Group | None,
     """In place over the ranks of `group` ("sum" or "max")."""
     if group is not None and group.size > 1:
         _check_operand(tensor, group)
+        trace.count("dp.allreduce_bytes",
+                    tensor.numel() * tensor.element_size())
         dist.all_reduce(tensor, op={"sum": dist.ReduceOp.SUM,
                                     "max": dist.ReduceOp.MAX}[op])
     return tensor
@@ -313,10 +494,13 @@ def reduce_step(group: Group | None, grads: Sequence[torch.Tensor],
                 contribs: G.StatContribs) -> G.StatContribs:
     """The combination between a rank's backward and its optimizer step:
     the per-view stat contributions combined, then `grads` averaged in
-    place. Returns the combined contributions."""
-    contribs = combine_stat_contribs(contribs, group)
-    mean_(grads, group)
-    return contribs
+    place. Returns the combined contributions. Span `dp.reduce`: under
+    NCCL each collective's wait blocks the host, so the span holds the
+    wait for the slowest rank."""
+    with trace.span("dp.reduce"):
+        contribs = combine_stat_contribs(contribs, group)
+        mean_(grads, group)
+        return contribs
 
 
 # ---------------------------------------------------------------------------

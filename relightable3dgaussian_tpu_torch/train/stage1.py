@@ -9,13 +9,14 @@ others' between the backward and Adam. `densify_step` and
 `reset_opacity_step` resize or reset the model and re-key the optimizer.
 `run_training_schedule` is the host loop of the JAX package: the same
 numpy-permutation camera order from `seed` and the same densify and
-opacity-reset schedule. The JAX CLI's TPU-only parts (binning re-plans,
+opacity-reset schedule, on one rank or a view a rank of a group (it is
+`cli.train`'s stage-1 loop). The JAX CLI's TPU-only parts (binning re-plans,
 capacity growth, the overflow streak) have no counterpart: the port sizes
 its buffers per call and never drops a pair.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -164,36 +165,55 @@ def reset_opacity_step(model: G.GaussianModel,
     G.reset_opacity(model, optimizer)
 
 
+def view_batches(n_views: int, size: int, seed: int) -> Iterator[list[int]]:
+    """The views of each step, one a rank: `size` indices a step, popped
+    from the end of a numpy permutation of the `n_views` views from
+    `seed`, renewed when empty (the JAX package's camera order; one rank
+    draws one a step)."""
+    rng = np.random.default_rng(seed)
+    stack: list[int] = []
+    while True:
+        batch = []
+        for _ in range(size):
+            if not stack:
+                stack = list(rng.permutation(n_views))
+            batch.append(stack.pop())
+        yield batch
+
+
 def run_training_schedule(model: G.GaussianModel,
                           optimizer: torch.optim.Optimizer,
                           views: Sequence[ViewInputs], *, cfg: RasterConfig,
                           opt: OptimizationConfig, spatial_lr_scale: float,
                           extent: float, generator: torch.Generator,
                           callback: Callable[[int, dict], None] | None = None,
-                          seed: int = 0, timer: StepTimer | None = None
-                          ) -> None:
-    """Train `model` in place for steps 1 to `opt.iterations`.
+                          seed: int = 0, timer: StepTimer | None = None,
+                          group=None, first_iter: int = 0) -> None:
+    """Train `model` in place for steps `first_iter` + 1 to
+    `opt.iterations`.
 
-    Cameras are drawn as the JAX package draws them: a numpy permutation of
-    the views from `seed`, popped from its end, renewed when empty. Densify
-    every `densification_interval` steps after `densify_from_iter` and before
-    `densify_until_iter` (the world-size prune on after the first opacity
-    reset, the normal-gradient threshold after `normal_densify_from_iter`),
-    and reset opacities every `opacity_reset_interval` steps (and at
-    `densify_from_iter` on a white background). There is no SH warm-up: the
-    reference starts at the maximum degree. `generator` draws the split
-    noise; `callback(iteration, metrics)` sees each step's metrics, with
-    "densify" after a densify step.
+    Cameras are drawn as the JAX package draws them (`view_batches`): a
+    numpy permutation of the views from `seed`, popped from its end,
+    renewed when empty; with `group` (a `parallel.data_parallel.Group`,
+    every rank holding the same model) each step draws one view a rank and
+    this rank trains on the rank-th, its step combined with the others'
+    (`train_step`). Densify every `densification_interval` steps after
+    `densify_from_iter` and before `densify_until_iter` (the world-size
+    prune on after the first opacity reset, the normal-gradient threshold
+    after `normal_densify_from_iter`), and reset opacities every
+    `opacity_reset_interval` steps (and at `densify_from_iter` on a white
+    background). There is no SH warm-up: the reference starts at the
+    maximum degree. `generator` draws the split noise (the same seed on
+    every rank); `callback(iteration, metrics)` sees each step's metrics,
+    with "densify" after a densify step.
     """
-    rng = np.random.default_rng(seed)
-    stack: list[int] = []
-    for iteration in range(1, opt.iterations + 1):
-        if not stack:
-            stack = list(rng.permutation(len(views)))
-        view = views[stack.pop()]
+    size, rank = (1, 0) if group is None else (group.size, group.rank)
+    batches = view_batches(len(views), size, seed)
+    for iteration in range(first_iter + 1, opt.iterations + 1):
+        view = views[next(batches)[rank]]
         metrics = train_step(model, optimizer, view, iteration, cfg=cfg,
                              opt=opt, spatial_lr_scale=spatial_lr_scale,
-                             timer=timer)
+                             timer=timer, group=group)
         if iteration < opt.densify_until_iter:
             if (iteration > opt.densify_from_iter
                     and iteration % opt.densification_interval == 0):

@@ -23,14 +23,20 @@ The program's spans: `train.step` (a unit), `train.forward`,
 `train.backward` and `train.optimizer` (their device events are
 `StepTimer`'s when the step has one), `train.loss`, `render.view` (a unit
 where no step is open), `render.projection`, `render.binning` and
-`render.shading` (with device events). `unit_mean_ms`,
+`render.shading` (with device events), `eval.view` (a unit: one scored
+view of `cli/eval_relighting_syn4.py::relight_view`), `eval.score` (with
+device events: its PSNR, SSIM and LPIPS) and `dp.reduce` (the
+data-parallel combination between a rank's backward and its optimizer
+step, `parallel/data_parallel.py::reduce_step`). `unit_mean_ms`,
 `unit_mean_device_ms` and `unit_mean_count` are what the benchmark's
 per-layer metrics read.
 
 Counters (`count(name)`) are plain integers under dotted names, counted
 where the work happens whether tracing is on or off: the kernels' launches
 (`k1.launches`, `k2.launches`, `k5.launches`, `k3.launches`,
-`k4.launches`, `k4.bwd_launches`, `k6.launches`) and `host.syncs`, each
+`k4.launches`, `k4.bwd_launches`, `k6.launches`), `lpips.forwards` (the
+images through LPIPS's backbone), `dp.allreduce_bytes` (the bytes each
+data-parallel all_reduce reduces on this rank) and `host.syncs`, each
 point where the hot path waits for the device (a value read back, a
 masked selection's size, a copy from pageable host memory, which waits for
 the stream), counted where it is on any device.
