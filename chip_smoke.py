@@ -13,13 +13,14 @@ no result line is printed):
               and power limit;
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
-              (csrc/shading.cu), K5 (csrc/composite_bwd_two_walk.cu) and K6
-              (csrc/shading_eval.cu),
+              (csrc/shading.cu), K5 (csrc/composite_bwd_two_walk.cu), K6
+              (csrc/shading_eval.cu), the env lookup (csrc/env_lookup.cu)
               and the check kernel csrc/composite_decisions.cu (K1's blend
               decisions at given pixels, for k2-split), with nvcc, all at
               once, and prints ptxas's registers, spills
               and shared memory for csrc/ray_trace.cu, csrc/shading.cu,
-              csrc/composite_bwd_two_walk.cu and csrc/shading_eval.cu and
+              csrc/composite_bwd_two_walk.cu, csrc/shading_eval.cu and
+              csrc/env_lookup.cu and
               for each source given with --ptxas-also (another version of
               one, to compare);
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
@@ -75,8 +76,9 @@ no result line is printed):
               rays, a 16x32 env map), then train.stage2.
               run_training_schedule for 200 steps from the stage-1 count
               with STAGE2_NERF_SYNTHETIC and no densify, on the train
-              phase's views; K1, K2, K4-fwd and K4-bwd must launch once per
-              step, K3 at least once, the loss stay finite and the PBR
+              phase's views; K1, K2, K4-fwd, K4-bwd and the env lookup's
+              forward and backward must launch once per step, K3 at least
+              once, the loss stay finite and the PBR
               PSNR rise;
      k12-stage2  K1 and K2 at the stage-2 train width (A = 8) and K1 at the
               eval width (A = 32), each against its plain version and timed
@@ -105,13 +107,23 @@ no result line is printed):
               K6_TOL of its scale or K6_SLACK times the plain float32
               version's error; K6 timed beside the plain version in float32
               and its bound (bytes and operations);
+     env-lookup  the env lookup's kernels (csrc/env_lookup.cu) at
+              s2-train's shape (300,000 points x 64 Fibonacci samples, the
+              16 x 32 map: the backward's private branch) and at
+              s2-relight's background (800 x 800 pixel rays, a 512 x 1024
+              map, turned: the global branch), forward and gradient against
+              the plain path (grid_sample) in float64 (ENV_FWD_TOL,
+              ENV_BWD_TOL or ENV_SLACK times the plain float32 path's
+              error), the private gradient bitwise the same in two runs, a
+              launch a call; each kernel timed beside its bound and
+              grid_sample's time (library_ms, the yardstick only);
  15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
               the 8 views at 800x800 (32 splatted channels), K1 and K6 once
               a view;
  16. stage2-profile  two windows of further stage-2 steps: without a
               profiler, and under the device-only profiler (kernel ms per
-              step, the largest kernels, and K4-fwd's and K4-bwd's device
-              ms a step whatever their rank);
+              step, the largest kernels, and K4-fwd's, K4-bwd's and the env
+              lookup's device ms a step whatever their rank);
  17. cli      the README's commands through the CLIs' main functions: a
               NeRF-synthetic-layout scene (24 train and 8 test views at
               800x800, RGBA PNGs written by the port's own PNG writer from
@@ -303,19 +315,20 @@ from relightable3dgaussian_tpu_torch.models.gaussians import (
     create_from_pcd, densification_contribs, prune_only)
 from relightable3dgaussian_tpu_torch.losses import lpips
 from relightable3dgaussian_tpu_torch.models import render_neilf as neilf
-from relightable3dgaussian_tpu_torch.models.lights import (EnvLight,
-                                                           load_env_light,
-                                                           query_light)
+from relightable3dgaussian_tpu_torch.models.lights import (
+    EnvLight, equirect_query, equirect_query_plain, load_env_light,
+    query_light)
 from relightable3dgaussian_tpu_torch.models.render import (ViewInputs, render,
                                                            view_features)
 from relightable3dgaussian_tpu_torch.models.render_neilf import (
     EVAL_FEATURE_DIM, render_neilf, update_visibility, visibility_rays)
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
-                                                 ray_trace, ray_trace_cuda,
-                                                 shading_cuda,
+                                                 env_lookup_cuda, ray_trace,
+                                                 ray_trace_cuda, shading_cuda,
                                                  shading_eval_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import (CameraParams,
-                                                        make_camera_params)
+                                                        make_camera_params,
+                                                        pixel_directions)
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
 from relightable3dgaussian_tpu_torch.ops.composite import (
     BLEND_AT_CAP, composite_backward, replay_backward, split_pixels,
@@ -473,6 +486,24 @@ K6_TOL, K6_SLACK = 4e-6, 2.0
 K6_SOURCE = "relightable3dgaussian_tpu_torch/csrc/shading_eval.cu"
 K6_REPLACES = ("none: the JAX package leaves the eval shading to XLA "
                "(models/render_neilf.py::_shade_chunk_reduced)")
+# The env lookup (csrc/env_lookup.cu): {case: (rays, env map height, turned)}
+# at s2-train's shape (300,000 points x 64 Fibonacci samples on the 16 x 32
+# map) and at s2-relight's background (800 x 800 pixel rays, a 512 x 1024
+# map, turned K6_TURN about +z). FP32 operations a sample, counted from the
+# source: the angles and grid coordinates 14 (acosf and atan2f one each),
+# the taps and weights 10, and 24 for the blend (forward) or the products
+# and sums into the map (backward): 48; the turn 15 more.
+ENV_CASES = {"s2-train": (300_000 * 64, 16, False),
+             "s2-relight-bg": (800 * 800, 512, True)}
+ENV_OPS, ENV_TURN_OPS = 48, 15
+# The kernels against the plain path (grid_sample) in float64, as
+# tests/test_torch_env_lookup.py holds them: within ENV_FWD_TOL of the
+# map's largest entry (forward) or ENV_BWD_TOL of the float64 gradient's
+# (backward), or within ENV_SLACK times the plain float32 path's own error.
+ENV_FWD_TOL, ENV_BWD_TOL, ENV_SLACK = 1e-6, 1e-5, 2.0
+ENV_SOURCE = "relightable3dgaussian_tpu_torch/csrc/env_lookup.cu"
+ENV_REPLACES = ("none: the JAX package leaves the env lookup to XLA "
+                "(models/lights.py); the port had F.grid_sample")
 S_MID = 16                                   # samples per point, mid phases
 SAMPLE_NUM = PipelineConfig().sample_num     # 64
 ENV_RES = ModelConfig().env_resolution       # 16: a 16x32 env map
@@ -1615,6 +1646,117 @@ def k6_eval_phase(device, reps: int = 20, plain_reps: int = 3) -> dict:
             "library_ms": None}
 
 
+def env_lookup_case(case: str, device) -> tuple:
+    """(dirs [N, 3], map [H, 2H, 3], transform or None, upstream gradient
+    [N, 3]) of ENV_CASES[case], seeded: s2-train's Fibonacci samples about
+    random normals, or the pixel rays of orbit view 0; a map of random
+    texels in [0.5, 1.5)."""
+    n, H, turned = ENV_CASES[case]
+    g = torch.Generator(device=device).manual_seed(SEED + 21)
+    if case == "s2-train":
+        normals = torch.randn((n // SAMPLE_NUM, 3), generator=g, device=device)
+        dirs = fibonacci_sphere_sampling(
+            normals / normals.norm(dim=-1, keepdim=True), SAMPLE_NUM)[0]
+    else:
+        dirs = pixel_directions(orbit_view(0, VIEWS, SIZE_MAIN, device).cam,
+                                SIZE_MAIN, SIZE_MAIN)
+    dirs = dirs.reshape(-1, 3).contiguous()
+    env = 0.5 + torch.rand((H, 2 * H, 3), generator=g, device=device)
+    tf = (torch.tensor(rotation((0, 0, 1), K6_TURN), dtype=torch.float32,
+                       device=device) if turned else None)
+    return dirs, env, tf, torch.randn((n, 3), generator=g, device=device)
+
+
+def env_lookup_grads(env, dirs, tf, g, plain: bool) -> tuple:
+    """(radiance, the map's gradient for upstream g) through the kernels or
+    the plain path."""
+    e = env.detach().clone().requires_grad_()
+    out = (equirect_query_plain if plain else equirect_query)(e, dirs, tf)
+    (out * g).sum().backward()
+    return out.detach(), e.grad
+
+
+def env_lookup_phase(device, reps: int = 20, plain_reps: int = 5) -> dict:
+    """The env lookup's kernels at ENV_CASES' shapes: forward and gradient
+    against the plain path (grid_sample) in float64 (ENV_FWD_TOL,
+    ENV_BWD_TOL or ENV_SLACK times the plain float32 path's error), the
+    private branch's gradient bitwise the same in two runs, a launch a call
+    (and the private branch's counter), then each kernel timed (the
+    wrapper's call) beside its bound and grid_sample's time (library_ms,
+    the yardstick only)."""
+    report = {}
+    for case, (n, H, turned) in ENV_CASES.items():
+        dirs, env, tf, g = env_lookup_case(case, device)
+        W = 2 * H
+        private = env_lookup_cuda.private_branch(H, W)
+        counters = ("env.lookup_launches", "env.lookup_bwd_launches",
+                    "env.bwd_private")
+        before = [trace.counter(c) for c in counters]
+        out, grad = env_lookup_grads(env, dirs, tf, g, plain=False)
+        grad2 = env_lookup_grads(env, dirs, tf, g, plain=False)[1]
+        torch.cuda.synchronize()
+        launched = [trace.counter(c) - b for c, b in zip(counters, before)]
+        if launched != [2, 2, 2 * private]:
+            raise AssertionError(f"env-lookup {case}: launches {launched} "
+                                 f"for two calls, private {private}")
+        bitwise = torch.equal(grad, grad2)
+        if private and not bitwise:
+            raise AssertionError(f"env-lookup {case}: the private branch's "
+                                 "gradient differs between two runs")
+        out64, grad64 = env_lookup_grads(
+            env.double(), dirs.double(), None if tf is None else tf.double(),
+            g.double(), plain=True)
+        out32, grad32 = env_lookup_grads(env, dirs, tf, g, plain=True)
+        errs = {}
+        for name, got, plain, exact, tol, scale in (
+                ("fwd", out, out32, out64, ENV_FWD_TOL, float(env.max())),
+                ("bwd", grad, grad32, grad64, ENV_BWD_TOL,
+                 float(grad64.abs().max()))):
+            e_k = float((got.double() - exact).abs().max())
+            e_p = float((plain.double() - exact).abs().max())
+            errs[name] = (f"{e_k:.3e}", f"{e_p:.3e}", f"{scale:.3e}")
+            if not e_k <= max(tol * scale, ENV_SLACK * e_p):
+                raise AssertionError(
+                    f"env-lookup {case} {name}: the kernel {e_k} from "
+                    f"float64, the plain float32 path {e_p}, scale {scale}")
+        del out64, grad64, out32, grad32
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: env_lookup_cuda.env_lookup(env, dirs, tf),
+                             reps)
+            lib_fwd_ms = cuda_ms(lambda: equirect_query_plain(env, dirs, tf),
+                                 plain_reps)
+        bwd_ms = cuda_ms(lambda: env_lookup_cuda.lookup_bwd(dirs, tf, g, H, W),
+                         reps)
+        e = env.clone().requires_grad_()
+        lib_out = equirect_query_plain(e, dirs, tf)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, e, g, retain_graph=True), plain_reps)
+        del lib_out
+        ops = n * (ENV_OPS + ENV_TURN_OPS * turned)
+        fwd_b = bound(nbytes(dirs, out, env, tf), ops)
+        bwd_b = bound(nbytes(dirs, g, grad, tf), ops)
+        report[case] = {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                        "fwd_bound_ms": fwd_b["bound_ms"],
+                        "bwd_bound_ms": bwd_b["bound_ms"],
+                        "fwd_library_ms": lib_fwd_ms,
+                        "bwd_library_ms": lib_bwd_ms}
+        say("env-lookup", case=case, samples=n, env=f"{H}x{W}",
+            turned=turned, branch="private" if private else "global",
+            bwd_blocks=env_lookup_cuda.backward_blocks(
+                n, H, W, torch.cuda.get_device_properties(
+                    device).multi_processor_count),
+            card=f"'{CARD}'", err_kernel_plain_vs_float64_scale=errs,
+            bwd_bitwise_in_two_runs=bitwise,
+            launches_fwd_bwd_private=launched,
+            fwd_ms=f"{fwd_ms:.4f}", fwd_bound_ms=f"{fwd_b['bound_ms']:.4f}",
+            fwd_library_ms=f"{lib_fwd_ms:.4f}",
+            bwd_ms=f"{bwd_ms:.4f}", bwd_bound_ms=f"{bwd_b['bound_ms']:.4f}",
+            bwd_library_ms=f"{lib_bwd_ms:.4f}",
+            bound_by=(fwd_b["bound_by"], bwd_b["bound_by"]),
+            peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return report
+
+
 def k4_branch_deltas(n: int, deltas=K4_BRANCH_DELTAS) -> np.ndarray:
     """Point i's delta: the (i // 2)-th of `deltas` in turn, + on even i and
     - on odd."""
@@ -1940,7 +2082,8 @@ def k4_branches_phase(device) -> None:
 LAUNCH_COUNTERS = {"K1": "k1.launches", "K2": "k2.launches",
                    "K3": "k3.launches", "K4-fwd": "k4.launches",
                    "K4-bwd": "k4.bwd_launches", "K5": "k5.launches",
-                   "K6": "k6.launches"}
+                   "K6": "k6.launches", "env-fwd": "env.lookup_launches",
+                   "env-bwd": "env.lookup_bwd_launches"}
 
 
 def reset_launches() -> None:
@@ -1994,7 +2137,8 @@ def stage2_phase(trained: dict, device) -> dict:
     if len(steps) != STAGE2_STEPS or not np.isfinite(loss).all():
         raise AssertionError(f"stage2: {len(steps)} steps, non-finite loss at "
                              f"{np.flatnonzero(~np.isfinite(loss))[:5]}")
-    per_step = {k: launches[k] for k in ("K1", "K2", "K4-fwd", "K4-bwd")}
+    per_step = {k: launches[k]
+                for k in ("K1", "K2", "K4-fwd", "K4-bwd", "env-fwd", "env-bwd")}
     if set(per_step.values()) != {STAGE2_STEPS} or launches["K3"] < 1:
         raise AssertionError(f"stage2: {STAGE2_STEPS} steps launched "
                              f"{launches}")
@@ -4446,19 +4590,20 @@ def print_interconnect() -> None:
 
 
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
-    """Builds K1 to K6 and the check kernel composite_decisions from the
-    checkout's sources, one nvcc each, all at once, and prints ptxas's
-    report of K3's, K4's, K5's and K6's sources and of each source in
-    `ptxas_also`, compiled beside them."""
+    """Builds K1 to K6, the env lookup and the check kernel
+    composite_decisions from the checkout's sources, one nvcc each, all at
+    once, and prints ptxas's report of K3's, K4's, K5's, K6's and the env
+    lookup's sources and of each source in `ptxas_also`, compiled beside
+    them."""
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
                composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL,
-               shading_eval_cuda.KERNEL)
+               shading_eval_cuda.KERNEL, env_lookup_cuda.KERNEL)
     ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
         ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
-        composite_cuda.TWO_WALK_KERNEL, shading_eval_cuda.KERNEL)),
-        *ptxas_also)
+        composite_cuda.TWO_WALK_KERNEL, shading_eval_cuda.KERNEL,
+        env_lookup_cuda.KERNEL)), *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
         reports = pool.map(_build.ptxas_report, ptxas_sources)
         list(pool.map(_build.load_library, kernels))
@@ -4489,7 +4634,7 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     # The phases before cli check K2 on the default backward.
     os.environ.pop("R3DG_BWD_TWO_WALK", None)
 
-    # 2. build K1 to K6 from the checkout's sources
+    # 2. build K1 to K6 and the env lookup from the checkout's sources
     build_phase(ptxas_also)
 
     with torch.no_grad():
@@ -4615,6 +4760,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
             model, s2["env"], s2["vis"], s2["views"][0]), "k4-main", SEED + 6)
         # K6 at s2-relight's shapes
         main_k6 = k6_eval_phase(device)
+    # the env lookup at s2-train's and s2-relight's shapes
+    main_env = env_lookup_phase(device)
     # 15. the stage-2 eval render
     eval_launches = stage2_eval_phase(s2, device)
     # 16. where a stage-2 step's time goes
@@ -4631,7 +4778,9 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
     profile_phase("stage2-profile", stage2_step, model.num_points, False,
                   named={"K4-fwd": "shade_fwd_kernel",
                          "K4-bwd": "shade_bwd_kernel",
-                         "K4-bwd-fix": "shade_bwd_fix_kernel"})
+                         "K4-bwd-fix": "shade_bwd_fix_kernel",
+                         "env-fwd": "env_lookup_fwd_kernel",
+                         "env-bwd": "env_bilinear_sampler_bw"})
 
     # 17. the README's commands through the CLIs
     cli = cli_phase(scene_model, device)
@@ -4745,7 +4894,10 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "relight_eval_launches": relight_eval["launches"]["K6"],
          "gui_neilf_launches": gui_launches["neilf"]["K6"],
          "syn4_view_ms": syn4_view["ms"],
-         "syn4_view_bound_ms": syn4_view["bound_ms"]}]}), flush=True)
+         "syn4_view_bound_ms": syn4_view["bound_ms"]},
+        {"name": "env lookup", "route": "cuda", "source": ENV_SOURCE,
+         "replaces": ENV_REPLACES, "launches_fwd": s2_launches["env-fwd"],
+         "launches_bwd": s2_launches["env-bwd"], **main_env}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

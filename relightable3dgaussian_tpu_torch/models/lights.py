@@ -2,12 +2,16 @@
 
 `DirectLightMap` is the learnable equirect map of stage 2: a raw [H, 2H, 3]
 `nn.Parameter` behind a softplus. `EnvLight` is a fixed HDR map with an
-optional 3×3 direction transform. Both are queried by `equirect_query`,
-whose bilinear lookup is `F.grid_sample` with align_corners=True and zero
-padding, which the JAX package replicates. Its one-hot-matmul branch for
-small maps is a TPU workaround and is not carried over. `load_env_light`
-reads a relighting map: EXR (ZIP, RLE or none) and Radiance HDR as linear,
-any other file as an 8-bit sRGB PNG, by the port's own readers.
+optional 3×3 direction transform. Both are queried by `equirect_query`:
+on CPU tensors its plain version `equirect_query_plain`, whose bilinear
+lookup is `F.grid_sample` with align_corners=True and zero padding, which
+the JAX package replicates (its one-hot-matmul branch for small maps is a
+TPU workaround and is not carried over); on CUDA tensors the hand-written
+pair of `ops/env_lookup_cuda.py` (`csrc/env_lookup.cu`), the same formula,
+whose backward gives the map its gradient (bitwise the same from run to
+run up to 2048 texels). `load_env_light` reads a relighting map: EXR (ZIP,
+RLE or none) and Radiance HDR as linear, any other file as an 8-bit sRGB
+PNG, by the port's own readers.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import env_lookup_cuda
 from ..utils.graphics import srgb_to_rgb
 
 
@@ -32,11 +37,13 @@ def grid_sample_bilinear(img: torch.Tensor, gx: torch.Tensor,
     return out[0, :, 0].T.reshape(*gx.shape, img.shape[-1])
 
 
-def equirect_query(envmap: torch.Tensor, dirs: torch.Tensor,
-                   transform: torch.Tensor | None = None) -> torch.Tensor:
+def equirect_query_plain(envmap: torch.Tensor, dirs: torch.Tensor,
+                         transform: torch.Tensor | None = None
+                         ) -> torch.Tensor:
     """Radiance of the equirect map [H, W, 3] for unit directions [..., 3]:
     φ = arccos(clip z) − 1e-6 down the rows, θ = atan2(y, x) across the
-    columns (gy = 2φ/π − 1, gx = −θ/π)."""
+    columns (gy = 2φ/π − 1, gx = −θ/π), through `grid_sample_bilinear`.
+    The plain version, on any device and dtype."""
     shape = dirs.shape
     d = dirs.reshape(-1, 3)
     if transform is not None:
@@ -46,6 +53,24 @@ def equirect_query(envmap: torch.Tensor, dirs: torch.Tensor,
     gy = (phi / math.pi) * 2.0 - 1.0
     gx = -theta / math.pi
     return grid_sample_bilinear(envmap, gx, gy).reshape(shape)
+
+
+def equirect_query(envmap: torch.Tensor, dirs: torch.Tensor,
+                   transform: torch.Tensor | None = None) -> torch.Tensor:
+    """`equirect_query_plain`'s radiance: the plain version on CPU tensors;
+    on CUDA tensors the kernel pair (`ops/env_lookup_cuda.py::env_lookup`:
+    float32, a gradient for the map alone), or an exception."""
+    tensors = (envmap, dirs) + (() if transform is None else (transform,))
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return equirect_query_plain(envmap, dirs, transform)
+    if devices != {"cuda"}:
+        raise ValueError(f"equirect_query: inputs on {sorted(devices)}; "
+                         "expected all on CPU or all on CUDA")
+    out = env_lookup_cuda.env_lookup(envmap.contiguous(),
+                                     dirs.reshape(-1, 3).contiguous(),
+                                     transform)
+    return out.reshape(dirs.shape)
 
 
 def bilinear_resize_2x(img: torch.Tensor) -> torch.Tensor:
@@ -122,11 +147,16 @@ def _load_image_linear(path: str) -> np.ndarray:
     return arr[:, :, :3].astype(np.float32)
 
 
-def query_light(light, dirs: torch.Tensor) -> torch.Tensor:
-    """Radiance of either light model for directions [..., 3]."""
-    if isinstance(light, (DirectLightMap, EnvLight)):
-        return light.direct_light(dirs)
-    raise TypeError(f"unknown light type {type(light)}")
+def query_light(light, dirs: torch.Tensor, plain: bool = False
+                ) -> torch.Tensor:
+    """Radiance of either light model for directions [..., 3]; `plain`
+    takes `equirect_query_plain` on any device (a yardstick's lookup)."""
+    if not isinstance(light, (DirectLightMap, EnvLight)):
+        raise TypeError(f"unknown light type {type(light)}")
+    if plain:
+        transform = light.transform if isinstance(light, EnvLight) else None
+        return equirect_query_plain(light_image(light), dirs, transform)
+    return light.direct_light(dirs)
 
 
 def light_image(light) -> torch.Tensor:

@@ -45,10 +45,11 @@ def rendering_equation_eval_reference(base_color, roughness, normals,
                                       visibility, incident_dirs,
                                       incident_areas,
                                       chunk_samples: int | None = None):
-    """The plain version: `rendering_equation` under `query_light(env, .)`
-    over chunks of at most `chunk_samples` samples (a bound on its
-    [chunk, S, 3] intermediates; None: one chunk), each per-sample light
-    kept only as its mean over the samples."""
+    """The plain version: `rendering_equation` under the plain lookup
+    `query_light(env, ., plain=True)` (grid_sample, on any device) over
+    chunks of at most `chunk_samples` samples (a bound on its [chunk, S, 3]
+    intermediates; None: one chunk), each per-sample light kept only as its
+    mean over the samples."""
     P, S = visibility.shape[:2]
     chunk = P if chunk_samples is None else max(1, chunk_samples // S)
     parts = []
@@ -56,8 +57,8 @@ def rendering_equation_eval_reference(base_color, roughness, normals,
         sl = slice(i, i + chunk)
         pbr, ex = rendering_equation(
             base_color[sl], roughness[sl], normals[sl], viewdirs[sl],
-            incidents_shs[sl], lambda d: query_light(env, d), visibility[sl],
-            incident_dirs[sl], incident_areas[sl])
+            incidents_shs[sl], lambda d: query_light(env, d, plain=True),
+            visibility[sl], incident_dirs[sl], incident_areas[sl])
         parts.append((pbr, {k: (v if v.dim() == 2 else v.mean(-2))
                             for k, v in ex.items()}))
     extras = {k: torch.cat([ex[k] for _, ex in parts]) for k in parts[0][1]}

@@ -12,7 +12,8 @@ import torch
 from relightable3dgaussian_tpu_torch.models import render_neilf
 from relightable3dgaussian_tpu_torch.models.gaussians import (PBR_FIELDS,
                                                               GaussianModel)
-from relightable3dgaussian_tpu_torch.models.lights import DirectLightMap
+from relightable3dgaussian_tpu_torch.models.lights import (DirectLightMap,
+                                                           query_light)
 from relightable3dgaussian_tpu_torch.models.render import render, view_features
 from relightable3dgaussian_tpu_torch.models.render import ViewInputs
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
@@ -943,7 +944,9 @@ def test_shade_function_gradient_matches_autograd(cuda):
         leaves = [t.detach().clone().requires_grad_() for t in
                   (xd[0], xd[1], xd[3], xd[4])]
         env = DirectLightMap.from_raw(raw.to(cuda, dtype))
-        gl = env.direct_light(xd[7])
+        # the kernel's path through the env lookup's kernels, the plain
+        # versions' through grid_sample (the kernels take float32 alone)
+        gl = query_light(env, xd[7], plain=launched == 0)
         before = (trace.counter("k4.launches"), trace.counter("k4.bwd_launches"))
         outs = fn(leaves[0], leaves[1], xd[2], leaves[2], leaves[3], gl, *xd[6:])
         sum((c.to(dtype) * o).sum() for c, o in zip(cot, outs)).backward()
