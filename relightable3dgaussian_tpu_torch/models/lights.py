@@ -2,20 +2,21 @@
 
 `DirectLightMap` is the learnable equirect map of stage 2: a raw [H, 2H, 3]
 `nn.Parameter` behind a softplus. `EnvLight` is a fixed HDR map with an
-optional 3×3 direction transform. Both are queried by `equirect_query`:
-on CPU tensors its plain version `equirect_query_plain`, whose bilinear
-lookup is `F.grid_sample` with align_corners=True and zero padding, which
-the JAX package replicates (its one-hot-matmul branch for small maps is a
-TPU workaround and is not carried over); on CUDA tensors the hand-written
-pair of `ops/env_lookup_cuda.py` (`csrc/env_lookup.cu`), the same formula,
-whose backward gives the map its gradient (bitwise the same from run to
-run up to 2048 texels). `load_env_light` reads a relighting map: EXR (ZIP,
-RLE or none) and Radiance HDR as linear, any other file as an 8-bit sRGB
-PNG, by the port's own readers.
+optional 3×3 direction transform. Both answer `get_env()` (the activated
+map) and `transform` (None for the learnable map). Both are queried by
+`equirect_query` (`ops/env_lookup_cuda.py`): on CPU tensors its plain
+version `equirect_query_plain`, whose bilinear lookup is `F.grid_sample`
+with align_corners=True and zero padding, which the JAX package replicates
+(its one-hot-matmul branch for small maps is a TPU workaround and is not
+carried over); on CUDA tensors the hand-written pair of
+`csrc/env_lookup.cu`, the same formula, whose backward gives the map its
+gradient (bitwise the same from run to run up to 2048 texels).
+`load_env_light` reads a relighting map: EXR (ZIP, RLE or none) and
+Radiance HDR as linear, any other file as an 8-bit sRGB PNG, by the port's
+own readers.
 """
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -23,54 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import env_lookup_cuda
+from ..ops.env_lookup_cuda import (equirect_query,  # noqa: F401
+                                   equirect_query_plain, grid_sample_bilinear)
 from ..utils.graphics import srgb_to_rgb
-
-
-def grid_sample_bilinear(img: torch.Tensor, gx: torch.Tensor,
-                         gy: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of img [H, W, C] at normalized coordinates gx, gy
-    (same shape, in [-1, 1]) → [..., C]."""
-    grid = torch.stack([gx, gy], dim=-1).reshape(1, 1, -1, 2)
-    out = F.grid_sample(img.permute(2, 0, 1)[None], grid, mode="bilinear",
-                        padding_mode="zeros", align_corners=True)
-    return out[0, :, 0].T.reshape(*gx.shape, img.shape[-1])
-
-
-def equirect_query_plain(envmap: torch.Tensor, dirs: torch.Tensor,
-                         transform: torch.Tensor | None = None
-                         ) -> torch.Tensor:
-    """Radiance of the equirect map [H, W, 3] for unit directions [..., 3]:
-    φ = arccos(clip z) − 1e-6 down the rows, θ = atan2(y, x) across the
-    columns (gy = 2φ/π − 1, gx = −θ/π), through `grid_sample_bilinear`.
-    The plain version, on any device and dtype."""
-    shape = dirs.shape
-    d = dirs.reshape(-1, 3)
-    if transform is not None:
-        d = d @ transform.T
-    phi = torch.arccos(torch.clamp(d[:, 2], -1.0, 1.0)) - 1e-6
-    theta = torch.atan2(d[:, 1], d[:, 0])
-    gy = (phi / math.pi) * 2.0 - 1.0
-    gx = -theta / math.pi
-    return grid_sample_bilinear(envmap, gx, gy).reshape(shape)
-
-
-def equirect_query(envmap: torch.Tensor, dirs: torch.Tensor,
-                   transform: torch.Tensor | None = None) -> torch.Tensor:
-    """`equirect_query_plain`'s radiance: the plain version on CPU tensors;
-    on CUDA tensors the kernel pair (`ops/env_lookup_cuda.py::env_lookup`:
-    float32, a gradient for the map alone), or an exception."""
-    tensors = (envmap, dirs) + (() if transform is None else (transform,))
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return equirect_query_plain(envmap, dirs, transform)
-    if devices != {"cuda"}:
-        raise ValueError(f"equirect_query: inputs on {sorted(devices)}; "
-                         "expected all on CPU or all on CUDA")
-    out = env_lookup_cuda.env_lookup(envmap.contiguous(),
-                                     dirs.reshape(-1, 3).contiguous(),
-                                     transform)
-    return out.reshape(dirs.shape)
 
 
 def bilinear_resize_2x(img: torch.Tensor) -> torch.Tensor:
@@ -86,6 +42,7 @@ class DirectLightMap(nn.Module):
     """Learnable environment light: raw map `env` [H, 2H, 3], radiance
     softplus(env), initialised to light_init · U[0, 1) from `generator`
     on `device` (the card unless the caller asks for the CPU)."""
+    transform = None       # the map's directions are the world's
 
     def __init__(self, H: int = 16, light_init: float = 0.5,
                  generator: torch.Generator | None = None,
@@ -119,6 +76,9 @@ class EnvLight(NamedTuple):
     """Fixed HDR environment (scene/envmap.py)."""
     envmap: torch.Tensor                    # [H, W, 3] linear HDR
     transform: torch.Tensor | None = None   # optional [3, 3]
+
+    def get_env(self) -> torch.Tensor:
+        return self.envmap
 
     def direct_light(self, dirs: torch.Tensor) -> torch.Tensor:
         return equirect_query(self.envmap, dirs, self.transform)
@@ -154,15 +114,12 @@ def query_light(light, dirs: torch.Tensor, plain: bool = False
     if not isinstance(light, (DirectLightMap, EnvLight)):
         raise TypeError(f"unknown light type {type(light)}")
     if plain:
-        transform = light.transform if isinstance(light, EnvLight) else None
-        return equirect_query_plain(light_image(light), dirs, transform)
+        return equirect_query_plain(light.get_env(), dirs, light.transform)
     return light.direct_light(dirs)
 
 
 def light_image(light) -> torch.Tensor:
     """The environment image (activated) for logging and TV regularization."""
-    if isinstance(light, DirectLightMap):
+    if isinstance(light, (DirectLightMap, EnvLight)):
         return light.get_env()
-    if isinstance(light, EnvLight):
-        return light.envmap
     raise TypeError(f"unknown light type {type(light)}")

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load, call and check the port's CUDA kernels.
 
 Each kernel source under `relightable3dgaussian_tpu_torch/csrc/` has a plain C
 interface. At first use it is compiled by `nvcc` for `sm_90a` into a shared
@@ -10,6 +10,12 @@ an edited source or header is rebuilt and a stale library is never loaded.
 A failed build raises; nothing here falls back. `ptxas_report` compiles a
 source once more with `-Xptxas -v` for its kernels' registers, spills and
 shared memory.
+
+This module is the port's one caller of foreign code. Each C entry point is
+an `Entry`, declared once beside its wrapper: calling it passes tensors as
+data pointers and None as NULL, launches on the device's current stream,
+raises on a `cudaError_t` and counts the entry's tracer counters.
+`check_tensors` is the check a wrapper makes of its inputs before a launch.
 """
 from __future__ import annotations
 
@@ -23,12 +29,18 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
+from ..utils import trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}     # name -> library, filled at first load
+# An entry's argument kinds, one letter each: a pointer, an int, an int64_t.
+_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
 
 
 def _nvcc() -> str:
@@ -115,3 +127,55 @@ def _unqualified(mangled: str) -> str:
             j += 1
         last, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
     return last
+
+
+class Entry:
+    """The C entry point `symbol` of `csrc/<source>.cu`: `int symbol(<kinds>,
+    void* stream)`, returning a `cudaError_t`. `kinds` spells the arguments
+    before the stream in `_KINDS`' letters (spaces group them). `label`
+    names it in errors; `counters` are the tracer's counters a launch adds
+    one to (`utils/trace.py`)."""
+    __slots__ = ("source", "symbol", "kinds", "label", "counters")
+
+    def __init__(self, source: str, symbol: str, kinds: str, label: str,
+                 counters: tuple[str, ...] = ()):
+        self.source, self.symbol, self.label = source, symbol, label
+        self.kinds = kinds.replace(" ", "")
+        self.counters = counters
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on `device`'s current stream with `args`: Python ints as
+        they are, None as NULL, a tensor as its data pointer. The library
+        is loaded (and built) at the first call."""
+        if len(args) != len(self.kinds):
+            raise TypeError(f"{self.label}: {len(args)} arguments, the entry "
+                            f"takes {len(self.kinds)}")
+        fn = getattr(load_library(self.source), self.symbol)
+        if fn.argtypes is None:
+            fn.argtypes = [_KINDS[k] for k in self.kinds] + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        # one identity test an argument: this is every launch's host path
+        args = [a if a is None or a.__class__ is int else a.data_ptr()
+                for a in args]
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.label} launch failed: cudaError_t {rc}")
+        for name in self.counters:
+            trace.count(name)
+
+
+def check_tensors(label: str, device: torch.device, expect: dict) -> None:
+    """Raises ValueError unless each `name: (tensor, shape[, dtype])` of
+    `expect` is a contiguous tensor of that shape and dtype (float32 where
+    none is given) on `device`."""
+    for name, spec in expect.items():
+        t, shape = spec[0], spec[1]
+        dtype = spec[2] if len(spec) > 2 else torch.float32
+        if t.device != device or t.dtype != dtype or t.shape != shape:
+            want = str(dtype).removeprefix("torch.")
+            raise ValueError(f"{label} {name}: got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, expected {want} {shape} on "
+                             f"{device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} {name}: not contiguous")

@@ -28,12 +28,10 @@ is held to where K1 and the plain compositor blend other pairs.
 """
 from __future__ import annotations
 
-import ctypes
 import os
 
 import torch
 
-from ..utils import trace
 from . import _build
 from .composite import CompositeOut, Decisions, WalkState
 from .composite import blend_decisions as blend_decisions_plain
@@ -53,17 +51,14 @@ MAX_ATTRS = 32     # csrc/composite_*.cu kMaxA
 # build.
 SPECIALISED_WIDTHS = {KERNEL: (9, 8, 32), BWD_KERNEL: (9, 8),
                       TWO_WALK_KERNEL: (9, 8)}
-
-
-def _library(name: str, symbol: str, n_ptr_in: int, n_int: int,
-             n_ptr_out: int) -> ctypes.CDLL:
-    lib = _build.load_library(name)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p] * n_ptr_out)
-        fn.restype = ctypes.c_int
-    return lib
+_K1 = _build.Entry(KERNEL, "r3dg_composite_fwd", "ppppppp iii ppppp", "K1",
+                   ("k1.launches",))
+_K2 = _build.Entry(BWD_KERNEL, "r3dg_composite_bwd", "pppppppppp iii pppp",
+                   "K2", ("k2.launches",))
+_K5 = _build.Entry(TWO_WALK_KERNEL, "r3dg_composite_bwd_two_walk",
+                   "ppppppppp iii ppppp", "K5", ("k5.launches",))
+_DECISIONS = _build.Entry(DECISIONS_KERNEL, "r3dg_composite_decisions",
+                          "ppppppp iii pppp", "decisions")
 
 
 def composite(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
@@ -127,16 +122,6 @@ class CompositeFunction(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _check(kernel: str, expect: dict, device: torch.device) -> None:
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{kernel} {name}: got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}, expected {dtype} {shape} on "
-                             f"{device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel} {name}: not contiguous")
-
-
 def _inputs(kernel: str, binning: Binning, mean2d, conic, opacity, attrs,
             cfg: RasterConfig) -> dict:
     """The shapes both kernels take, checked; returns the expectation dict."""
@@ -146,14 +131,13 @@ def _inputs(kernel: str, binning: Binning, mean2d, conic, opacity, attrs,
     if not 1 <= A <= MAX_ATTRS:
         raise ValueError(f"{kernel} takes 1..{MAX_ATTRS} attribute channels, "
                          f"got {A}")
-    return {"mean2d": (mean2d, (P, 2), torch.float32),
-            "conic": (conic, (P, 3), torch.float32),
-            "opacity": (opacity, (P,), torch.float32),
-            "attrs": (attrs, (P, A), torch.float32),
+    n_tiles = cfg.num_tiles
+    return {"mean2d": (mean2d, (P, 2)), "conic": (conic, (P, 3)),
+            "opacity": (opacity, (P,)), "attrs": (attrs, (P, A)),
             "sorted_ids": (binning.sorted_ids, (binning.num_rendered,),
                            torch.int32),
-            "tile_start": (binning.tile_start, (cfg.num_tiles,), torch.int32),
-            "tile_end": (binning.tile_end, (cfg.num_tiles,), torch.int32)}
+            "tile_start": (binning.tile_start, (n_tiles,), torch.int32),
+            "tile_end": (binning.tile_end, (n_tiles,), torch.int32)}
 
 
 def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
@@ -162,31 +146,17 @@ def composite_k1(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     """Launch K1 on CUDA tensors: the forward outputs and the walk state."""
     expect = _inputs("K1", binning, mean2d, conic, opacity, attrs, cfg)
     device = attrs.device
-    _check("K1", expect, device)
+    _build.check_tensors("K1", device, expect)
     P, A = attrs.shape
-    lib = _library(KERNEL, "r3dg_composite_fwd", 7, 3, 6)
-    tt = cfg.tile * cfg.tile
-    image = torch.empty((cfg.num_tiles, tt, A), dtype=torch.float32,
-                        device=device)
-    n_contrib = torch.empty((cfg.num_tiles, tt), dtype=torch.int32,
-                            device=device)
+    n_tiles, tt = cfg.num_tiles, cfg.tile * cfg.tile
+    image = torch.empty((n_tiles, tt, A), dtype=torch.float32, device=device)
+    n_contrib = torch.empty((n_tiles, tt), dtype=torch.int32, device=device)
     weights = torch.zeros((P,), dtype=torch.float32, device=device)
-    final_T = torch.empty((cfg.num_tiles, tt), dtype=torch.float32,
-                          device=device)
-    stop = torch.empty((cfg.num_tiles, tt), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_composite_fwd(
-            binning.tile_start.data_ptr(), binning.tile_end.data_ptr(),
-            binning.sorted_ids.data_ptr(), mean2d.data_ptr(),
-            conic.data_ptr(), opacity.data_ptr(), attrs.data_ptr(),
-            cfg.num_tiles, cfg.tiles_x, A, image.data_ptr(),
-            n_contrib.data_ptr(),
-            weights.data_ptr() if cfg.compute_weights else None,
-            final_T.data_ptr(), stop.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError_t {rc}")
-    trace.count("k1.launches")
+    final_T = torch.empty((n_tiles, tt), dtype=torch.float32, device=device)
+    stop = torch.empty((n_tiles, tt), dtype=torch.int32, device=device)
+    _K1(device, binning.tile_start, binning.tile_end, binning.sorted_ids,
+        mean2d, conic, opacity, attrs, n_tiles, cfg.tiles_x, A, image,
+        n_contrib, weights if cfg.compute_weights else None, final_T, stop)
     return (CompositeOut(image=image, weights=weights, n_contrib=n_contrib),
             WalkState(final_T=final_T, stop=stop))
 
@@ -200,35 +170,22 @@ def composite_k2(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     means zeros), from K1's walk state on the same inputs."""
     expect = _inputs("K2", binning, mean2d, conic, opacity, attrs, cfg)
     P, A = attrs.shape
-    tt = cfg.tile * cfg.tile
+    n_tiles, tt = cfg.num_tiles, cfg.tile * cfg.tile
     expect.update({
-        "final_T": (walk.final_T, (cfg.num_tiles, tt), torch.float32),
-        "stop": (walk.stop, (cfg.num_tiles, tt), torch.int32),
-        "g_image": (g_image, (cfg.num_tiles, tt, A), torch.float32)})
+        "final_T": (walk.final_T, (n_tiles, tt)),
+        "stop": (walk.stop, (n_tiles, tt), torch.int32),
+        "g_image": (g_image, (n_tiles, tt, A))})
     if g_weights is not None:
-        expect["g_weights"] = (g_weights, (P,), torch.float32)
+        expect["g_weights"] = (g_weights, (P,))
     device = attrs.device
-    _check("K2", expect, device)
-    lib = _library(BWD_KERNEL, "r3dg_composite_bwd", 10, 3, 5)
+    _build.check_tensors("K2", device, expect)
     g_mean2d = torch.zeros((P, 2), dtype=torch.float32, device=device)
     g_conic = torch.zeros((P, 3), dtype=torch.float32, device=device)
     g_opacity = torch.zeros((P,), dtype=torch.float32, device=device)
     g_attrs = torch.zeros((P, A), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_composite_bwd(
-            binning.tile_start.data_ptr(), binning.sorted_ids.data_ptr(),
-            mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(),
-            attrs.data_ptr(),
-            walk.final_T.data_ptr(), walk.stop.data_ptr(),
-            g_image.data_ptr(),
-            g_weights.data_ptr() if g_weights is not None else None,
-            cfg.num_tiles, cfg.tiles_x, A, g_mean2d.data_ptr(),
-            g_conic.data_ptr(), g_opacity.data_ptr(), g_attrs.data_ptr(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed: cudaError_t {rc}")
-    trace.count("k2.launches")
+    _K2(device, binning.tile_start, binning.sorted_ids, mean2d, conic,
+        opacity, attrs, walk.final_T, walk.stop, g_image, g_weights,
+        n_tiles, cfg.tiles_x, A, g_mean2d, g_conic, g_opacity, g_attrs)
     return g_mean2d, g_conic, g_opacity, g_attrs
 
 
@@ -244,33 +201,21 @@ def composite_k5(binning: Binning, mean2d: torch.Tensor, conic: torch.Tensor,
     decisions."""
     expect = _inputs("K5", binning, mean2d, conic, opacity, attrs, cfg)
     P, A = attrs.shape
-    tt = cfg.tile * cfg.tile
-    expect["g_image"] = (g_image, (cfg.num_tiles, tt, A), torch.float32)
+    n_tiles, tt = cfg.num_tiles, cfg.tile * cfg.tile
+    expect["g_image"] = (g_image, (n_tiles, tt, A))
     if g_weights is not None:
-        expect["g_weights"] = (g_weights, (P,), torch.float32)
+        expect["g_weights"] = (g_weights, (P,))
     if n_blended is not None:
-        expect["n_blended"] = (n_blended, (cfg.num_tiles, tt), torch.int32)
+        expect["n_blended"] = (n_blended, (n_tiles, tt), torch.int32)
     device = attrs.device
-    _check("K5", expect, device)
-    lib = _library(TWO_WALK_KERNEL, "r3dg_composite_bwd_two_walk", 9, 3, 6)
+    _build.check_tensors("K5", device, expect)
     g_mean2d = torch.zeros((P, 2), dtype=torch.float32, device=device)
     g_conic = torch.zeros((P, 3), dtype=torch.float32, device=device)
     g_opacity = torch.zeros((P,), dtype=torch.float32, device=device)
     g_attrs = torch.zeros((P, A), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_composite_bwd_two_walk(
-            binning.tile_start.data_ptr(), binning.tile_end.data_ptr(),
-            binning.sorted_ids.data_ptr(), mean2d.data_ptr(),
-            conic.data_ptr(), opacity.data_ptr(), attrs.data_ptr(),
-            g_image.data_ptr(),
-            g_weights.data_ptr() if g_weights is not None else None,
-            cfg.num_tiles, cfg.tiles_x, A, g_mean2d.data_ptr(),
-            g_conic.data_ptr(), g_opacity.data_ptr(), g_attrs.data_ptr(),
-            n_blended.data_ptr() if n_blended is not None else None, stream)
-    if rc != 0:
-        raise RuntimeError(f"K5 launch failed: cudaError_t {rc}")
-    trace.count("k5.launches")
+    _K5(device, binning.tile_start, binning.tile_end, binning.sorted_ids,
+        mean2d, conic, opacity, attrs, g_image, g_weights, n_tiles,
+        cfg.tiles_x, A, g_mean2d, g_conic, g_opacity, g_attrs, n_blended)
     return g_mean2d, g_conic, g_opacity, g_attrs
 
 
@@ -297,26 +242,18 @@ def blend_decisions(binning: Binning, mean2d: torch.Tensor,
     n = pixels.numel()
     expect["pixels"] = (pixels, (n,), torch.int64)
     device = mean2d.device
-    _check("decisions", expect, device)
+    _build.check_tensors("decisions", device, expect)
     if n and not (0 <= int(pixels.min()) and int(pixels.max())
                   < cfg.num_tiles * cfg.tile * cfg.tile):
         raise ValueError("blend_decisions: a pixel outside the tiles")
     tiles = pixels // (cfg.tile * cfg.tile)
     L = int((binning.tile_end - binning.tile_start)[tiles].max()) if n else 0
-    lib = _library(DECISIONS_KERNEL, "r3dg_composite_decisions", 7, 3, 5)
     codes = torch.zeros((n, L), dtype=torch.int8, device=device)
     final_T = torch.empty((n,), dtype=torch.float32, device=device)
     stop = torch.empty((n,), dtype=torch.int32, device=device)
     n_contrib = torch.empty((n,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_composite_decisions(
-            binning.tile_start.data_ptr(), binning.tile_end.data_ptr(),
-            binning.sorted_ids.data_ptr(), mean2d.data_ptr(),
-            conic.data_ptr(), opacity.data_ptr(), pixels.data_ptr(), n,
-            cfg.tiles_x, L, codes.data_ptr(), final_T.data_ptr(),
-            stop.data_ptr(), n_contrib.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"decisions launch failed: cudaError_t {rc}")
+    _DECISIONS(device, binning.tile_start, binning.tile_end,
+               binning.sorted_ids, mean2d, conic, opacity, pixels, n,
+               cfg.tiles_x, L, codes, final_T, stop, n_contrib)
     return Decisions(codes=codes, final_T=final_T, stop=stop,
                      n_contrib=n_contrib)

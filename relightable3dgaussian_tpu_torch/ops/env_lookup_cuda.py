@@ -1,10 +1,13 @@
-"""The env light's lookup on the card: a gather forward and a backward that
-sums the map's gradient per block in shared memory (`csrc/env_lookup.cu`).
+"""The env light's lookup: `equirect_query`, the radiance of an equirect map
+for directions, and on the card its kernels, a gather forward and a
+backward that sums the map's gradient per block in shared memory
+(`csrc/env_lookup.cu`).
 
 It replaces no TPU kernel: the JAX package leaves the lookup to XLA. The
-plain version is `models/lights.py::equirect_query_plain` (F.grid_sample),
-which CPU tensors take; `equirect_query` sends CUDA tensors here, where
-`env_lookup` launches the kernels or raises. Nothing falls back.
+plain version is `equirect_query_plain` (F.grid_sample), which CPU tensors
+take; `equirect_query` sends CUDA tensors to `env_lookup`, which launches
+the kernels or raises. Nothing falls back. The light models
+(`models/lights.py`) query their maps through `equirect_query`.
 
 `env_lookup(envmap, dirs, transform)` is a `torch.autograd.Function` whose
 backward gives the map alone its gradient: directions and a transform that
@@ -13,15 +16,16 @@ need one are refused. The backward's branch follows the map's size
 summed per block and then over the blocks in a fixed order (bitwise the
 same from run to run), where they fit; global atomics beyond.
 
-Counters: `launches` and `bwd_launches` (plain integers here), and the
-tracer's `env.lookup_launches`, `env.lookup_bwd_launches` and
+The tracer's counters: `env.lookup_launches`, `env.lookup_bwd_launches` and
 `env.bwd_private` (backward launches of the private branch).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
+import math
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import trace
 from . import _build
@@ -33,9 +37,56 @@ PRIVATE_BYTES = 192 * 1024        # kPrivateBytes: the copies' budget
 SMEM_PER_SM = 228 * 1024          # an H100 SM's shared memory
 SMEM_RESERVED = 1024              # what the card keeps of it per block
 BLOCKS_PER_SM = 2048 // THREADS   # threads an SM holds
+_FWD = _build.Entry(KERNEL, "r3dg_env_lookup_fwd", "ppp q iii p",
+                    "env lookup forward", ("env.lookup_launches",))
+# a launch: the kernel and, on the private branch, its reduce
+_BWD = _build.Entry(KERNEL, "r3dg_env_lookup_bwd", "ppp q iii pp",
+                    "env lookup backward", ("env.lookup_bwd_launches",))
 
-launches = 0        # forward launches
-bwd_launches = 0    # backward launches (each its kernel and, private, its reduce)
+
+def grid_sample_bilinear(img: torch.Tensor, gx: torch.Tensor,
+                         gy: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of img [H, W, C] at normalized coordinates gx, gy
+    (same shape, in [-1, 1]) → [..., C]."""
+    grid = torch.stack([gx, gy], dim=-1).reshape(1, 1, -1, 2)
+    out = F.grid_sample(img.permute(2, 0, 1)[None], grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    return out[0, :, 0].T.reshape(*gx.shape, img.shape[-1])
+
+
+def equirect_query_plain(envmap: torch.Tensor, dirs: torch.Tensor,
+                         transform: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Radiance of the equirect map [H, W, 3] for unit directions [..., 3]:
+    φ = arccos(clip z) − 1e-6 down the rows, θ = atan2(y, x) across the
+    columns (gy = 2φ/π − 1, gx = −θ/π), through `grid_sample_bilinear`.
+    The plain version, on any device and dtype."""
+    shape = dirs.shape
+    d = dirs.reshape(-1, 3)
+    if transform is not None:
+        d = d @ transform.T
+    phi = torch.arccos(torch.clamp(d[:, 2], -1.0, 1.0)) - 1e-6
+    theta = torch.atan2(d[:, 1], d[:, 0])
+    gy = (phi / math.pi) * 2.0 - 1.0
+    gx = -theta / math.pi
+    return grid_sample_bilinear(envmap, gx, gy).reshape(shape)
+
+
+def equirect_query(envmap: torch.Tensor, dirs: torch.Tensor,
+                   transform: torch.Tensor | None = None) -> torch.Tensor:
+    """`equirect_query_plain`'s radiance: the plain version on CPU tensors;
+    on CUDA tensors the kernel pair (`env_lookup`: float32, a gradient for
+    the map alone), or an exception."""
+    tensors = (envmap, dirs) + (() if transform is None else (transform,))
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return equirect_query_plain(envmap, dirs, transform)
+    if devices != {"cuda"}:
+        raise ValueError(f"equirect_query: inputs on {sorted(devices)}; "
+                         "expected all on CPU or all on CUDA")
+    out = env_lookup(envmap.contiguous(), dirs.reshape(-1, 3).contiguous(),
+                     transform)
+    return out.reshape(dirs.shape)
 
 
 def private_branch(H: int, W: int) -> bool:
@@ -66,26 +117,21 @@ def forward_blocks(n: int, sms: int) -> int:
 def check_inputs(envmap: torch.Tensor, dirs: torch.Tensor,
                  transform: torch.Tensor | None) -> None:
     """Raises unless the map is [H, W, 3], the directions [N, 3] and the
-    transform None or [3, 3], each float32 and contiguous, neither the
-    directions nor the transform needs a gradient, and all lie on one CUDA
-    device: the only check before a launch."""
-    expect = {"envmap": (envmap, 3, "[H, W, 3]"), "dirs": (dirs, 2, "[N, 3]")}
+    transform None or [3, 3], each float32 and contiguous on the map's
+    device, which is a CUDA device, and neither the directions nor the
+    transform needs a gradient: the only check before a launch."""
+    expect = {"envmap": (envmap, (*envmap.shape[:2], 3)),
+              "dirs": (dirs, (*dirs.shape[:1], 3))}
     if transform is not None:
-        expect["transform"] = (transform, 2, "[3, 3]")
-    for name, (t, ndim, want) in expect.items():
-        if (t.dtype != torch.float32 or t.dim() != ndim or t.shape[-1] != 3
-                or (name == "transform" and t.shape[0] != 3)):
-            raise ValueError(f"env lookup {name}: got {t.dtype} "
-                             f"{tuple(t.shape)}, expected float32 {want}")
-        if not t.is_contiguous():
-            raise ValueError(f"env lookup {name}: not contiguous")
-        if name != "envmap" and t.requires_grad:
+        expect["transform"] = (transform, (3, 3))
+    _build.check_tensors("env lookup", envmap.device, expect)
+    for name, t in (("dirs", dirs), ("transform", transform)):
+        if t is not None and t.requires_grad:
             raise ValueError(f"env lookup {name}: requires grad; the kernel "
                              "gives the map alone a gradient")
-    for name, (t, _, _) in expect.items():
-        if t.device.type != "cuda" or t.device != envmap.device:
-            raise ValueError(f"env lookup {name}: on {t.device}, expected "
-                             f"the map's CUDA device ({envmap.device})")
+    if envmap.device.type != "cuda":
+        raise ValueError(f"env lookup envmap: on {envmap.device}, expected "
+                         "the map's CUDA device")
 
 
 class EnvLookup(torch.autograd.Function):
@@ -116,45 +162,25 @@ def env_lookup(envmap: torch.Tensor, dirs: torch.Tensor,
     return EnvLookup.apply(envmap, dirs, transform)
 
 
+@functools.cache
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
 def lookup_fwd(envmap, dirs, transform) -> torch.Tensor:
     """The forward kernel: [N, 3]."""
-    global launches
     n = dirs.shape[0]
     H, W = envmap.shape[:2]
     out = torch.empty((n, 3), dtype=torch.float32, device=dirs.device)
     if n == 0:
         return out
-    fn = _build.load_library(KERNEL).r3dg_env_lookup_fwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dirs.device):
-        rc = fn(envmap.data_ptr(), dirs.data_ptr(), _ptr(transform), n, H, W,
-                forward_blocks(n, _sms(dirs.device)), out.data_ptr(),
-                _stream(dirs.device))
-    if rc != 0:
-        raise RuntimeError(f"env lookup forward launch failed: cudaError_t {rc}")
-    launches += 1
-    trace.count("env.lookup_launches")
+    _FWD(dirs.device, envmap, dirs, transform, n, H, W,
+         forward_blocks(n, _sms(dirs.device)), out)
     return out
 
 
 def lookup_bwd(dirs, transform, g_out, H: int, W: int) -> torch.Tensor:
     """The backward kernels: the map's gradient [H, W, 3]."""
-    global bwd_launches
     n = dirs.shape[0]
     if g_out.shape != (n, 3) or g_out.dtype != torch.float32:
         raise ValueError(f"env lookup gradient: got {g_out.dtype} "
@@ -167,18 +193,7 @@ def lookup_bwd(dirs, transform, g_out, H: int, W: int) -> torch.Tensor:
     blocks = backward_blocks(n, H, W, _sms(dirs.device))
     partial = (torch.empty((blocks, 3 * H * W), dtype=torch.float32,
                            device=dirs.device) if priv else None)
-    fn = _build.load_library(KERNEL).r3dg_env_lookup_bwd
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(dirs.device):
-        rc = fn(dirs.data_ptr(), _ptr(transform), g_out.data_ptr(), n, H, W,
-                blocks, _ptr(partial), grad.data_ptr(), _stream(dirs.device))
-    if rc != 0:
-        raise RuntimeError(f"env lookup backward launch failed: cudaError_t {rc}")
-    bwd_launches += 1
-    trace.count("env.lookup_bwd_launches")
+    _BWD(dirs.device, dirs, transform, g_out, n, H, W, blocks, partial, grad)
     if priv:
         trace.count("env.bwd_private")
     return grad

@@ -13,16 +13,15 @@ counts its launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..utils import trace
 from . import _build
 from .ray_trace import (CLUSTER_SIZE, RECORD, SUPER_SIZE, GaussianBVH,
                         coherent_order)
 
 KERNEL = "ray_trace"
+_K3 = _build.Entry(KERNEL, "r3dg_trace", "pppppppp iii p", "K3",
+                   ("k3.launches",))
 
 
 def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -40,30 +39,10 @@ def trace_k3(bvh: GaussianBVH, rays_o: torch.Tensor, rays_d: torch.Tensor,
               "super_lo": (bvh.super_lo, (-(-C // SUPER_SIZE), 3)),
               "super_hi": (bvh.super_hi, (n_super, 3)),
               "rays_o": (rays_o, (R, 3)), "rays_d": (rays_d, (R, 3))}
-    for name, (t, shape) in expect.items():
-        if (t.device != device or t.dtype != torch.float32
-                or tuple(t.shape) != shape):
-            raise ValueError(f"K3 {name}: got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, expected float32 {shape} on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"K3 {name}: not contiguous")
-    lib = _build.load_library(KERNEL)
-    if lib.r3dg_trace.argtypes is None:
-        lib.r3dg_trace.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                                   + [ctypes.c_void_p] * 2)
-        lib.r3dg_trace.restype = ctypes.c_int
+    _build.check_tensors("K3", device, expect)
     order = (coherent_order(bvh, rays_o, rays_d).to(torch.int32)
              if sort and R > 1 and C > 0 else None)
     T = torch.empty((R,), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_trace(
-            bvh.records.data_ptr(), bvh.cluster_lo.data_ptr(),
-            bvh.cluster_hi.data_ptr(), bvh.super_lo.data_ptr(),
-            bvh.super_hi.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
-            order.data_ptr() if order is not None else None,
-            C, n_super, R, T.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed: cudaError_t {rc}")
-    trace.count("k3.launches")
+    _K3(device, bvh.records, bvh.cluster_lo, bvh.cluster_hi, bvh.super_lo,
+        bvh.super_hi, rays_o, rays_d, order, C, n_super, R, T)
     return T

@@ -19,12 +19,10 @@ point's unsure branches from float64, one launch each).
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from ..utils import trace
 from . import _build
 from .shading import ggx_terms, rendering_equation
 
@@ -38,6 +36,10 @@ K4_PI4 = 4 * float(torch.tensor(math.pi, dtype=torch.float32))   # k4Pi
 # Q_BAND of 1e-6 (relative), or its VoH within VOH_BAND, K4's fix-up takes
 # q's decision from float64 and VoH's past it (k4_clip_passes)
 Q_BAND, VOH_BAND = 5e-4, float(torch.tensor(2e-6, dtype=torch.float32))
+_K4_FWD = _build.Entry(KERNEL, "r3dg_shade_fwd", "ppppppppp ii ppp", "K4-fwd",
+                       ("k4.launches",))
+_K4_BWD = _build.Entry(KERNEL, "r3dg_shade_bwd", "pppppppppppp ii pppppp",
+                       "K4-bwd", ("k4.bwd_launches",))
 
 
 def rendering_equation_train_reference(base_color, roughness, normals,
@@ -294,17 +296,6 @@ def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,
             f(incidents_shs[:, :N_SH].reshape(P, 3 * N_SH)))
 
 
-def _check(kernel: str, tensors: dict, device: torch.device) -> None:
-    for name, (t, shape) in tensors.items():
-        if (t.device != device or t.dtype != torch.float32
-                or tuple(t.shape) != shape):
-            raise ValueError(f"{kernel} {name}: got {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}, expected float32 {shape} on "
-                             f"{device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel} {name}: not contiguous")
-
-
 def _expect(dirs, vis, area, gl, bc, rough, nrm, vdir, shs) -> dict:
     P, S = vis.shape
     return {"incident_dirs": (dirs, (P, S, 3)), "visibility": (vis, (P, S)),
@@ -314,35 +305,18 @@ def _expect(dirs, vis, area, gl, bc, rough, nrm, vdir, shs) -> dict:
             "incidents_shs": (shs, (P, 3 * N_SH))}
 
 
-def _library(symbol: str, n_ptr_in: int, n_ptr_out: int) -> ctypes.CDLL:
-    lib = _build.load_library(KERNEL)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr_in + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * (n_ptr_out + 1))
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def shade_fwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs):
     """Launch K4-fwd on CUDA tensors in the kernel's layout
     (`kernel_inputs`): (pbr, diffuse_light, specular), each [P, 3]."""
     inputs = (dirs, vis, area, gl, bc, rough, nrm, vdir, shs)
     device = vis.device
-    _check("K4-fwd", _expect(*inputs), device)
+    _build.check_tensors("K4-fwd", device, _expect(*inputs))
     P, S = vis.shape
     outs = [torch.empty((P, 3), dtype=torch.float32, device=device)
             for _ in range(3)]
     if P == 0:
         return tuple(outs)             # no point, no launch
-    lib = _library("r3dg_shade_fwd", 9, 3)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_shade_fwd(*(t.data_ptr() for t in inputs), P, S,
-                                *(t.data_ptr() for t in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"K4-fwd launch failed: cudaError_t {rc}")
-    trace.count("k4.launches")
+    _K4_FWD(device, *inputs, P, S, *outs)
     return tuple(outs)
 
 
@@ -357,22 +331,12 @@ def shade_bwd(dirs, vis, area, gl, bc, rough, nrm, vdir, shs, g_pbr, g_dif,
     expect = _expect(*inputs)
     expect.update({"g_pbr": (g_pbr, (P, 3)), "g_diffuse": (g_dif, (P, 3)),
                    "g_specular": (g_spec, (P, 3))})
-    _check("K4-bwd", expect, device)
+    _build.check_tensors("K4-bwd", device, expect)
     shapes = ((P, 3), (P,), (P, 3), (P, 3 * N_SH), (P, S, 3))
     outs = [torch.empty(s, dtype=torch.float32, device=device) for s in shapes]
     if P == 0:
         return tuple(outs)             # no point, no launch
     # the points with a sample's local light near 0: count, then the points
     unsure = torch.empty((P + 1,), dtype=torch.int32, device=device)
-    lib = _library("r3dg_shade_bwd", 12, 6)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.r3dg_shade_bwd(*(t.data_ptr() for t in inputs),
-                                g_pbr.data_ptr(), g_dif.data_ptr(),
-                                g_spec.data_ptr(), P, S,
-                                *(t.data_ptr() for t in outs),
-                                unsure.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"K4-bwd launch failed: cudaError_t {rc}")
-    trace.count("k4.bwd_launches")
+    _K4_BWD(device, *inputs, g_pbr, g_dif, g_spec, P, S, *outs, unsure)
     return tuple(outs)

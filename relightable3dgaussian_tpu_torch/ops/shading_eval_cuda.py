@@ -3,14 +3,15 @@
 K6 (`csrc/shading_eval.cu`) replaces no TPU kernel: the JAX package leaves
 the eval shading to XLA's fusion
 (relightable3dgaussian_tpu/models/render_neilf.py::_shade_chunk_reduced).
-It runs once over every point: the env lookup (`models/lights.py::
+It runs once over every point: the env lookup (`ops/env_lookup_cuda.py::
 equirect_query`), the local SH light, the GGX chain of
 `ops/shading.py::rendering_equation` and the means over the samples, with
 no per-sample value in device memory.
 
 `rendering_equation_eval` takes `rendering_equation`'s inputs with the
-light model `env` (an `EnvLight`, whose transform K6 applies, or a
-`DirectLightMap`, whose activated image it reads) and returns (pbr,
+light model `env` (`models/lights.py`: K6 reads its activated map,
+`env.get_env()`, and applies its `env.transform` where that is not None)
+and returns (pbr,
 extras), every entry a mean over the samples: pbr, the diffuse light, the
 specular, the incident, local and global lights [P, 3] and the visibility
 [P, 1] (`EXTRA_KEYS`):
@@ -22,16 +23,15 @@ The tracer's counter `k6.launches` counts K6's launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..models.lights import EnvLight, light_image, query_light
-from ..utils import trace
 from . import _build
+from .env_lookup_cuda import equirect_query_plain
 from .shading import rendering_equation
 
 KERNEL = "shading_eval"
+_K6 = _build.Entry(KERNEL, "r3dg_shade_eval", "pppppppppp iiii ppppppp", "K6",
+                   ("k6.launches",))
 N_SH = 16          # csrc/shading_eval.cu kSH: degree-3 local-light SH
 # The means rendering_equation_eval returns beside pbr; all [P, 3] but the
 # visibility's [P, 1].
@@ -46,7 +46,7 @@ def rendering_equation_eval_reference(base_color, roughness, normals,
                                       incident_areas,
                                       chunk_samples: int | None = None):
     """The plain version: `rendering_equation` under the plain lookup
-    `query_light(env, ., plain=True)` (grid_sample, on any device) over
+    `equirect_query_plain` of the light (grid_sample, on any device) over
     chunks of at most `chunk_samples` samples (a bound on its [chunk, S, 3]
     intermediates; None: one chunk), each per-sample light kept only as its
     mean over the samples."""
@@ -57,7 +57,8 @@ def rendering_equation_eval_reference(base_color, roughness, normals,
         sl = slice(i, i + chunk)
         pbr, ex = rendering_equation(
             base_color[sl], roughness[sl], normals[sl], viewdirs[sl],
-            incidents_shs[sl], lambda d: query_light(env, d, plain=True),
+            incidents_shs[sl],
+            lambda d: equirect_query_plain(env.get_env(), d, env.transform),
             visibility[sl], incident_dirs[sl], incident_areas[sl])
         parts.append((pbr, {k: (v if v.dim() == 2 else v.mean(-2))
                             for k, v in ex.items()}))
@@ -75,7 +76,8 @@ def rendering_equation_eval(base_color, roughness, normals, viewdirs,
     (pbr [P, 3], {name: mean over the samples} for `EXTRA_KEYS`)."""
     args = (base_color, roughness, normals, viewdirs, incidents_shs,
             visibility, incident_dirs, incident_areas)
-    devices = {a.device.type for a in (*args, _light_tensor(env))}
+    env_map = env.get_env()
+    devices = {a.device.type for a in (*args, env_map)}
     if devices == {"cpu"}:
         return rendering_equation_eval_reference(
             base_color, roughness, normals, viewdirs, incidents_shs, env,
@@ -85,34 +87,35 @@ def rendering_equation_eval(base_color, roughness, normals, viewdirs,
                          f"{sorted(devices)}; expected all on CPU or all on "
                          "CUDA")
     pbr, dif, spec, light, local, glob, vis = _launch(
-        *kernel_inputs(base_color, roughness, normals, viewdirs,
-                       incidents_shs, env, visibility, incident_dirs,
-                       incident_areas))
+        *_layout(base_color, roughness, normals, viewdirs, incidents_shs,
+                 env_map, env.transform, visibility, incident_dirs,
+                 incident_areas))
     return pbr, dict(zip(EXTRA_KEYS, (light, local, glob, dif, spec,
                                       vis[:, None])))
 
 
-def _light_tensor(env) -> torch.Tensor:
-    """The tensor that holds the light model's map."""
-    if isinstance(env, EnvLight):
-        return env.envmap
-    return env.env
-
-
 def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,
                   env, visibility, incident_dirs, incident_areas):
+    """K6's layout (`_layout`) of `rendering_equation_eval`'s inputs, the
+    light model `env` read as its activated map and its transform."""
+    return _layout(base_color, roughness, normals, viewdirs, incidents_shs,
+                   env.get_env(), env.transform, visibility, incident_dirs,
+                   incident_areas)
+
+
+def _layout(base_color, roughness, normals, viewdirs, incidents_shs, env_map,
+            transform, visibility, incident_dirs, incident_areas):
     """K6's layout: [P, S, 3] dirs, [P, S] visibility and area, [P]
-    roughness, [P, 48] SH as views of the inputs (no copy), the activated
-    map [H, W, 3] and the light transform [3, 3] or None made contiguous
-    (a map upsampled in training is a strided view). Raises unless every
-    input is a contiguous float32 tensor of K6's shape on the visibility's
-    device: the only check before a launch."""
+    roughness, [P, 48] SH as views of the inputs (no copy), the map
+    [H, W, 3] and the light transform [3, 3] or None made contiguous (a map
+    upsampled in training is a strided view). Raises unless every input is
+    a contiguous float32 tensor of K6's shape on the visibility's device:
+    the only check before a launch."""
     if visibility.dim() != 3:
         raise ValueError(f"K6 visibility: got shape {tuple(visibility.shape)}"
                          ", expected [P, S, 1]")
     P, S = visibility.shape[:2]
-    env_map = light_image(env).detach().contiguous()
-    transform = env.transform if isinstance(env, EnvLight) else None
+    env_map = env_map.detach().contiguous()
     expect = {"base_color": (base_color, (P, 3)),
               "roughness": (roughness, (P, 1)), "normals": (normals, (P, 3)),
               "viewdirs": (viewdirs, (P, 3)),
@@ -124,14 +127,7 @@ def kernel_inputs(base_color, roughness, normals, viewdirs, incidents_shs,
     if transform is not None:
         transform = transform.detach().contiguous()
         expect["transform"] = (transform, (3, 3))
-    for name, (t, shape) in expect.items():
-        if (t.device != visibility.device or t.dtype != torch.float32
-                or tuple(t.shape) != shape):
-            raise ValueError(f"K6 {name}: got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}, expected float32 {shape} on "
-                             f"{visibility.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"K6 {name}: not contiguous")
+    _build.check_tensors("K6", visibility.device, expect)
     return (incident_dirs.detach(), visibility.detach().view(P, S),
             incident_areas.detach().view(P, S), base_color.detach(),
             roughness.detach().view(P), normals.detach(), viewdirs.detach(),
@@ -147,18 +143,6 @@ def _launch(dirs, vis, area, bc, rough, nrm, vdir, shs, env_map, transform):
     outs = [torch.empty((P, 3), dtype=torch.float32, device=vis.device)
             for _ in range(6)]
     outs.append(torch.empty((P,), dtype=torch.float32, device=vis.device))
-    fn = _build.load_library(KERNEL).r3dg_shade_eval
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 8)
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(vis.device):
-        stream = torch.cuda.current_stream(vis.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in (dirs, vis, area, bc, rough, nrm, vdir,
-                                         shs, env_map)),
-                None if transform is None else transform.data_ptr(),
-                P, S, H, W, *(t.data_ptr() for t in outs), stream)
-    if rc != 0:
-        raise RuntimeError(f"K6 launch failed: cudaError_t {rc}")
-    trace.count("k6.launches")
+    _K6(vis.device, dirs, vis, area, bc, rough, nrm, vdir, shs, env_map,
+        transform, P, S, H, W, *outs)
     return tuple(outs)

@@ -34,7 +34,9 @@ per-layer metrics read.
 Counters (`count(name)`) are plain integers under dotted names, counted
 where the work happens whether tracing is on or off: the kernels' launches
 (`k1.launches`, `k2.launches`, `k5.launches`, `k3.launches`,
-`k4.launches`, `k4.bwd_launches`, `k6.launches`), `lpips.forwards` (the
+`k4.launches`, `k4.bwd_launches`, `k6.launches`, `env.lookup_launches`,
+`env.lookup_bwd_launches`, `env.bwd_private`; each counted by its
+`ops/_build.py::Entry`, the last by its wrapper), `lpips.forwards` (the
 images through LPIPS's backbone), `dp.allreduce_bytes` (the bytes each
 data-parallel all_reduce reduces on this rank) and `host.syncs`, each
 point where the hot path waits for the device (a value read back, a

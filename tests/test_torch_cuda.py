@@ -13,15 +13,19 @@ from relightable3dgaussian_tpu_torch.models import render_neilf
 from relightable3dgaussian_tpu_torch.models.gaussians import (PBR_FIELDS,
                                                               GaussianModel)
 from relightable3dgaussian_tpu_torch.models.lights import (DirectLightMap,
+                                                           EnvLight,
+                                                           equirect_query,
                                                            query_light)
 from relightable3dgaussian_tpu_torch.models.render import render, view_features
 from relightable3dgaussian_tpu_torch.models.render import ViewInputs
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
-                                                 ray_trace, ray_trace_cuda,
-                                                 shading_cuda)
+                                                 env_lookup_cuda, ray_trace,
+                                                 ray_trace_cuda, shading_cuda,
+                                                 shading_eval_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
 from relightable3dgaussian_tpu_torch.ops.composite import composite as composite_plain
-from relightable3dgaussian_tpu_torch.ops.composite import (composite_backward,
+from relightable3dgaussian_tpu_torch.ops.composite import (WalkState,
+                                                          composite_backward,
                                                           split_pixels,
                                                           walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
@@ -959,19 +963,79 @@ def test_shade_function_gradient_matches_autograd(cuda):
         assert_k4_close(name, got, plain, exact, bwd_err, 1e-4)
 
 
-def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch):
-    """On CUDA tensors the stage-2 wrappers launch their kernel or raise: a
+# The tracer's launch counters, one or more a C entry point (ops/_build.py).
+LAUNCH_COUNTERS = ("k1.launches", "k2.launches", "k5.launches",
+                   "k3.launches", "k4.launches", "k4.bwd_launches",
+                   "k6.launches", "env.lookup_launches",
+                   "env.lookup_bwd_launches", "env.bwd_private")
+
+
+def launch_case(label: str, device):
+    """A call that reaches the C entry point `label` on small valid CUDA
+    inputs, through the dispatching wrapper where one launches it."""
+    if label in ("K1", "K2", "K5", "decisions"):
+        binning, mean2d, conic, op, attrs, cfg = crossing_case(
+            device, np.float32(0.5))
+        g_image = torch.ones((1, 256, 1), device=device)
+        walk = WalkState(torch.ones((1, 256), device=device),
+                         torch.zeros((1, 256), dtype=torch.int32,
+                                     device=device))
+        return {
+            "K1": lambda: composite_cuda.composite(binning, mean2d, conic, op,
+                                                   attrs, cfg),
+            "K2": lambda: composite_cuda.composite_k2(
+                binning, mean2d, conic, op, attrs, walk, g_image, None, cfg),
+            "K5": lambda: composite_cuda.composite_k5(
+                binning, mean2d, conic, op, attrs, g_image, None, cfg),
+            "decisions": lambda: composite_cuda.blend_decisions(
+                binning, mean2d, conic, op, torch.arange(256, device=device),
+                cfg)}[label]
+    if label == "K3":
+        xyz, scaling, rot, op, nrm = shell(8, 512, device)
+        bvh = ray_trace.build_bvh(xyz, scaling, rot, op, nrm)
+        rays = surface_rays(xyz, nrm, 4)
+        return lambda: ray_trace.trace_visibility(bvh, *rays)
+    if label in ("K4-fwd", "K4-bwd", "K6"):
+        x = shading_inputs(64, 8, 9, device)
+        inputs = shading_cuda.kernel_inputs(*x)
+        env = EnvLight(torch.rand((16, 32, 3), device=device))
+        return {
+            "K4-fwd": lambda: shading_cuda.rendering_equation_train(*x),
+            "K4-bwd": lambda: shading_cuda.shade_bwd(
+                *inputs, *(inputs[i] for i in (4, 6, 7))),
+            "K6": lambda: shading_eval_cuda.rendering_equation_eval(
+                *x[:5], env, *x[6:])}[label]
+    dirs = torch.nn.functional.normalize(torch.randn((100, 3), device=device),
+                                         dim=-1)
+    if label == "env lookup forward":
+        return lambda: equirect_query(torch.rand((16, 32, 3), device=device),
+                                      dirs)
+    return lambda: env_lookup_cuda.lookup_bwd(dirs, None, torch.ones_like(dirs),
+                                              16, 32)
+
+
+@pytest.mark.parametrize("label", ["K1", "K2", "K5", "decisions", "K3",
+                                   "K4-fwd", "K4-bwd", "K6",
+                                   "env lookup forward",
+                                   "env lookup backward"])
+def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch, label):
+    """On CUDA tensors each wrapper launches its kernel or raises: a
     library that does not build, a launch that fails, or an input the kernel
-    does not take raises, and nothing falls back to the plain version."""
-    xyz, scaling, rot, op, nrm = shell(8, 512, cuda)
-    bvh = ray_trace.build_bvh(xyz, scaling, rot, op, nrm)
-    rays = surface_rays(xyz, nrm, 4)
-    x = shading_inputs(64, 8, 9, cuda)
-    inputs = shading_cuda.kernel_inputs(*x)
-    with pytest.raises(ValueError, match="not contiguous"):
-        shading_cuda.shade_fwd(*inputs[:-1], inputs[-1].t().contiguous().t())
-    with pytest.raises(ValueError, match="expected float32"):
-        ray_trace_cuda.trace_k3(bvh, rays[0].double(), rays[1])
+    does not take raises, no launch is counted, and nothing falls back to
+    the plain version."""
+    if label == "K4-fwd":
+        inputs = shading_cuda.kernel_inputs(*shading_inputs(64, 8, 9, cuda))
+        with pytest.raises(ValueError, match="not contiguous"):
+            shading_cuda.shade_fwd(*inputs[:-1],
+                                   inputs[-1].t().contiguous().t())
+    if label == "K3":
+        xyz, scaling, rot, op, nrm = shell(8, 512, cuda)
+        rays = surface_rays(xyz, nrm, 4)
+        with pytest.raises(ValueError, match="expected float32"):
+            ray_trace_cuda.trace_k3(
+                ray_trace.build_bvh(xyz, scaling, rot, op, nrm),
+                rays[0].double(), rays[1])
+    call = launch_case(label, cuda)
 
     def no_build(name):
         raise RuntimeError(f"nvcc failed for {name}.cu")
@@ -983,21 +1047,17 @@ def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch):
             return 1
 
     class FailingLibrary:
-        r3dg_trace = r3dg_shade_fwd = r3dg_shade_bwd = FailingLaunch()
+        def __getattr__(self, symbol):
+            return FailingLaunch()
 
-    counts = (trace.counter("k3.launches"), trace.counter("k4.launches"),
-              trace.counter("k4.bwd_launches"))
+    counts = [trace.counter(c) for c in LAUNCH_COUNTERS]
     for load, match in ((no_build, "nvcc failed"),
-                        (lambda name: FailingLibrary(), "launch failed")):
+                        (lambda name: FailingLibrary(),
+                         f"{label} launch failed: cudaError_t 1")):
         monkeypatch.setattr(_build, "load_library", load)
         with pytest.raises(RuntimeError, match=match):
-            ray_trace.trace_visibility(bvh, *rays)
-        with pytest.raises(RuntimeError, match=match):
-            shading_cuda.rendering_equation_train(*x)
-        with pytest.raises(RuntimeError, match=match):
-            shading_cuda.shade_bwd(*inputs, *(inputs[i] for i in (4, 6, 7)))
-    assert (trace.counter("k3.launches"), trace.counter("k4.launches"),
-            trace.counter("k4.bwd_launches")) == counts
+            call()
+    assert [trace.counter(c) for c in LAUNCH_COUNTERS] == counts
 
 
 # ---------------------------------------------------------------------------

@@ -211,18 +211,17 @@ def test_wrapper_refuses_before_any_launch(case, match):
         dirs.requires_grad_()
     elif case == "transform_grad":
         tf.requires_grad_()
-    before = (elc.launches, elc.bwd_launches)
+    before = [trace.counter(c) for c in COUNTERS]
     with pytest.raises(ValueError, match=match):
         elc.env_lookup(env, dirs, tf)
-    assert (elc.launches, elc.bwd_launches) == before
+    assert [trace.counter(c) for c in COUNTERS] == before
 
 
 @pytest.mark.parametrize("light", ["map", "env"])
 def test_cpu_tensors_take_the_plain_path(light):
     """On CPU tensors equirect_query is the plain version bitwise, forward
     and gradient, and no launch is counted."""
-    before = ((elc.launches, elc.bwd_launches),
-              [trace.counter(c) for c in COUNTERS])
+    before = [trace.counter(c) for c in COUNTERS]
     dirs = directions(500, 5, torch.float32).reshape(20, 25, 3)
     raw = env_map(16, 6, torch.float32)
     if light == "map":
@@ -237,8 +236,7 @@ def test_cpu_tensors_take_the_plain_path(light):
     want.square().sum().backward()
     assert got.shape == (20, 25, 3)
     assert torch.equal(got, want) and torch.equal(grad, param.grad)
-    assert ((elc.launches, elc.bwd_launches),
-            [trace.counter(c) for c in COUNTERS]) == before
+    assert [trace.counter(c) for c in COUNTERS] == before
 
 
 # ---------------------------------------------------------------- the card
@@ -305,11 +303,11 @@ def test_forward_matches_plain(cuda, H, n, turned):
     env, dirs, tf, _ = _card_case(H, n, turned, H + n, cuda)
     want = lights.equirect_query_plain(env, dirs, tf)
     e32, d32, t32 = _f32(env, dirs, tf)
-    before = elc.launches
+    before = trace.counter("env.lookup_launches")
     with torch.no_grad():
         got = lights.equirect_query(e32, d32, t32)
     torch.cuda.synchronize()
-    assert elc.launches == before + 1
+    assert trace.counter("env.lookup_launches") == before + 1
     assert got.shape == (n, 3) and got.is_contiguous()
     plain = lights.equirect_query_plain(e32, d32, t32)
     _within("forward", got, want, plain, FWD_TOL, float(env.abs().max()))
@@ -352,17 +350,14 @@ def test_private_gradient_is_bitwise_reproducible(cuda, H):
 def test_counters_count_each_launch(cuda):
     """Forward and backward each count one launch a call, the private
     branch its own; a call without grad launches no backward."""
-    before = ((elc.launches, elc.bwd_launches),
-              [trace.counter(c) for c in COUNTERS])
+    before = [trace.counter(c) for c in COUNTERS]
     for H in (16, 64):
         env, dirs, tf, g = _f32(*_card_case(H, 10_000, False, H, cuda))
         _run(env, dirs, tf, g, plain=False)
         with torch.no_grad():
             lights.equirect_query(env, dirs)
-    assert ((elc.launches, elc.bwd_launches),
-            [trace.counter(c) for c in COUNTERS]) == (
-        (before[0][0] + 4, before[0][1] + 2),
-        [before[1][0] + 4, before[1][1] + 2, before[1][2] + 1])
+    assert [trace.counter(c) for c in COUNTERS] == [
+        before[0] + 4, before[1] + 2, before[2] + 1]
 
 
 @pytest.mark.cuda
@@ -377,13 +372,13 @@ def test_card_refusals_launch_nothing(cuda, case):
         tf = tf.cpu()
     elif case == "strided":
         dirs = dirs.T.contiguous().T
-    before = (elc.launches, elc.bwd_launches)
+    before = [trace.counter(c) for c in COUNTERS]
     with pytest.raises(ValueError):
         if case == "strided":
             elc.env_lookup(env, dirs, tf)
         else:
             lights.equirect_query(env, dirs, tf)
-    assert (elc.launches, elc.bwd_launches) == before
+    assert [trace.counter(c) for c in COUNTERS] == before
 
 
 @pytest.mark.cuda

@@ -124,6 +124,65 @@ def test_sources_never_import_imageio():
     assert offenders == []
 
 
+def test_ops_never_import_models():
+    """ops/ is the layer below models/: no module of it imports from there
+    (the light models' lookup is ops/env_lookup_cuda.py's)."""
+    pattern = re.compile(r"^\s*(from \.\.models\b|from \.\. import .*\bmodels\b"
+                         r"|(from|import) relightable3dgaussian_tpu_torch"
+                         r"\.models\b)", re.MULTILINE)
+    files = sorted((PORT / "ops").glob("*.py"))
+    assert len(files) > 10
+    assert [f.name for f in files if pattern.search(f.read_text())] == []
+
+
+def test_ops_call_foreign_code_only_through_build():
+    """Under ops/, ctypes, argtypes, the stream handle and the launch error
+    appear in _build.py alone: every kernel launch goes through its
+    `Entry`."""
+    pattern = re.compile(r"ctypes|argtypes|cuda_stream|launch failed")
+    files = sorted((PORT / "ops").glob("*.py"))
+    assert [f.name for f in files if pattern.search(f.read_text())] == [
+        "_build.py"]
+
+
+# Every C entry point of the port, by its label in errors.
+ENTRY_LABELS = ["K1", "K2", "K5", "decisions", "K3", "K4-fwd", "K4-bwd", "K6",
+                "env lookup forward", "env lookup backward"]
+C_KINDS = {"const void*": "p", "void*": "p", "int": "i", "int64_t": "q"}
+
+
+def ops_entries() -> dict:
+    """{label: Entry} of every kernel wrapper under ops/."""
+    from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
+                                                     env_lookup_cuda,
+                                                     ray_trace_cuda,
+                                                     shading_cuda,
+                                                     shading_eval_cuda)
+    modules = (composite_cuda, env_lookup_cuda, ray_trace_cuda, shading_cuda,
+               shading_eval_cuda)
+    return {e.label: e for m in modules for e in vars(m).values()
+            if isinstance(e, _build.Entry)}
+
+
+def test_every_launch_is_a_declared_entry():
+    assert sorted(ops_entries()) == sorted(ENTRY_LABELS)
+
+
+@pytest.mark.parametrize("label", ENTRY_LABELS)
+def test_entry_declares_its_c_signature(label):
+    """An entry's argument kinds are its source's `extern "C"` parameters
+    in order (pointers, int, int64_t), and the last parameter is the
+    stream the call appends."""
+    entry = ops_entries()[label]
+    src = (PORT / "csrc" / f"{entry.source}.cu").read_text()
+    head = f'extern "C" int {entry.symbol}('
+    assert src.count(head) == 1
+    params = [p.split() for p in src.split(head)[1].split(")")[0].split(",")]
+    assert params[-1] == ["void*", "stream"]
+    kinds = "".join(C_KINDS[" ".join(p[:-1])] for p in params[:-1])
+    assert kinds == entry.kinds
+
+
 def test_tf32_is_off_after_import():
     import relightable3dgaussian_tpu_torch  # noqa: F401
     assert torch.backends.cuda.matmul.allow_tf32 is False
