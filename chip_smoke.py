@@ -14,13 +14,14 @@ no result line is printed):
   2. build    compiles kernels K1 (csrc/composite_fwd.cu), K2
               (csrc/composite_bwd.cu), K3 (csrc/ray_trace.cu), K4
               (csrc/shading.cu), K5 (csrc/composite_bwd_two_walk.cu), K6
-              (csrc/shading_eval.cu), the env lookup (csrc/env_lookup.cu)
-              and the check kernel csrc/composite_decisions.cu (K1's blend
+              (csrc/shading_eval.cu), the env lookup (csrc/env_lookup.cu),
+              K7 (csrc/projection.cu) and the check kernel
+              csrc/composite_decisions.cu (K1's blend
               decisions at given pixels, for k2-split), with nvcc, all at
               once, and prints ptxas's registers, spills
               and shared memory for csrc/ray_trace.cu, csrc/shading.cu,
-              csrc/composite_bwd_two_walk.cu, csrc/shading_eval.cu and
-              csrc/env_lookup.cu and
+              csrc/composite_bwd_two_walk.cu, csrc/shading_eval.cu,
+              csrc/env_lookup.cu and csrc/projection.cu and
               for each source given with --ptxas-also (another version of
               one, to compare);
   3. k1-mid   K1 against the plain compositor on a seeded 20k-gaussian
@@ -117,6 +118,14 @@ no result line is printed):
               error), the private gradient bitwise the same in two runs, a
               launch a call; each kernel timed beside its bound and
               grid_sample's time (library_ms, the yardstick only);
+     k7       K7, the projection (csrc/projection.cu), at s1-train's
+              shape (300,000 gaussians of SH degree 3 with their
+              opacities, 800 x 800): one launch each way, k7_check (every
+              float output and gradient against the plain path in float64
+              but at the points that sit at a branch; the integer outputs
+              equal to the plain float32 path's but near an integer);
+              forward and backward timed beside their bound and the plain
+              path's time;
  15. stage2-eval  models.render_neilf.render_neilf(is_training=False) of
               the 8 views at 800x800 (32 splatted channels), K1 and K6 once
               a view;
@@ -299,6 +308,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -323,7 +333,8 @@ from relightable3dgaussian_tpu_torch.models.render import (ViewInputs, render,
 from relightable3dgaussian_tpu_torch.models.render_neilf import (
     EVAL_FEATURE_DIM, render_neilf, update_visibility, visibility_rays)
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
-                                                 env_lookup_cuda, ray_trace,
+                                                 env_lookup_cuda,
+                                                 projection_cuda, ray_trace,
                                                  ray_trace_cuda, shading_cuda,
                                                  shading_eval_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import (CameraParams,
@@ -334,8 +345,9 @@ from relightable3dgaussian_tpu_torch.ops.composite import (
     BLEND_AT_CAP, composite_backward, replay_backward, split_pixels,
     walk_state)
 from relightable3dgaussian_tpu_torch.ops.config import RasterConfig
-from relightable3dgaussian_tpu_torch.ops.projection import (Preprocessed,
-                                                           preprocess)
+from relightable3dgaussian_tpu_torch.ops.projection import (
+    Preprocessed, compute_cov2d, full_covariance, preprocess,
+    preprocess_plain)
 from relightable3dgaussian_tpu_torch.ops.rasterize import prepare, rasterize
 from relightable3dgaussian_tpu_torch.ops.rasterize_dense import (
     _alpha_at, rasterize_dense)
@@ -373,8 +385,9 @@ from relightable3dgaussian_tpu_torch.utils import trace
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
 from relightable3dgaussian_tpu_torch.utils.quaternions import (
-    strip_symmetric, unpack_symmetric)
-from relightable3dgaussian_tpu_torch.utils.sh import C0, rgb_to_sh
+    build_covariance, strip_symmetric, unpack_symmetric)
+from relightable3dgaussian_tpu_torch.utils.sh import (C0, eval_sh_basis,
+                                                      rgb_to_sh)
 from relightable3dgaussian_tpu_torch.utils.timing import Timing
 
 ROOT = Path(__file__).resolve().parent
@@ -504,6 +517,32 @@ ENV_FWD_TOL, ENV_BWD_TOL, ENV_SLACK = 1e-6, 1e-5, 2.0
 ENV_SOURCE = "relightable3dgaussian_tpu_torch/csrc/env_lookup.cu"
 ENV_REPLACES = ("none: the JAX package leaves the env lookup to XLA "
                 "(models/lights.py); the port had F.grid_sample")
+# K7, the projection (csrc/projection.cu), at s1-train's shape: 300,000
+# gaussians of SH degree 3 with their opacities at 800 x 800. k7_check holds
+# K7 and the plain float32 path (ops/projection.py::preprocess_plain and
+# autograd) against the plain path in float64 (and autograd), per float
+# output and gradient, leaving out the points that sit at a branch in
+# float64 (k7_points: the colour's clamp at 0, the Jacobian's x/y clamp,
+# det(cov2d) at 0), where a last bit flips the branch and with it a
+# gradient. Every other entry is within K7_TOL of the field's largest
+# float64 entry (a few float32 ulps of it), or within K7_SLACK times the
+# plain float32 path's largest error over those same entries: for
+# needle-shaped gaussians det = xx yy - xy^2 cancels, so both float32
+# conics part from float64 by ~2e-5 of the field's largest entry, and the
+# EWA Jacobian carries that into the gradients. Each field is held so
+# twice, each time at its own scale: over the points in front of the near
+# plane, and over the culled ones, whose outputs no later stage reads and
+# whose means' gradients run to 1e9 near the camera's plane. The integer
+# outputs equal the plain float32 path's but at points whose value before
+# rounding lies within K7_NEAR of its scale of an integer or the cull; those
+# apart, and the points at a branch, are each fewer than K7_RARE of P.
+K7_P = 300_000
+K7_TOL, K7_SLACK = 1e-5, 2.0
+K7_NEAR = 2.0 ** -19          # of a value's scale: 8 to 16 float32 ulps
+K7_RARE = 1e-4
+K7_SOURCE = "relightable3dgaussian_tpu_torch/csrc/projection.cu"
+K7_REPLACES = ("none: the JAX package leaves the projection to XLA "
+               "(ops/projection.py::preprocess); the port had eager PyTorch")
 S_MID = 16                                   # samples per point, mid phases
 SAMPLE_NUM = PipelineConfig().sample_num     # 64
 ENV_RES = ModelConfig().env_resolution       # 16: a 16x32 env map
@@ -662,6 +701,36 @@ def k1_split(args, got, walk) -> tuple:
     return want, split_pixels(got.n_contrib, walk, want.n_contrib, want_walk)
 
 
+def split_weights(got_w, want_w, split, binnings, label: str) -> dict:
+    """Two renders' weights [P], where their compositors blended other
+    pairs at the `split` pixels ([num_tiles, 256]): the gaussians with a
+    pair in the range of a tile that holds a split pixel (in any of
+    `binnings`) may move, by at most 2/255 in sum for each split pixel;
+    every other weight is held to W_RTOL, W_ATOL (IMG_ATOL's note). Raises
+    AssertionError; returns the numbers for the kernels line."""
+    near = torch.zeros_like(got_w, dtype=torch.bool)
+    split_tiles = torch.nonzero(split.any(1)).flatten().tolist()
+    for binning in binnings:
+        starts = binning.tile_start.tolist()
+        ends = binning.tile_end.tolist()
+        for t in split_tiles:
+            near[binning.sorted_ids[starts[t]:ends[t]].long()] = True
+    torch.testing.assert_close(got_w[~near], want_w[~near], rtol=W_RTOL,
+                               atol=W_ATOL)
+    w_diff = (got_w - want_w).abs()
+    moved = near & (w_diff > W_ATOL + W_RTOL * want_w.abs())
+    n_split = int(split.sum())
+    moved_sum = float(w_diff[moved].sum())
+    if moved_sum > 2 / 255 * n_split:
+        raise AssertionError(
+            f"{label}: {int(moved.sum())} weights of the split pixels' tiles "
+            f"off by {moved_sum} in sum (beyond {W_RTOL} rel, {W_ATOL} abs) "
+            f"with {n_split} split pixels")
+    return {"w_err": float(w_diff[~moved].max()), "split_pixels": n_split,
+            "split_tiles": len(split_tiles), "moved": int(moved.sum()),
+            "moved_sum": moved_sum}
+
+
 def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     """K1 against the plain compositor on the same card inputs; raises on
     disagreement. Returns the numbers for the kernels line."""
@@ -685,26 +754,7 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
             f" of them split pixels (their stops or final T apart: "
             f"ops/composite.py::split_pixels); {e}") from None
     img_err = float((got.image[agree] - want.image[agree]).abs().max())
-    # the gaussians with a pair in the range of a tile that holds a split
-    # pixel; every other weight is held to W_RTOL, W_ATOL
-    binning = args[0]
-    starts, ends = binning.tile_start.tolist(), binning.tile_end.tolist()
-    near = torch.zeros_like(got.weights, dtype=torch.bool)
-    split_tiles = torch.nonzero(split.any(1)).flatten().tolist()
-    for t in split_tiles:
-        near[binning.sorted_ids[starts[t]:ends[t]].long()] = True
-    torch.testing.assert_close(got.weights[~near], want.weights[~near],
-                               rtol=W_RTOL, atol=W_ATOL)
-    w_diff = (got.weights - want.weights).abs()
-    moved = near & (w_diff > W_ATOL + W_RTOL * want.weights.abs())
-    n_split = int(split.sum())
-    w_err = float(w_diff[~moved].max())
-    moved_sum = float(w_diff[moved].sum())
-    if moved_sum > 2 / 255 * n_split:
-        raise AssertionError(
-            f"{label}: {int(moved.sum())} weights of the split pixels' tiles "
-            f"off by {moved_sum} in sum (beyond {W_RTOL} rel, {W_ATOL} abs) "
-            f"with {n_split} split pixels")
+    w = split_weights(got.weights, want.weights, split, (args[0],), label)
 
     k1_ms = cuda_ms(lambda: composite_cuda.composite_k1(*args), k1_reps)
     plain_ms = cuda_ms(lambda: composite_plain(*args), plain_reps)
@@ -713,13 +763,13 @@ def check_k1(args, label: str, k1_reps: int = 10, plain_reps: int = 3) -> dict:
     bnd = bound(compositor_inputs_bytes(args) + nbytes(
         got.image, got.n_contrib, got.weights if args[-1].compute_weights
         else None, *walk), walked * WALK_OPS + blended * (3 + 2 * A))
-    say(label, pairs=binning.num_rendered, tiles=args[-1].num_tiles,
+    say(label, pairs=args[0].num_rendered, tiles=args[-1].num_tiles,
         attrs=A, weights=args[-1].compute_weights,
         n_contrib_equal=f"{agree_frac:.6f}", image_max_abs_err=img_err,
-        weights_max_abs_err=w_err, split_pixels=n_split,
+        weights_max_abs_err=w["w_err"], split_pixels=w["split_pixels"],
         count_equal_splits=int((split & agree).sum()),
-        split_tiles=len(split_tiles), weights_moved_by_splits=int(moved.sum()),
-        weights_moved_sum=f"{moved_sum:.3e}", k1_ms=f"{k1_ms:.4f}",
+        split_tiles=w["split_tiles"], weights_moved_by_splits=w["moved"],
+        weights_moved_sum=f"{w['moved_sum']:.3e}", k1_ms=f"{k1_ms:.4f}",
         plain_ms=f"{plain_ms:.4f}", pixel_pairs_walked=walked,
         pixel_pairs_blended=blended, bound_ms=f"{bnd['bound_ms']:.4f}",
         bound_by=bnd["bound_by"])
@@ -1081,7 +1131,9 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
                           timer=timer)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = {"K1": trace.counter("k1.launches"), "K2": trace.counter("k2.launches")}
+    launches = {"K1": trace.counter("k1.launches"), "K2": trace.counter("k2.launches"),
+                "K7": trace.counter("k7.launches"),
+                "K7-bwd": trace.counter("k7.bwd_launches")}
 
     n_steps = opt.iterations
     loss = np.array([float(m[1]) for m in steps])
@@ -1090,9 +1142,8 @@ def train_phase(gt_model: GaussianModel, size: int, n_views: int, n_init: int,
     if len(steps) != n_steps or not np.isfinite(loss).all():
         raise AssertionError(f"train: {len(steps)} steps, non-finite loss at "
                              f"{np.flatnonzero(~np.isfinite(loss))[:5]}")
-    if launches["K1"] != n_steps or launches["K2"] != n_steps:
-        raise AssertionError(f"train: {n_steps} steps launched K1 "
-                             f"{launches['K1']} and K2 {launches['K2']} times")
+    if set(launches.values()) != {n_steps}:
+        raise AssertionError(f"train: {n_steps} steps launched {launches}")
     first, last = psnr[:n_views].mean(), psnr[-n_views:].mean()
     if not last > first:
         raise AssertionError(f"train: PSNR did not rise ({first} -> {last})")
@@ -1757,6 +1808,266 @@ def env_lookup_phase(device, reps: int = 20, plain_reps: int = 5) -> dict:
     return report
 
 
+def k7_case(device) -> tuple:
+    """(preprocess's keyword inputs, camera, cfg, upstream gradients of
+    mean2d, depth, conic and rgb) at K7_P points of make_scene with its
+    opacities, orbit view 0 at SIZE_MAIN, seeded; the means, scales,
+    rotations and SH rows need a gradient."""
+    d = make_scene(K7_P, SEED + 23, None)
+    g = torch.Generator(device=device).manual_seed(SEED + 23)
+
+    def t(a, grad=True):
+        return torch.as_tensor(a, device=device).float().requires_grad_(grad)
+
+    # make_scene's scales are isotropic: stretch them so that the
+    # covariance, and the rotations' gradient, depend on the rotation
+    stretch = np.random.default_rng(SEED + 23).uniform(0.5, 1.5, (K7_P, 3))
+    x = {"means3d": t(d["xyz"]), "scales": t(np.exp(d["scaling"]) * stretch),
+         "rotations": t(d["rotation"]),
+         "shs": t(np.concatenate([d["shs_dc"], d["shs_rest"]], 1)),
+         "opacity": t(1 / (1 + np.exp(-d["opacity"][:, 0])), False)}
+    cam = orbit_view(0, VIEWS, SIZE_MAIN, device).cam
+    grads = [torch.randn(s, generator=g, device=device)
+             for s in ((K7_P, 2), (K7_P,), (K7_P, 3), (K7_P, 3))]
+    return x, cam, RasterConfig(SIZE_MAIN, SIZE_MAIN), grads
+
+
+class K7Points(NamedTuple):
+    """[P] bool masks of k7_points."""
+    integer: torch.Tensor    # an integer output rests on a last bit
+    branch: torch.Tensor     # a float output or gradient rests on a branch
+    culled: torch.Tensor     # view depth <= 0.2
+
+
+def k7_points(x: dict, cam: CameraParams, cfg: RasterConfig) -> K7Points:
+    """Computed in float64 from preprocess's inputs `x` as preprocess_plain
+    computes them. `integer`: a value before ceil (3 sqrt(lambda_max), the
+    alpha-aware radius), truncation or floor (the tile rect's four
+    quotients) within K7_NEAR of its scale of an integer, or the depth of
+    the 0.2 cull. `branch`: the colour before its clamp (SH + 0.5) within
+    K7_NEAR of the sum of its terms' sizes of 0, |t_x / t_z| or |t_y / t_z|
+    within K7_NEAR of theirs of the Jacobian's clamp 1.3 tan(fov), or
+    det(cov2d) within K7_NEAR of its size of 0: xx yy + xy^2 of the sizes
+    of cov2d's entries, each the sum of its terms' sizes (|T| |Sigma| |T|^T
+    + 0.3 I, T = J W)."""
+    d = {k: None if v is None else v.detach().double() for k, v in x.items()}
+    cam64 = CameraParams(*(t.double() for t in cam))
+    means = d["means3d"]
+    P = means.shape[0]
+    if d.get("cov3d_precomp") is not None:
+        cov3d = full_covariance(d["cov3d_precomp"], P)
+    else:
+        cov3d = build_covariance(d["scales"], d["rotations"],
+                                 cfg.scale_modifier)
+    cov2d = compute_cov2d(means, cov3d, cam64)
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
+    mid = 0.5 * (cov2d[:, 0] + cov2d[:, 2])
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    xyz1 = torch.cat([means, torch.ones_like(means[:, :1])], -1)
+    view = xyz1 @ cam64.world_view
+    view_size = xyz1.abs() @ cam64.world_view.abs()   # its terms' sizes
+    depth = view[:, 2]
+    hom = xyz1 @ cam64.full_proj
+    size = torch.tensor([cfg.width, cfg.height], dtype=torch.float64,
+                        device=hom.device)
+    m2d = ((hom[:, :2] / (hom[:, 3:] + 1e-7) + 1.0) * size - 1.0) * 0.5
+    if d.get("mean2d_offset") is not None:
+        m2d = m2d + d["mean2d_offset"]
+
+    def near(v, scale):
+        return (v - torch.round(v)).abs() <= K7_NEAR * torch.clamp(
+            scale.abs(), min=1.0)
+
+    radius_arg = 3.0 * torch.sqrt(torch.clamp(lam, min=0.0))
+    integer = near(radius_arg, radius_arg)
+    integer |= (depth - 0.2).abs() <= K7_NEAR * depth.abs().clamp(min=1.0)
+    r = torch.where((depth > 0.2) & (det != 0.0), torch.ceil(radius_arg), 0.0)
+    if d.get("opacity") is not None:
+        op = torch.clamp(d["opacity"], min=0.0)
+        alpha_arg = torch.sqrt(torch.clamp(
+            2.0 * lam * torch.log(torch.clamp(op, min=1e-12) * 255.0),
+            min=0.0))
+        integer |= near(alpha_arg, alpha_arg)
+        r = torch.where((op * 255.0 <= 1.0) | (r == 0.0), 0.0,
+                        torch.minimum(r, torch.ceil(alpha_arg)))
+    r = r[:, None]
+    scale = (m2d.abs() + r) / cfg.tile
+    integer |= (near((m2d - r) / cfg.tile, scale)
+                | near((m2d + r + cfg.tile - 1) / cfg.tile, scale)).any(-1)
+
+    u = view[:, :2] / depth[:, None]
+    u_size = (view_size[:, :2] + u.abs() * view_size[:, 2:3]) / depth.abs()[
+        :, None]
+    lim = 1.3 * cam64.tan_fov
+    branch = ((u.abs() - lim).abs() <= K7_NEAR * u_size).any(-1)
+    t_xy = torch.minimum(torch.maximum(u, -lim), lim) * depth[:, None]
+    f = cam64.focal
+    J = torch.zeros((P, 2, 3), dtype=torch.float64, device=means.device)
+    J[:, 0, 0], J[:, 1, 1] = f[0] / depth, f[1] / depth
+    J[:, :, 2] = f * t_xy / (depth * depth)[:, None]
+    T = J.abs() @ cam64.world_view[:3, :3].T.abs()
+    size2d = T @ cov3d.abs() @ T.transpose(-1, -2)
+    det_size = ((size2d[:, 0, 0] + 0.3) * (size2d[:, 1, 1] + 0.3)
+                + size2d[:, 0, 1] ** 2)
+    branch |= det.abs() <= K7_NEAR * det_size
+    if d.get("colors") is None:
+        n = (cfg.sh_degree + 1) ** 2
+        dirs = means - cam64.campos[None, :]
+        dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1,
+                                                    keepdim=True), min=1e-12)
+        terms = eval_sh_basis(cfg.sh_degree, dirs)[:, :n, None] * d["shs"][
+            :, :n]
+        raw = terms.sum(1) + 0.5
+        branch |= (raw.abs() <= K7_NEAR * (terms.abs().sum(1) + 0.5)).any(-1)
+    return K7Points(integer, branch, depth <= 0.2)
+
+
+def k7_run(fn, x: dict, cam, cfg, g) -> tuple[Preprocessed, dict]:
+    """fn's outputs on `x` and the gradients of x's leaves for the upstream
+    gradients g of (mean2d, depth, conic, rgb)."""
+    prep = fn(cam=cam, cfg=cfg, **x)
+    outs = (prep.mean2d, prep.depth, prep.conic, prep.rgb)
+    leaves = {k: v for k, v in x.items()
+              if isinstance(v, torch.Tensor) and v.requires_grad}
+    grads = torch.autograd.grad(outs, list(leaves.values()), g,
+                                allow_unused=True)
+    return prep, dict(zip(leaves, grads))
+
+
+def k7_check(kernel, x: dict, cam, cfg, g, label: str,
+             rare: float = K7_RARE) -> dict:
+    """`kernel`, a function of preprocess's arguments (on CUDA tensors
+    `preprocess`, which runs K7), and preprocess_plain in float32 on the
+    same inputs, against preprocess_plain in float64, as K7_TOL's note
+    says; `rare` in place of K7_RARE. Raises AssertionError naming every
+    field past its bound. Returns, per field and group (front, culled), the
+    errors of the kernel and of the plain float32 path and the float64
+    scale, and the points counted."""
+    got, got_g = k7_run(kernel, x, cam, cfg, g)
+    want, want_g = k7_run(preprocess_plain, x, cam, cfg, g)
+    x64 = {k: None if v is None else v.detach().double().requires_grad_(
+        v.requires_grad) for k, v in x.items()}
+    exact, exact_g = k7_run(preprocess_plain, x64,
+                            CameraParams(*(t.double() for t in cam)), cfg,
+                            [t.double() for t in g])
+    pts = k7_points(x, cam, cfg)
+    P = pts.branch.numel()
+    faults, errs = [], {}
+    if not set(got_g) == set(want_g) == set(exact_g):
+        faults.append(f"gradients of {sorted(got_g)}, expected "
+                      f"{sorted(exact_g)}")
+    fields = [*((n, getattr(got, n), getattr(want, n), getattr(exact, n))
+                for n in ("mean2d", "depth", "conic", "rgb")),
+              *(("d_" + n, got_g.get(n), want_g[n], exact_g[n])
+                for n in exact_g)]
+    for name, k, p, e in fields:
+        if k is None:
+            faults.append(f"{name}: absent")
+            continue
+        k, p, e = k.detach().double(), p.detach().double(), e.detach()
+        finite = torch.isfinite(e)
+        if not (torch.equal(torch.isfinite(k), finite)
+                and torch.equal(torch.isfinite(p), finite)):
+            faults.append(f"{name}: finite elsewhere than float64")
+            continue
+        for group, rows in (("front", ~pts.culled), ("culled", pts.culled)):
+            sel = rows & ~pts.branch
+            ok = finite[sel]
+            e_s, k_s, p_s = e[sel][ok], k[sel][ok], p[sel][ok]
+            if e_s.numel() == 0:
+                continue
+            scale = float(e_s.abs().max())
+            e_k = float((k_s - e_s).abs().max())
+            e_p = float((p_s - e_s).abs().max())
+            errs[f"{name}.{group}"] = (f"{e_k:.2e}", f"{e_p:.2e}",
+                                       f"{scale:.2e}")
+            if not e_k <= max(K7_TOL * scale, K7_SLACK * e_p):
+                faults.append(f"{name}.{group}: {e_k:.3e} from float64, the "
+                              f"plain float32 path {e_p:.3e}, scale "
+                              f"{scale:.3e}")
+    if "shs" in got_g and x.get("colors") is None and cfg.sh_degree < 3:
+        n = (cfg.sh_degree + 1) ** 2
+        if float(got_g["shs"][:, n:].abs().max()) != 0.0:
+            faults.append("d_shs: not 0 past the active degree")
+    apart = torch.zeros_like(pts.branch)
+    for name in ("radius", "rect_min", "rect_max", "tiles_touched"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != torch.int32 or a.shape != b.shape:
+            faults.append(f"{name}: {a.dtype} {tuple(a.shape)}")
+            continue
+        apart |= (a != b) if a.dim() == 1 else (a != b).any(-1)
+    errs.update(int_apart=int(apart.sum()),
+                near_integer=int(pts.integer.sum()),
+                unexplained=int((apart & ~pts.integer).sum()),
+                at_branch=int(pts.branch.sum()), culled=int(pts.culled.sum()))
+    if errs["unexplained"]:
+        faults.append(f"{errs['unexplained']} points' integer outputs apart "
+                      "from the plain float32 path's, none near an integer")
+    for count in ("int_apart", "at_branch"):
+        if errs[count] >= rare * P:
+            faults.append(f"{count} {errs[count]} points of {P}, not fewer "
+                          f"than {rare} of them")
+    if faults:
+        raise AssertionError(f"{label}: " + "; ".join(faults) + f" ({errs})")
+    return errs
+
+
+def k7_phase(device, reps: int = 20, plain_reps: int = 5) -> dict:
+    """K7's forward and backward at s1-train's shape: one launch each way
+    and k7_check; then each kernel timed (the wrapper's call: `preprocess`
+    without grad, and `project_bwd`) beside its bound (bytes read and
+    written once, the operations of benchmark/work.py's PROJECTION_OPS,
+    twice that backward) and the plain path's time (the forward, and
+    autograd's backward of its graph)."""
+    from benchmark.work import PROJECTION_OPS
+    x, cam, cfg, g = k7_case(device)
+    leaves = ("means3d", "scales", "rotations", "shs")
+    before = (trace.counter("k7.launches"), trace.counter("k7.bwd_launches"))
+    errs = k7_check(preprocess, x, cam, cfg, g, "k7")
+    launched = [trace.counter("k7.launches") - before[0],
+                trace.counter("k7.bwd_launches") - before[1]]
+    if launched != [1, 1]:
+        raise AssertionError(f"k7: launches {launched} for one forward and "
+                             "one backward")
+    with torch.no_grad():
+        got = preprocess(cam=cam, cfg=cfg, **x)
+        fwd_ms = cuda_ms(lambda: preprocess(cam=cam, cfg=cfg, **x), reps)
+        plain_fwd_ms = cuda_ms(
+            lambda: preprocess_plain(cam=cam, cfg=cfg, **x), plain_reps)
+        cams = (cam.world_view, cam.full_proj, cam.campos, cam.focal,
+                cam.tan_fov)
+        layout = projection_cuda.check_inputs(
+            *(x[k].detach() for k in leaves), None, None, x["opacity"], None,
+            cams, cfg)
+        inputs = [x[k].detach() for k in leaves]
+        bwd_ms = cuda_ms(lambda: projection_cuda.project_bwd(
+            *inputs, None, cams, *g, layout), reps)
+    plain = preprocess_plain(cam=cam, cfg=cfg, **x)
+    outs = [getattr(plain, k) for k in ("mean2d", "depth", "conic", "rgb")]
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        outs, [x[k] for k in leaves], g, retain_graph=True), plain_reps)
+    del plain, outs
+    fwd_bytes = nbytes(*inputs, x["opacity"]) + nbytes(*(
+        getattr(got, k) for k in Preprocessed._fields))
+    bwd_bytes = nbytes(*inputs, *g) + nbytes(*inputs)
+    fwd_b = bound(fwd_bytes, K7_P * PROJECTION_OPS)
+    bwd_b = bound(bwd_bytes, 2 * K7_P * PROJECTION_OPS)
+    say("k7", gaussians=K7_P, size=f"{SIZE_MAIN}x{SIZE_MAIN}", sh_degree=3,
+        card=f"'{CARD}'", err_kernel_plain_vs_float64_scale=errs,
+        launches_fwd_bwd=launched, fwd_ms=f"{fwd_ms:.4f}",
+        fwd_bound_ms=f"{fwd_b['bound_ms']:.4f}",
+        fwd_plain_ms=f"{plain_fwd_ms:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+        bwd_bound_ms=f"{bwd_b['bound_ms']:.4f}",
+        bwd_plain_ms=f"{plain_bwd_ms:.4f}", fwd_bytes=fwd_bytes,
+        bwd_bytes=bwd_bytes, bound_by=(fwd_b["bound_by"], bwd_b["bound_by"]),
+        peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "fwd_bound_ms": fwd_b["bound_ms"],
+            "bwd_bound_ms": bwd_b["bound_ms"], "fwd_plain_ms": plain_fwd_ms,
+            "bwd_plain_ms": plain_bwd_ms,
+            "int_points_apart": errs["int_apart"]}
+
+
 def k4_branch_deltas(n: int, deltas=K4_BRANCH_DELTAS) -> np.ndarray:
     """Point i's delta: the (i // 2)-th of `deltas` in turn, + on even i and
     - on odd."""
@@ -2083,7 +2394,8 @@ LAUNCH_COUNTERS = {"K1": "k1.launches", "K2": "k2.launches",
                    "K3": "k3.launches", "K4-fwd": "k4.launches",
                    "K4-bwd": "k4.bwd_launches", "K5": "k5.launches",
                    "K6": "k6.launches", "env-fwd": "env.lookup_launches",
-                   "env-bwd": "env.lookup_bwd_launches"}
+                   "env-bwd": "env.lookup_bwd_launches", "K7": "k7.launches",
+                   "K7-bwd": "k7.bwd_launches"}
 
 
 def reset_launches() -> None:
@@ -2138,7 +2450,8 @@ def stage2_phase(trained: dict, device) -> dict:
         raise AssertionError(f"stage2: {len(steps)} steps, non-finite loss at "
                              f"{np.flatnonzero(~np.isfinite(loss))[:5]}")
     per_step = {k: launches[k]
-                for k in ("K1", "K2", "K4-fwd", "K4-bwd", "env-fwd", "env-bwd")}
+                for k in ("K1", "K2", "K4-fwd", "K4-bwd", "env-fwd", "env-bwd",
+                          "K7", "K7-bwd")}
     if set(per_step.values()) != {STAGE2_STEPS} or launches["K3"] < 1:
         raise AssertionError(f"stage2: {STAGE2_STEPS} steps launched "
                              f"{launches}")
@@ -3498,7 +3811,7 @@ def near_threshold_pixels(x, cam, cfg: RasterConfig) -> torch.Tensor:
     a blended pair's incoming T lies within DENSE_NEAR of 1e-4."""
     means, scales, rots, opacity, shs, _ = (t.detach().double() for t in x)
     cam = CameraParams(*(t.double() for t in cam))
-    prep = preprocess(means, scales, rots, shs, cam, cfg)
+    prep = preprocess_plain(means, scales, rots, shs, cam, cfg)
     order = torch.argsort(prep.depth, stable=True)
     sp = Preprocessed(*(t[order] for t in prep))
     H, W = cfg.height, cfg.width
@@ -3622,11 +3935,17 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
     same inputs (the 10-tuple; the weights, summed by K1's atomics, under
     k1-main's weights bounds, the rest bitwise), with the SH colour and the
     covariance given precomputed, packed [P, 6] (get_covariance()) and full
-    [P, 3, 3] (it unpacked) (k1-main's gate: the covariance's packing may
-    move a last bit), and mark_visible against view z > 0.2. K2's gradient
-    reaches both layouts: the full one's, symmetrized, is the packed one's
-    within K2_TOL of its largest entry. Returns K1's launches by the facade,
-    and K1's and K2's with the full layout."""
+    [P, 3, 3] (it unpacked), and mark_visible against view z > 0.2. The
+    precomputed covariance's render is held so against rasterize given the
+    same covariance, and against the render of the scales and rotations
+    under k1-main's gates (IMG_ATOL's note): K7 builds that covariance in
+    its own order, a last bit from get_covariance's, and so the two
+    renders' K1 walks may split pixels (split_pixels), held fewer than
+    1 - COUNT_AGREE of them, whose tiles' weights may move (split_weights).
+    K2's gradient reaches both
+    layouts: the full one's, symmetrized, is the packed one's within K2_TOL
+    of its largest entry. Returns K1's launches by the facade, and K1's and
+    K2's with the full layout."""
     cam = view.cam
     size = SIZE_MAIN
     settings = GaussianRasterizationSettings(
@@ -3647,12 +3966,31 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
     want = rasterize(model.xyz, model.get_scaling, model.get_rotation,
                      model.get_opacity, model.get_shs, feats, cam=r.cam,
                      cfg=cfg, bg_color=settings.bg)
-    want = (want.num_rendered, want.n_contrib, want.color, want.opacity,
-            want.depth, want.feature, want.pseudo_normal, want.surface_xyz,
-            want.weights, want.radii)
+    packed = model.get_covariance().detach()
+    want_cov = rasterize(model.xyz, None, None, model.get_opacity,
+                         model.get_shs, feats, cam=r.cam, cfg=cfg,
+                         bg_color=settings.bg, cov3d_precomp=packed)
+    want, want_cov = ((w.num_rendered, w.n_contrib, w.color, w.opacity,
+                       w.depth, w.feature, w.pseudo_normal, w.surface_xyz,
+                       w.weights, w.radii) for w in (want, want_cov))
     prep = preprocess(model.xyz, model.get_scaling, model.get_rotation,
                       model.get_shs, r.cam, cfg)
-    packed = model.get_covariance().detach()
+    # the pixels whose K1 walks the covariance's last bits split
+    walks, binnings = [], []
+    for cov, sr in ((None, inputs), (packed, {"scales": None,
+                                              "rotations": None})):
+        p, binning, attrs = prepare(
+            model.xyz, sr["scales"], sr["rotations"], model.get_opacity,
+            model.get_shs, feats, r.cam, cfg, cov3d_precomp=cov)
+        walks.append(composite_cuda.composite_k1(
+            binning, p.mean2d.contiguous(), p.conic.contiguous(),
+            model.get_opacity[:, 0].contiguous(), attrs.contiguous(), cfg))
+        binnings.append(binning)
+    (out_a, walk_a), (out_b, walk_b) = walks
+    split = split_pixels(out_a.n_contrib, walk_a, out_b.n_contrib, walk_b)
+    if int(split.sum()) > (1 - COUNT_AGREE) * size * size:
+        raise AssertionError(f"facade: {int(split.sum())} pixels split by "
+                             "the precomputed covariance")
     cases = {"shs": inputs,
              "colors_precomp": {**inputs, "shs": None,
                                 "colors_precomp": prep.rgb},
@@ -3666,12 +4004,16 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
         got, ms = timed_ms(lambda: r(**common, **kw))
         outs[name] = got
         launches.append(trace.counter("k1.launches"))
-        if len(got) != 10 or got[0] != want[0] or launches[-1] != 1:
+        ref = want_cov if name.startswith("cov3d") else want
+        if len(got) != 10 or got[0] != ref[0] or launches[-1] != 1:
             raise AssertionError(f"facade {name}: {len(got)} outputs, "
-                                 f"{got[0]} pairs ({want[0]}), K1 launched "
+                                 f"{got[0]} pairs ({ref[0]}), K1 launched "
                                  f"{launches[-1]} times")
-        bitwise = [bool(torch.equal(a, b)) for a, b in zip(got[1:], want[1:])]
-        torch.testing.assert_close(got[8], want[8], rtol=W_RTOL, atol=W_ATOL)
+        bitwise = [bool(torch.equal(a, b)) for a, b in zip(got[1:], ref[1:])]
+        torch.testing.assert_close(got[8], ref[8], rtol=W_RTOL, atol=W_ATOL)
+        if not all(bitwise[:7] + bitwise[8:]):
+            raise AssertionError(f"facade {name}: outputs apart from "
+                                 f"rasterize's: bitwise {bitwise}")
         if name.startswith("cov3d"):
             agree = got[1] == want[1]
             if float(agree.float().mean()) < COUNT_AGREE:
@@ -3679,13 +4021,16 @@ def facade_phase(model: GaussianModel, view: ViewInputs) -> dict:
             for i in (2, 3, 4, 5):
                 torch.testing.assert_close(got[i][:, agree], want[i][:, agree],
                                            atol=IMG_ATOL, rtol=IMG_RTOL)
-        elif not all(bitwise[:7] + bitwise[8:]):
-            raise AssertionError(f"facade {name}: outputs apart from "
-                                 f"rasterize's: bitwise {bitwise}")
+            moved = split_weights(got[8][:, 0], want[8][:, 0], split,
+                                  binnings, f"facade {name}")
         report[name] = {"bitwise": "".join("1" if b else "0"
                                            for b in bitwise),
                         "max_abs_err": f"{float((got[2] - want[2]).abs().max()):.3e}",
                         "ms": f"{ms:.3f}"}
+        if name.startswith("cov3d"):
+            report[name].update(split_pixels=moved["split_pixels"],
+                                weights_moved=moved["moved"],
+                                weights_moved_sum=f"{moved['moved_sum']:.3e}")
     # the full layout renders as the packed one, but the weights' atomics
     layouts = list(zip(outs["cov3d_full"], outs["cov3d_precomp"]))
     if not all(torch.equal(a, b) for i, (a, b) in enumerate(layouts[1:], 1)
@@ -4590,20 +4935,21 @@ def print_interconnect() -> None:
 
 
 def build_phase(ptxas_also: tuple[str, ...] = ()) -> None:
-    """Builds K1 to K6, the env lookup and the check kernel
+    """Builds K1 to K7, the env lookup and the check kernel
     composite_decisions from the checkout's sources, one nvcc each, all at
-    once, and prints ptxas's report of K3's, K4's, K5's, K6's and the env
-    lookup's sources and of each source in `ptxas_also`, compiled beside
-    them."""
+    once, and prints ptxas's report of K3's, K4's, K5's, K6's, the env
+    lookup's and K7's sources and of each source in `ptxas_also`, compiled
+    beside them."""
     t0 = time.perf_counter()
     kernels = (composite_cuda.KERNEL, composite_cuda.BWD_KERNEL,
                ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
                composite_cuda.TWO_WALK_KERNEL, composite_cuda.DECISIONS_KERNEL,
-               shading_eval_cuda.KERNEL, env_lookup_cuda.KERNEL)
+               shading_eval_cuda.KERNEL, env_lookup_cuda.KERNEL,
+               projection_cuda.KERNEL)
     ptxas_sources = (*(str(_build.CSRC / f"{k}.cu") for k in (
         ray_trace_cuda.KERNEL, shading_cuda.KERNEL,
         composite_cuda.TWO_WALK_KERNEL, shading_eval_cuda.KERNEL,
-        env_lookup_cuda.KERNEL)), *ptxas_also)
+        env_lookup_cuda.KERNEL, projection_cuda.KERNEL)), *ptxas_also)
     with ThreadPoolExecutor(len(kernels) + len(ptxas_sources)) as pool:
         reports = pool.map(_build.ptxas_report, ptxas_sources)
         list(pool.map(_build.load_library, kernels))
@@ -4762,6 +5108,8 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
         main_k6 = k6_eval_phase(device)
     # the env lookup at s2-train's and s2-relight's shapes
     main_env = env_lookup_phase(device)
+    # K7, the projection, at s1-train's shape
+    main_k7 = k7_phase(device)
     # 15. the stage-2 eval render
     eval_launches = stage2_eval_phase(s2, device)
     # 16. where a stage-2 step's time goes
@@ -4897,7 +5245,12 @@ def main(device: str = "cuda:0", ptxas_also: tuple[str, ...] = (),
          "syn4_view_bound_ms": syn4_view["bound_ms"]},
         {"name": "env lookup", "route": "cuda", "source": ENV_SOURCE,
          "replaces": ENV_REPLACES, "launches_fwd": s2_launches["env-fwd"],
-         "launches_bwd": s2_launches["env-bwd"], **main_env}]}), flush=True)
+         "launches_bwd": s2_launches["env-bwd"], **main_env},
+        {"name": "K7 projection", "route": "cuda", "source": K7_SOURCE,
+         "replaces": K7_REPLACES, "launches_fwd": launches["K7"],
+         "launches_bwd": launches["K7-bwd"],
+         "stage2_launches": [s2_launches["K7"], s2_launches["K7-bwd"]],
+         **main_k7}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

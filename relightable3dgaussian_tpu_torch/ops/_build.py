@@ -39,8 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _LOADED: dict[str, ctypes.CDLL] = {}     # name -> library, filled at first load
-# An entry's argument kinds, one letter each: a pointer, an int, an int64_t.
-_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64}
+# An entry's argument kinds, one letter each: a pointer, an int, an int64_t,
+# a float.
+_KINDS = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_int64,
+          "f": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -144,9 +146,9 @@ class Entry:
         self.counters = counters
 
     def __call__(self, device: torch.device, *args) -> None:
-        """Launch on `device`'s current stream with `args`: Python ints as
-        they are, None as NULL, a tensor as its data pointer. The library
-        is loaded (and built) at the first call."""
+        """Launch on `device`'s current stream with `args`: Python ints and
+        floats as they are, None as NULL, a tensor as its data pointer. The
+        library is loaded (and built) at the first call."""
         if len(args) != len(self.kinds):
             raise TypeError(f"{self.label}: {len(args)} arguments, the entry "
                             f"takes {len(self.kinds)}")
@@ -154,9 +156,9 @@ class Entry:
         if fn.argtypes is None:
             fn.argtypes = [_KINDS[k] for k in self.kinds] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        # one identity test an argument: this is every launch's host path
-        args = [a if a is None or a.__class__ is int else a.data_ptr()
-                for a in args]
+        # one class test an argument: this is every launch's host path
+        args = [a if a is None or a.__class__ in (int, float)
+                else a.data_ptr() for a in args]
         with torch.cuda.device(device):
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:

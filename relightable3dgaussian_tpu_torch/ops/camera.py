@@ -58,7 +58,9 @@ def make_camera_params(R: np.ndarray, T: np.ndarray, width: int, height: int,
 
     def t(x):
         trace.count("host.syncs")   # a pageable copy waits for the stream
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        # row-major, as K7 (csrc/projection.cu) reads the matrices
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=device)
 
     return CameraParams(
         world_view=t(world_view),

@@ -15,8 +15,10 @@ vectorised: the T before each gaussian is the exclusive cumulative product
 of (1 − α) over the depth-sorted gaussians (1 − α >= 0.01, so no factor
 is zero), and the blend is one [pixels, P] × [P, A] product. That rounds the
 products and sums in another order than the scan. Plain torch with
-autograd, in the dtype of `means3d` (float32 or float64) on its device; for
-tests and chip_smoke at small P and images, never on a main path.
+autograd, in the dtype of `means3d` (float32 or float64) on its device, the
+projection included (`preprocess_plain` on every device, never the card's
+kernel); for tests and chip_smoke at small P and images, never on a main
+path.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from .camera import CameraParams
 from .config import RasterConfig
-from .projection import Preprocessed, preprocess
+from .projection import Preprocessed, preprocess_plain
 from .rasterize import RasterOut
 from .surface import pseudo_normal_from_depth
 
@@ -66,8 +68,9 @@ def rasterize_dense(means3d, scales, rotations, opacity, shs, features,
     cam = CameraParams(*(t.to(dtype) for t in cam))
     P = means3d.shape[0]
     H, W = cfg.height, cfg.width
-    prep = preprocess(means3d, scales, rotations, shs, cam, cfg,
-                      colors=colors_precomp, cov3d_precomp=cov3d_precomp)
+    prep = preprocess_plain(means3d, scales, rotations, shs, cam, cfg,
+                            colors=colors_precomp,
+                            cov3d_precomp=cov3d_precomp)
 
     order = torch.argsort(prep.depth.detach(), stable=True)
     sorted_prep = Preprocessed(*(t[order] for t in prep))

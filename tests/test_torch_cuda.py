@@ -19,7 +19,8 @@ from relightable3dgaussian_tpu_torch.models.lights import (DirectLightMap,
 from relightable3dgaussian_tpu_torch.models.render import render, view_features
 from relightable3dgaussian_tpu_torch.models.render import ViewInputs
 from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
-                                                 env_lookup_cuda, ray_trace,
+                                                 env_lookup_cuda, projection,
+                                                 projection_cuda, ray_trace,
                                                  ray_trace_cuda, shading_cuda,
                                                  shading_eval_cuda)
 from relightable3dgaussian_tpu_torch.ops.camera import make_camera_params
@@ -46,6 +47,8 @@ from relightable3dgaussian_tpu_torch.train.stage1 import train_step
 from relightable3dgaussian_tpu_torch.utils import trace
 from relightable3dgaussian_tpu_torch.utils.graphics import \
     fibonacci_sphere_sampling
+from relightable3dgaussian_tpu_torch.utils.quaternions import (
+    build_covariance, strip_symmetric)
 
 pytestmark = pytest.mark.cuda
 SIZE = 128
@@ -967,7 +970,8 @@ def test_shade_function_gradient_matches_autograd(cuda):
 LAUNCH_COUNTERS = ("k1.launches", "k2.launches", "k5.launches",
                    "k3.launches", "k4.launches", "k4.bwd_launches",
                    "k6.launches", "env.lookup_launches",
-                   "env.lookup_bwd_launches", "env.bwd_private")
+                   "env.lookup_bwd_launches", "env.bwd_private",
+                   "k7.launches", "k7.bwd_launches")
 
 
 def launch_case(label: str, device):
@@ -1005,6 +1009,18 @@ def launch_case(label: str, device):
                 *inputs, *(inputs[i] for i in (4, 6, 7))),
             "K6": lambda: shading_eval_cuda.rendering_equation_eval(
                 *x[:5], env, *x[6:])}[label]
+    if label in ("K7 forward", "K7 backward"):
+        x, cam, cfg, g = k7_case(0, device, P=256, size=64)
+        if label == "K7 forward":
+            return lambda: projection.preprocess(cam=cam, cfg=cfg, **x)
+        cams = (cam.world_view, cam.full_proj, cam.campos, cam.focal,
+                cam.tan_fov)
+        layout = projection_cuda.check_inputs(
+            x["means3d"], x["scales"], x["rotations"], x["shs"], None,
+            x["mean2d_offset"], x["opacity"], None, cams, cfg)
+        return lambda: projection_cuda.project_bwd(
+            x["means3d"], x["scales"], x["rotations"], x["shs"], None, cams,
+            *g, layout)
     dirs = torch.nn.functional.normalize(torch.randn((100, 3), device=device),
                                          dim=-1)
     if label == "env lookup forward":
@@ -1017,7 +1033,8 @@ def launch_case(label: str, device):
 @pytest.mark.parametrize("label", ["K1", "K2", "K5", "decisions", "K3",
                                    "K4-fwd", "K4-bwd", "K6",
                                    "env lookup forward",
-                                   "env lookup backward"])
+                                   "env lookup backward", "K7 forward",
+                                   "K7 backward"])
 def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch, label):
     """On CUDA tensors each wrapper launches its kernel or raises: a
     library that does not build, a launch that fails, or an input the kernel
@@ -1058,6 +1075,129 @@ def test_cuda_tensors_reach_the_kernel_or_raise(cuda, monkeypatch, label):
         with pytest.raises(RuntimeError, match=match):
             call()
     assert [trace.counter(c) for c in LAUNCH_COUNTERS] == counts
+
+
+# ---------------------------------------------------------------------------
+# K7, the projection, against its plain version on the card
+# ---------------------------------------------------------------------------
+
+K7_P, K7_SIZE = 300_000, 800        # s1-train's points and image
+# K7 and preprocess_plain, both float32 on the card, are held against
+# preprocess_plain in float64 by chip_smoke.py's k7_check (its K7_TOL note
+# gives the bounds and why).
+K7_BRANCHES = {"main": (3, None, True, True), "deg0": (0, None, True, True),
+               "deg1": (1, None, True, False), "deg2": (2, None, False, True),
+               "packed": (3, "packed", True, True),
+               "full": (3, "full", False, True),
+               "colors": (3, "colors", True, True)}
+
+
+def k7_case(seed: int, device, branch: str = "main", P: int = K7_P,
+            size: int = K7_SIZE):
+    """(preprocess's keyword inputs, cfg, upstream gradients) of a seeded
+    scene: P points in the unit cube before the camera at z = 3, 1% moved
+    behind it or onto the near plane (culled by depth), 2% past 1.3
+    tan(fov/2) sideways (the Jacobian's clamp), raw unnormalised
+    quaternions, SH degree 3 rows of which 2% have a DC term that clamps
+    the colour, opacities from 0.001 (below 1/255: an empty rect) to 0.99.
+    K7_BRANCHES[branch] = (SH degree, covariance or colour source, opacity
+    given, mean2d_offset given). Leaves require grad."""
+    deg, source, with_op, with_offset = K7_BRANCHES[branch]
+    rng = np.random.default_rng(seed)
+    xyz = rng.uniform(-1.0, 1.0, (P, 3))
+    behind = rng.random(P) < 0.01
+    xyz[behind, 2] = rng.uniform(-6.0, -2.7, int(behind.sum()))
+    side = rng.random(P) < 0.02
+    xyz[side, 0] = rng.choice([-1.0, 1.0], int(side.sum())) * rng.uniform(
+        1.5, 4.0, int(side.sum()))
+    shs = rng.normal(size=(P, 16, 3)) * 0.2
+    shs[:, 0] = rng.normal(size=(P, 3))
+    shs[rng.random(P) < 0.02, 0] = -4.0
+    scales = rng.uniform(0.002, 0.08, (P, 3))
+    rots = rng.normal(size=(P, 4))
+
+    def leaf(a):
+        return torch.tensor(a, dtype=torch.float32, device=device,
+                            requires_grad=True)
+
+    x = {"means3d": leaf(xyz), "scales": leaf(scales), "rotations": leaf(rots),
+         "shs": leaf(shs),
+         "opacity": (torch.tensor(rng.uniform(0.001, 0.99, P),
+                                  dtype=torch.float32, device=device)
+                     if with_op else None),
+         "mean2d_offset": (leaf(np.zeros((P, 2))) if with_offset else None),
+         "colors": None, "cov3d_precomp": None}
+    if source in ("packed", "full"):
+        with torch.no_grad():
+            cov = build_covariance(x["scales"], x["rotations"])
+            if source == "packed":
+                cov = strip_symmetric(cov)
+        x["cov3d_precomp"] = cov.requires_grad_()
+        x["scales"], x["rotations"] = (x["scales"].detach(),
+                                       x["rotations"].detach())
+    elif source == "colors":
+        x["colors"] = leaf(rng.uniform(size=(P, 3)))
+        x["shs"] = None
+    g = [torch.tensor(rng.normal(size=s), dtype=torch.float32, device=device)
+         for s in ((P, 2), (P,), (P, 3), (P, 3))]
+    cam = view(device, size, size).cam
+    return x, cam, RasterConfig(size, size, sh_degree=deg), g
+
+
+def k7_check(x: dict, cam, cfg, g, label: str) -> dict:
+    """chip_smoke.py's k7_check of K7 (preprocess on CUDA tensors), with
+    one launch each way."""
+    before = (trace.counter("k7.launches"), trace.counter("k7.bwd_launches"))
+    errs = chip_smoke_module().k7_check(projection.preprocess, x, cam, cfg, g,
+                                        label)
+    assert (trace.counter("k7.launches") - before[0],
+            trace.counter("k7.bwd_launches") - before[1]) == (1, 1)
+    print(label, "K7, plain float32 from float64, scale:", errs)
+    assert errs["culled"] > 0 and errs["near_integer"] > 0
+    return errs
+
+
+@pytest.mark.parametrize("seed,branch", [
+    (0, "main"), (1, "main"), (2, "main"), (0, "deg0"), (1, "deg1"),
+    (2, "deg2"), (0, "packed"), (1, "full"), (2, "colors")])
+def test_k7_matches_plain(cuda, seed, branch):
+    """At s1-train's 300,000 points and 800 x 800, three seeds, and each
+    branch of the kernel: SH degree 0-3, the packed and full precomputed
+    covariance, colours given, opacity and offset given or not."""
+    x, cam, cfg, g = k7_case(seed, cuda, branch)
+    k7_check(x, cam, cfg, g, f"{branch} seed {seed}")
+
+
+def test_k7_launches_once_a_stage1_train_step(cuda, tmp_path):
+    """One stage-1 train step on the card projects through one K7 forward
+    and one backward launch."""
+    path, gt_view = train_state(tmp_path)
+    before = (trace.counter("k7.launches"), trace.counter("k7.bwd_launches"))
+    step_from_state(path, gt_view, cuda)
+    assert (trace.counter("k7.launches") - before[0],
+            trace.counter("k7.bwd_launches") - before[1]) == (1, 1)
+
+
+@torch.no_grad()
+def test_k7_refuses_what_it_does_not_take(cuda):
+    """Half and double precision, SH degree 4, too few SH coefficients for
+    the degree and a camera that needs a gradient raise before any
+    launch."""
+    x, cam, cfg, _ = k7_case(0, cuda, P=256, size=64)
+    before = trace.counter("k7.launches")
+    bad = [(dict(x, means3d=x["means3d"].half()), cam, cfg,
+            "means3d: got torch.float16 .* expected float32"),
+           (dict(x, means3d=x["means3d"].double()), cam, cfg,
+            "means3d: got torch.float64 .* expected float32"),
+           (x, cam, RasterConfig(64, 64, sh_degree=4), "SH degree 4"),
+           (dict(x, shs=x["shs"][:, :4].contiguous()), cam, cfg,
+            "expected .* >= 16"),
+           (x, cam._replace(focal=cam.focal.clone().requires_grad_()), cfg,
+            "requires grad")]
+    for inputs, c, conf, match in bad:
+        with pytest.raises(ValueError, match=match):
+            projection.preprocess(cam=c, cfg=conf, **inputs)
+    assert trace.counter("k7.launches") == before
 
 
 # ---------------------------------------------------------------------------

@@ -147,19 +147,22 @@ def test_ops_call_foreign_code_only_through_build():
 
 # Every C entry point of the port, by its label in errors.
 ENTRY_LABELS = ["K1", "K2", "K5", "decisions", "K3", "K4-fwd", "K4-bwd", "K6",
-                "env lookup forward", "env lookup backward"]
-C_KINDS = {"const void*": "p", "void*": "p", "int": "i", "int64_t": "q"}
+                "env lookup forward", "env lookup backward", "K7 forward",
+                "K7 backward"]
+C_KINDS = {"const void*": "p", "void*": "p", "int": "i", "int64_t": "q",
+           "float": "f"}
 
 
 def ops_entries() -> dict:
     """{label: Entry} of every kernel wrapper under ops/."""
     from relightable3dgaussian_tpu_torch.ops import (_build, composite_cuda,
                                                      env_lookup_cuda,
+                                                     projection_cuda,
                                                      ray_trace_cuda,
                                                      shading_cuda,
                                                      shading_eval_cuda)
-    modules = (composite_cuda, env_lookup_cuda, ray_trace_cuda, shading_cuda,
-               shading_eval_cuda)
+    modules = (composite_cuda, env_lookup_cuda, projection_cuda,
+               ray_trace_cuda, shading_cuda, shading_eval_cuda)
     return {e.label: e for m in modules for e in vars(m).values()
             if isinstance(e, _build.Entry)}
 
@@ -171,7 +174,7 @@ def test_every_launch_is_a_declared_entry():
 @pytest.mark.parametrize("label", ENTRY_LABELS)
 def test_entry_declares_its_c_signature(label):
     """An entry's argument kinds are its source's `extern "C"` parameters
-    in order (pointers, int, int64_t), and the last parameter is the
+    in order (pointers, int, int64_t, float), and the last parameter is the
     stream the call appends."""
     entry = ops_entries()[label]
     src = (PORT / "csrc" / f"{entry.source}.cu").read_text()
